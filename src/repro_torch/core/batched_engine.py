@@ -1,0 +1,140 @@
+"""Batched federated round engine: every client's local phase at once.
+
+The port of ``repro/core/batched_engine.py`` for the Nelder–Mead
+optimizer.  One round's local training — all clients, every regulated
+iteration, the distillation objective — runs on the engine's device as
+one batched computation:
+
+  - the circuit tape (``quantum/tape.py``) replayed over every client's
+    every candidate point as one ``(C·K·Bmax, 2**n)`` statevector batch,
+  - the masked batched Nelder–Mead (``optim/batched_nm.py``): speculative
+    ``(C, n+3, P)`` candidates + masked branch selection,
+  - the per-client objective F_i + λ·KL(teacher‖student) + µ·prox,
+    term for term the JAX package's ``client_objective``.
+
+Padding/mask contract
+---------------------
+Client shards have ragged sizes, so the engine stacks them once at
+construction into dense ``(C, Bmax, …)`` tensors, ``Bmax = max_i n_i``:
+
+  - ``qX``      (C, Bmax, n_qubits)  zero-padded features,
+  - ``qy``      (C, Bmax)            zero-padded labels,
+  - ``mask``    (C, Bmax)            1.0 on real rows, 0.0 on padding,
+  - ``teacher`` (C, Bmax, n_classes) LLM soft labels, uniform on padding.
+
+Every batch reduction is mask-weighted: NLL and KL average as
+``Σ mask·term / Σ mask``, so padded rows are evaluated but contribute
+nothing.  The denominator is clamped to 1, so an all-padding client
+stays finite; for real clients (Σ mask ≥ 1) the clamp is inert.
+
+Per-client ``maxiter`` budgets are iteration masks.  Finite-shot
+backends are a later slice of the port and raise here.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.optim.batched_nm import batched_nm, best_point
+from repro_torch.quantum import backends as backend_mod
+from repro_torch.quantum import tape as tape_mod
+
+EPS = 1e-9
+
+
+def _numpy(a) -> np.ndarray:
+    return a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+
+def build_local_phase(spec, backend, *, lam: float, mu: float,
+                      use_llm: bool, max_iter: int = 100):
+    """The round's local-training phase (Nelder–Mead) as a function of
+    its inputs.
+
+    Returns ``local_phase(qX, qy, mask, teacher, theta_g, iters) →
+    (x (C, P) float32, n_evals (C,) int32)``; every tensor lies on one
+    device, and the phase runs there.
+    """
+    if backend.shots:
+        raise NotImplementedError(backend_mod.SHOTS_NOT_PORTED)
+    cq = tape_mod.compile_qnn(spec)
+
+    def client_objectives(xs, qX, qy, mask, teacher, theta_g):
+        """F_i + λ·KL + µ·prox for every client c and candidate k:
+        xs (C, K, P) → (C, K)."""
+        probs = tape_mod.tape_probs(cq, xs, qX[:, None])  # (C, K, B, cls)
+        noisy = backend.apply_channel(probs)
+        m = mask[:, None, :]                               # (C, 1, B)
+        m_sum = torch.clamp(mask.sum(-1), min=1.0)[:, None]
+        labels = qy.long()[:, None, :, None].expand(*noisy.shape[:-1], 1)
+        p = torch.gather(noisy, -1, labels)[..., 0]        # (C, K, B)
+        loss = -torch.sum(torch.log(p + EPS) * m, -1) / m_sum
+        if use_llm and lam > 0:
+            pt = torch.clamp(teacher, EPS, 1.0)[:, None]   # KL on raw probs
+            ps = torch.clamp(probs, EPS, 1.0)
+            rows = torch.sum(pt * (torch.log(pt) - torch.log(ps)), -1)
+            loss = loss + lam * torch.sum(rows * m, -1) / m_sum
+        if use_llm and mu > 0:
+            loss = loss + mu * torch.mean((xs - theta_g) ** 2, -1)
+        return loss
+
+    def local_phase(qX, qy, mask, teacher, theta_g, iters):
+        x0 = theta_g[None, :].expand(qX.shape[0], -1)
+
+        def f(xs):
+            return client_objectives(xs, qX, qy, mask, teacher, theta_g)
+
+        simplex, fvals, n_evals, _ = batched_nm(f, x0, iters, int(max_iter))
+        x, _ = best_point(simplex, fvals)
+        return x, n_evals
+
+    return local_phase
+
+
+class BatchedRoundEngine:
+    """Stacks client data once; runs each round's local phase on device."""
+
+    def __init__(self, task, spec, backend, *, lam: float, mu: float,
+                 use_llm: bool, teacher_probs: Optional[List] = None,
+                 max_iter: int = 100, device="cuda"):
+        C = task.n_clients
+        n_cls = task.n_classes
+        b_max = max(cl.n for cl in task.clients)
+        qX = np.zeros((C, b_max, spec.n_qubits), np.float32)
+        qy = np.zeros((C, b_max), np.int64)
+        mask = np.zeros((C, b_max), np.float32)
+        teacher = np.full((C, b_max, n_cls), 1.0 / n_cls, np.float32)
+        for i, cl in enumerate(task.clients):
+            qX[i, :cl.n] = cl.qX
+            qy[i, :cl.n] = cl.qy
+            mask[i, :cl.n] = 1.0
+            if teacher_probs is not None and teacher_probs[i] is not None:
+                teacher[i, :cl.n] = _numpy(teacher_probs[i])
+        self.device = torch.device(device)
+        to = lambda a: torch.from_numpy(a).to(self.device)   # noqa: E731
+        self._qX, self._qy = to(qX), to(qy)
+        self._mask, self._teacher = to(mask), to(teacher)
+        # sequential-path evals spent before the metered run: nm_init
+        # does n+1 (the initial simplex)
+        self.init_evals = spec.n_params + 1
+        self._local = build_local_phase(spec, backend, lam=lam, mu=mu,
+                                        use_llm=use_llm, max_iter=max_iter)
+
+    def run_round(self, theta_g: np.ndarray, maxiters: Sequence[int]
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+        """One local-training phase for all clients.
+
+        Returns (thetas (C, P) float64, n_evals (C,) int64): the trained
+        per-client parameters and the sequential-equivalent evaluation
+        counts (``init_evals`` + the branch-dependent spend).
+        """
+        theta_g = torch.as_tensor(_numpy(theta_g), dtype=torch.float32,
+                                  device=self.device)
+        iters = torch.as_tensor(np.asarray(maxiters, np.int32),
+                                device=self.device)
+        x, n_evals = self._local(self._qX, self._qy, self._mask,
+                                 self._teacher, theta_g, iters)
+        return (_numpy(x).astype(np.float64),
+                _numpy(n_evals).astype(np.int64))

@@ -1,0 +1,263 @@
+"""Algorithm 1 — the LLM-QFL federated orchestrator, on a torch device.
+
+The port of ``repro/core/orchestrator.py``.  Per round (T total):
+broadcast θ_g → [regulate maxiter → local gradient-free training on
+F_i + λ·KL + µ·prox] per device → alignment selection → weighted
+aggregation → server eval → termination check.  Communication time is
+accounted through the quantum backend's latency model (Table I).
+
+This slice runs ``method="qfl"`` with ``engine="batched"``,
+``rounds="host"`` and ``optimizer="nelder-mead"``: the local phase of
+every client runs as one batched computation on the device
+(``core/batched_engine.py``), and the round's control laws run on the
+host exactly as in the JAX package: θ_g and the aggregation are float64
+numpy, cast to float32 at the device boundary.  The other options raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
+
+The device is ``"cuda"`` unless the caller asks for another; there is
+no silent fallback to the CPU.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field, replace as dc_replace
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import random as jr
+from repro_torch.core import selection
+from repro_torch.core.batched_engine import BatchedRoundEngine
+from repro_torch.core.termination import TerminationCriterion
+from repro_torch.data.tasks import FederatedTask
+from repro_torch.quantum import backends as backend_mod
+from repro_torch.quantum import qnn
+from repro_torch.quantum import tape as tape_mod
+
+
+@dataclass
+class RunConfig:
+    method: str = "llm-qfl"            # "qfl" | "llm-qfl"
+    select_frac: float = 1.0           # 1.0 = all; 0.1 = top-10% aligned
+    regulation: str = "adaptive"       # App. F variant
+    maxiter0: int = 10
+    maxiter_cap: int = 100
+    n_rounds: int = 10
+    epsilon: float = 1e-3
+    lam: float = 0.1                   # λ distillation weight (Eq. 6)
+    mu: float = 0.01                   # µ prox weight (Eq. 6)
+    optimizer: str = "nelder-mead"     # | "spsa"
+    engine: str = "sequential"         # | "batched"
+    rounds: str = "host"               # | "fused"
+    c_round: Optional[int] = None      # fused-only: per-round cohort size
+    dropout: float = 0.0               # fused-only: client dropout prob.
+    n_devices: Optional[int] = None    # 'clients' axis width
+    backend: str = "exact"
+    shots_override: Optional[int] = None   # replace the backend's shots
+    n_qubits: int = 4                  # must match the task's feature dim
+    llm_name: str = "tiny-llm"
+    llm_steps: int = 30
+    llm_lr: float = 3e-3
+    distill_rho: float = 0.25
+    qnn_kind: str = ""                 # "" → vqc for 2-class, qcnn for 3
+    early_stop: bool = True
+    seed: int = 0
+
+    @property
+    def uses_llm(self) -> bool:
+        return self.method == "llm-qfl"
+
+
+@dataclass
+class RoundRecord:
+    t: int
+    maxiters: List[int]
+    ratios: List[float]
+    client_losses: List[float]
+    selected: List[int]
+    server_loss: float
+    server_val_acc: float
+    server_test_acc: float
+    comm_time_s: float
+    cum_evals: List[int]
+    var_all: float = 0.0
+    var_selected: float = 0.0
+
+
+@dataclass
+class RunResult:
+    config: RunConfig
+    rounds: List[RoundRecord] = field(default_factory=list)
+    llm_losses: List[float] = field(default_factory=list)
+    llm_f1: List[float] = field(default_factory=list)
+    llm_finetune_time_s: float = 0.0
+    theta_g: Optional[np.ndarray] = None
+    terminated_early: bool = False
+
+    def series(self, attr: str):
+        return [getattr(r, attr) for r in self.rounds]
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP §1, {item!r}); this slice "
+        "runs method='qfl', engine='batched', rounds='host', "
+        "optimizer='nelder-mead'")
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the card; asking for CUDA without one raises."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to "
+                           "run the port's plain path on the CPU")
+    return device
+
+
+class Orchestrator:
+    def __init__(self, task: FederatedTask, rc: RunConfig, device=None):
+        self.task = task
+        self.rc = rc
+        if rc.engine not in ("sequential", "batched"):
+            raise ValueError(f"unknown engine {rc.engine!r}")
+        if rc.rounds not in ("host", "fused"):
+            raise ValueError(f"unknown rounds mode {rc.rounds!r}; "
+                             "'host' or 'fused'")
+        if rc.rounds != "fused" and (rc.c_round is not None
+                                     or rc.dropout != 0.0):
+            raise ValueError(
+                "c_round / dropout are population semantics of the "
+                "fused round loop; set rounds='fused'")
+        if rc.uses_llm:
+            raise _not_ported("method='llm-qfl' (the LLM stage)",
+                              "the LLM stage")
+        if rc.engine == "sequential":
+            raise _not_ported("engine='sequential'",
+                              "engine sequential and batched SPSA")
+        if rc.optimizer != "nelder-mead":
+            raise _not_ported(f"optimizer={rc.optimizer!r}",
+                              "engine sequential and batched SPSA")
+        if rc.rounds == "fused":
+            raise _not_ported("rounds='fused'", "the fused round loop")
+        if rc.n_devices is not None and rc.n_devices > 1:
+            raise _not_ported("n_devices > 1", "multi-GPU clients axis")
+        kind = rc.qnn_kind or ("vqc" if task.n_classes == 2 else "qcnn")
+        feat_dim = int(task.clients[0].qX.shape[1])
+        if feat_dim != rc.n_qubits:
+            raise ValueError(
+                f"n_qubits={rc.n_qubits} but the task encodes "
+                f"{feat_dim}-dim features (build_task(n_features=...))")
+        self.spec = qnn.QNNSpec(kind, n_qubits=rc.n_qubits,
+                                n_classes=task.n_classes)
+        self.backend = backend_mod.get(rc.backend)
+        if rc.shots_override is not None:
+            if rc.shots_override < 0:
+                raise ValueError("shots_override must be >= 0")
+            self.backend = dc_replace(self.backend,
+                                      shots=int(rc.shots_override))
+        if self.backend.shots:
+            raise NotImplementedError(backend_mod.SHOTS_NOT_PORTED)
+        self.device = resolve_device(device)
+        self.fwd = tape_mod.make_tape_forward(self.spec, self.device)
+        self._key = jr.PRNGKey(rc.seed)
+        self._engine = None
+        self._on_device = {}
+
+    # -- helpers -------------------------------------------------------------
+    def _put(self, a: np.ndarray) -> torch.Tensor:
+        """Task arrays are moved to the device once and reused."""
+        key = id(a)
+        if key not in self._on_device:
+            self._on_device[key] = (a, torch.as_tensor(a).to(self.device))
+        return self._on_device[key][1]
+
+    def _measure_probs(self, theta: np.ndarray, X) -> torch.Tensor:
+        theta = torch.as_tensor(np.asarray(theta, np.float32))
+        return self.backend.transform_probs(self.fwd(theta, self._put(X)))
+
+    def _nll(self, theta: np.ndarray, X, y) -> float:
+        return float(qnn.nll_loss(self._measure_probs(theta, X),
+                                  self._put(y)))
+
+    def _acc(self, theta: np.ndarray, X, y) -> float:
+        return float(qnn.accuracy(self._measure_probs(theta, X),
+                                  self._put(y)))
+
+    # -- main loop -------------------------------------------------------------
+    def run(self) -> RunResult:
+        rc, task = self.rc, self.task
+        res = RunResult(config=rc)
+
+        keys = jr.split(self._key)
+        self._key, k = keys[0], keys[1]
+        self._theta_g = self.spec.init_params(k).numpy().astype(np.float64)
+
+        self._engine = BatchedRoundEngine(
+            task, self.spec, self.backend, lam=rc.lam, mu=rc.mu,
+            use_llm=rc.uses_llm, max_iter=max(rc.maxiter_cap, rc.maxiter0),
+            device=self.device)
+
+        maxiters = [rc.maxiter0] * task.n_clients
+        cum_evals = [0] * task.n_clients
+        term = TerminationCriterion(epsilon=rc.epsilon, t_max=rc.n_rounds)
+
+        self.round_seconds = []          # host wall time of each round
+        for t in range(1, rc.n_rounds + 1):
+            t0 = time.perf_counter()
+            # plain QFL: fixed budgets; regulation (Alg. 1 lines 11–17)
+            # and alignment selection come with the LLM stage
+            ratios = [1.0] * task.n_clients
+
+            # local training: every client's phase as one batched program
+            thetas, losses, comm_t = [], [], 0.0
+            th_stack, n_evals = self._engine.run_round(self._theta_g,
+                                                       maxiters)
+            for i in range(task.n_clients):
+                cl = task.clients[i]
+                thetas.append(th_stack[i])
+                # report pure F_i (no penalty) as the device loss
+                losses.append(self._nll(th_stack[i], cl.qX, cl.qy))
+                cum_evals[i] += int(n_evals[i])
+                # metered-run evals only — init is not comm-billed
+                comm_t = max(comm_t, self.backend.eval_time(cl.n)
+                             * (int(n_evals[i]) - self._engine.init_evals))
+
+            # server loss of the current global model (pre-aggregation)
+            server_loss_pre = self._nll(self._theta_g, task.val_qX,
+                                        task.val_qy)
+
+            sel = list(range(task.n_clients))
+            var = selection.selection_variance(losses, server_loss_pre, sel)
+
+            # aggregation (Eq. 3) over the selected set, float64 on host
+            w = np.asarray([task.weights[i] for i in sel])
+            w = w / w.sum()
+            self._theta_g = sum(wi * thetas[i] for wi, i in zip(w, sel))
+
+            server_loss = self._nll(self._theta_g, task.val_qX, task.val_qy)
+            rec = RoundRecord(
+                t=t, maxiters=list(maxiters), ratios=ratios,
+                client_losses=losses, selected=sel,
+                server_loss=server_loss,
+                server_val_acc=self._acc(self._theta_g, task.val_qX,
+                                         task.val_qy),
+                server_test_acc=self._acc(self._theta_g, task.test_qX,
+                                          task.test_qy),
+                comm_time_s=comm_t, cum_evals=list(cum_evals),
+                var_all=var["var_all"], var_selected=var["var_selected"])
+            res.rounds.append(rec)
+            # the float() reads above synchronise with the device
+            self.round_seconds.append(time.perf_counter() - t0)
+
+            if term.update(server_loss, t) and rc.early_stop:
+                res.terminated_early = t < rc.n_rounds
+                break
+
+        res.theta_g = self._theta_g
+        return res
+
+
+def run_experiment(task: FederatedTask, device=None,
+                   **overrides) -> RunResult:
+    return Orchestrator(task, RunConfig(**overrides), device=device).run()

@@ -1,0 +1,83 @@
+"""Build the hand-written CUDA kernels at first use and load them.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
+into a shared library with a plain C interface and loaded with
+``ctypes``; nothing includes PyTorch's headers, so a build takes
+seconds.  Libraries are named by a digest of their source and flags, so
+an edited source is rebuilt and an unchanged one is loaded as it is.
+
+The build directory is ``kernels/_build/`` inside the package (listed in
+``.gitignore``), or ``$REPRO_TORCH_BUILD_DIR`` when that is set.
+Nothing here runs when a module is imported: the CPU tests import every
+module on a machine without ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                      "-Xptxas", "-v")
+
+_LOADED: Dict[str, ctypes.CDLL] = {}
+BUILD_SECONDS: Dict[str, float] = {}
+
+
+def build_dir() -> Path:
+    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
+    return Path(env) if env else Path(__file__).resolve().parent / "_build"
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError(
+            "nvcc not found (PATH, $CUDA_HOME/bin): the CUDA kernels are "
+            "built from source at first use")
+    return str(path)
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha1(src + " ".join(FLAGS).encode()).hexdigest()[:12]
+    return build_dir() / f"lib{name}_{digest}.so"
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cu`` if needed and return the loaded library.
+    A failed build raises with the compiler's output."""
+    if name in _LOADED:
+        return _LOADED[name]
+    so = library_path(name)
+    t0 = time.perf_counter()
+    if not so.exists():
+        so.parent.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}.cu:\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, so)
+    _LOADED[name] = ctypes.CDLL(str(so))
+    BUILD_SECONDS[name] = time.perf_counter() - t0
+    return _LOADED[name]
+
+
+def build_log(name: str) -> str:
+    """The compiler's output (ptxas registers, spills) of the last build."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""

@@ -1,0 +1,74 @@
+"""Plain PyTorch versions of the port's kernels (the correctness contract).
+
+Each function here is the definition its hand-written CUDA kernel is
+held to on the card (``chip_smoke.py``), and what the kernel's dispatch
+(``kernels/ops.py``) runs for a tensor on the CPU.  Each mirrors its
+counterpart in the JAX package's ``kernels/ref.py`` and is tested against
+it on identical inputs (``tests/test_torch_kernels.py``).
+"""
+from __future__ import annotations
+
+import functools
+from typing import Tuple
+
+import torch
+
+
+@functools.lru_cache(maxsize=None)
+def pair_indices(target: int, control: int, n_qubits: int,
+                 device="cpu") -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """Index pairs (amp with target bit 0, partner) + control mask.
+
+    Qubit ``q`` is bit ``n-1-q`` of the big-endian flat index.  Returns
+    ``(idx0, idx1)`` each ``(2**n / 2,)`` int64 and ``cmask``
+    ``(2**n / 2,)`` float32 — 1.0 where the gate acts (control bit set,
+    or no control, ``control < 0``).  Results are cached and shared
+    (the plain path replays every gate of a tape per evaluation): treat
+    them as read-only.
+    """
+    half = (1 << n_qubits) // 2
+    shift = n_qubits - 1 - target
+    stride = 1 << shift
+    k = torch.arange(half, dtype=torch.int64, device=device)
+    idx0 = ((k >> shift) << (shift + 1)) | (k & (stride - 1))
+    idx1 = idx0 | stride
+    if control < 0:
+        cmask = torch.ones(half, device=device)
+    else:
+        cmask = ((idx0 >> (n_qubits - 1 - control)) & 1).float()
+    return idx0, idx1, cmask
+
+
+def statevector_gate(psi_re: torch.Tensor, psi_im: torch.Tensor,
+                     g_re: torch.Tensor, g_im: torch.Tensor,
+                     target: int, control: int, n_qubits: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched controlled 2×2 gate on split-plane statevectors.
+
+    psi: ``(B, 2**n)`` float32 re/im planes; g: ``(B, 2, 2)`` re/im
+    planes, one gate per row; the gate acts on qubit ``target``, only
+    where qubit ``control`` is set (``control < 0``: everywhere).
+    Returns the new ``(re, im)`` planes: gather the pairs, complex 2×2
+    mat-vec, ``cmask`` blend, scatter.
+    """
+    idx0, idx1, cmask = pair_indices(target, control, n_qubits,
+                                     psi_re.device)
+    a0r, a0i = psi_re[:, idx0], psi_im[:, idx0]
+    a1r, a1i = psi_re[:, idx1], psi_im[:, idx1]
+    g00r, g01r = g_re[:, 0, 0, None], g_re[:, 0, 1, None]
+    g10r, g11r = g_re[:, 1, 0, None], g_re[:, 1, 1, None]
+    g00i, g01i = g_im[:, 0, 0, None], g_im[:, 0, 1, None]
+    g10i, g11i = g_im[:, 1, 0, None], g_im[:, 1, 1, None]
+    # complex products associate as (g·a0) + (g·a1), as in the oracle
+    n0r = (g00r * a0r - g00i * a0i) + (g01r * a1r - g01i * a1i)
+    n0i = (g00r * a0i + g00i * a0r) + (g01r * a1i + g01i * a1r)
+    n1r = (g10r * a0r - g10i * a0i) + (g11r * a1r - g11i * a1i)
+    n1i = (g10r * a0i + g10i * a0r) + (g11r * a1i + g11i * a1r)
+    m = cmask[None, :]
+    out_re, out_im = psi_re.clone(), psi_im.clone()
+    out_re[:, idx0] = m * n0r + (1.0 - m) * a0r
+    out_im[:, idx0] = m * n0i + (1.0 - m) * a0i
+    out_re[:, idx1] = m * n1r + (1.0 - m) * a1r
+    out_im[:, idx1] = m * n1i + (1.0 - m) * a1i
+    return out_re, out_im

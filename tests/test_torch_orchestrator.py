@@ -1,0 +1,94 @@
+"""The whole slice: the port's ``run_experiment`` (QFL, batched
+Nelder–Mead, host rounds) against the JAX package's on the same task.
+
+Integer accounting — budgets, cumulative evals, selected sets, rounds —
+must be exactly equal; server and client losses agree within 1e-5 and
+θ_g within 1e-4, the JAX package's own engine-parity tolerances.  The
+port is held to the JAX **host** round loop.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro.core.orchestrator import run_experiment as jax_run_experiment
+from repro.data.tasks import build_task as jax_build_task
+from repro_torch.core import orchestrator
+from repro_torch.core.orchestrator import RunConfig, run_experiment
+from repro_torch.data.tasks import build_task
+
+# small shapes: one intra-op thread per test worker, or the workers
+# oversubscribe the cores
+torch.set_num_threads(1)
+
+KW = dict(method="qfl", optimizer="nelder-mead", engine="batched",
+          n_rounds=3, maxiter0=5, early_stop=False)
+TASKS = {
+    "genomic": ("genomic", dict(n_clients=3, train_size=90, test_size=45,
+                                val_size=30, seed=5)),
+    "tweets": ("tweets", dict(n_clients=3, train_size=60, test_size=24,
+                              val_size=24, seed=7)),
+}
+
+
+@pytest.mark.parametrize("task_name", ["genomic", "tweets"])
+def test_run_experiment_matches_jax(task_name):
+    name, tkw = TASKS[task_name]
+    got = run_experiment(build_task(name, **tkw), device="cpu", **KW)
+    want = jax_run_experiment(jax_build_task(name, **tkw), **KW)
+    assert len(got.rounds) == len(want.rounds) == 3
+    for attr in ("t", "maxiters", "cum_evals", "selected", "ratios"):
+        assert got.series(attr) == want.series(attr), attr
+    np.testing.assert_allclose(got.series("server_loss"),
+                               want.series("server_loss"), atol=1e-5,
+                               rtol=0)
+    np.testing.assert_allclose(got.series("client_losses"),
+                               want.series("client_losses"), atol=1e-5,
+                               rtol=0)
+    np.testing.assert_allclose(got.series("comm_time_s"),
+                               want.series("comm_time_s"), atol=1e-12)
+    np.testing.assert_allclose(got.theta_g, want.theta_g, atol=1e-4, rtol=0)
+    assert got.theta_g.dtype == np.float64
+    assert got.terminated_early == want.terminated_early
+
+
+def test_early_stop_matches_jax():
+    name, tkw = TASKS["genomic"]
+    kw = dict(KW, n_rounds=6, early_stop=True, epsilon=0.05)
+    got = run_experiment(build_task(name, **tkw), device="cpu", **kw)
+    want = jax_run_experiment(jax_build_task(name, **tkw), **kw)
+    assert len(got.rounds) == len(want.rounds) < 6
+    assert got.terminated_early and want.terminated_early
+    assert got.series("cum_evals") == want.series("cum_evals")
+
+
+def test_run_config_defaults_and_fields_match():
+    from repro.core.orchestrator import RunConfig as JaxRunConfig
+    assert RunConfig() == RunConfig(**vars(JaxRunConfig()))
+
+
+@pytest.mark.parametrize("override,item", [
+    (dict(method="llm-qfl"), "LLM stage"),
+    (dict(engine="sequential"), "engine sequential"),
+    (dict(optimizer="spsa"), "engine sequential"),
+    (dict(rounds="fused"), "fused round loop"),
+    (dict(n_devices=2), "multi-GPU"),
+    (dict(backend="fake"), "finite-shot"),
+])
+def test_unported_options_raise(override, item):
+    name, tkw = TASKS["genomic"]
+    task = build_task(name, **tkw)
+    kw = dict(KW, **override)
+    with pytest.raises(NotImplementedError, match=item):
+        orchestrator.Orchestrator(task, RunConfig(**kw), device="cpu")
+
+
+def test_no_device_means_cuda(monkeypatch):
+    """Entry points run on the card unless asked for the CPU: without a
+    card, the default raises instead of falling back."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    name, tkw = TASKS["genomic"]
+    task = build_task(name, **tkw)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        orchestrator.Orchestrator(task, RunConfig(**KW))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_experiment(task, **KW)
