@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py              # the smoke run below
-    python3 chip_smoke.py --profile    # device busy/idle of the main path
+    python3 chip_smoke.py --profile    # device busy/idle of the main paths
 
 Run from the root of a checkout, on a machine with a CUDA card and
 ``nvcc``.  It imports nothing of JAX and nothing of the JAX package
@@ -10,22 +10,34 @@ Run from the root of a checkout, on a machine with a CUDA card and
 failure, and the script then exits non-zero with no result line.
 
 1. Prints the card's name and power limit (``nvidia-smi``), builds the
-   hand-written kernels from ``src/repro_torch/kernels/csrc`` and prints
-   the build time and the compiler's register report.
+   hand-written kernels from ``src/repro_torch/kernels/csrc`` (one
+   ``nvcc`` per source, all at once) and prints the build time and the
+   compiler's register and spill report.
 2. Kernel phase: holds each kernel against its plain PyTorch version on
-   the card over a sweep of shapes (tolerance stated per kernel), and
-   times both at the shapes the main path gives it.
-3. Main path at the quickstart width: federated QFL with batched
+   the card over a sweep of shapes (tolerance stated per kernel), the
+   backward passes against plain autograd, and times the kernel, the
+   plain version and a library call at the shapes the main paths give it.
+3. QFL main path at the quickstart width: federated QFL with batched
    Nelder–Mead on the genomic task, 4-qubit VQC (86 gates, 16 params),
    5 clients, 10 rounds, on the card; then the same run on the CPU (the
-   plain path), which it must match.  The kernel's launch counter is set
-   to 0 just before the card run and read just after.
-4. Wide phase: a 10-qubit VQC (485 gates, 40 params), 8 clients, one
-   round; finite losses and unit-norm statevectors.
-5. Prints the card line, one ``{"kernels": [...]}`` line, and last
+   plain path), which it must match.
+4. LLM-QFL main path (the README quickstart, Algorithm 1): the same task
+   with ``method="llm-qfl"``: Step 1 fine-tunes ``tiny-llm`` LoRA
+   adapters (30 steps) on the card, then 10 regulated quantum rounds.
+   The card's Step 1 is held to the CPU's (plain path) within the
+   batched-LLM tolerances, and the CPU's quantum rounds, run on the
+   card's Step 1 outputs, to the card's rounds exactly on the integer
+   accounting.
+5. Wide phases: a 10-qubit VQC (485 gates, 40 params), 8 clients, one
+   round; and the LLM stage alone at ``llama3.2-1b`` widths (16 layers,
+   d_model 2048, 4 clients × 16 rows × 64 tokens, 2 steps, float32 base).
+6. Prints the card line, one ``{"kernels": [...]}`` line, and last
    ``{"ok": true, "device": {...}}``.
 
-``--profile`` instead traces a warm 3-round quickstart run with
+Each path is driven with every launch counter set to 0 just before it
+and read just after, and the counts are held to the formulas stated in
+``llm_launch_formula`` and the QFL phases.  ``--profile`` instead traces
+a warm 3-round QFL run and a warm LLM-QFL run (Step 1 and 3 rounds) with
 ``torch.profiler`` and prints the device's busy time, its idle share of
 the wall time, and the kernels that take the device time.
 """
@@ -48,6 +60,14 @@ QUICKSTART = dict(task=dict(n_clients=5, train_size=250, test_size=100,
 WIDE = dict(task=dict(n_clients=8, train_size=400, test_size=100,
                       val_size=60, seed=0, n_features=10),
             run=dict(n_rounds=1, maxiter0=5, n_qubits=10))
+LLM_QUICKSTART = dict(task=QUICKSTART["task"],
+                      run=dict(n_rounds=10, llm_steps=30))
+LLM_WIDE = dict(task=dict(n_clients=4, train_size=64, test_size=16,
+                          val_size=16, seed=0),
+                steps=2, batch_size=16)
+# the batched-LLM tolerances of the JAX package's tests
+LLM_LOSS_TOL, LLM_F1_TOL, TEACHER_TOL = 5e-4, 0.05, 5e-4
+KERNELS = ("statevector_gate", "lora_matmul", "flash_attention")
 
 
 def check(cond, msg):
@@ -77,6 +97,33 @@ def cuda_ms(fn, iters: int, warmup: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Device time per call of ``fn()``: ``iters`` calls captured in one
+    CUDA graph and replayed back to back, so the host's launch path
+    (ctypes, checks, allocation) drops out."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
 
 
 # ---------------------------------------------------------------------------
@@ -124,33 +171,329 @@ def kernel_phase():
         # a controlled gate (CX-like) on the middle qubit, the common case
         args = (psi_re, psi_im, g_re, g_im, n // 2, 0, n)
         ms = cuda_ms(lambda: svg.statevector_gate(*args), iters=200)
+        dev_ms = graph_ms(lambda: svg.statevector_gate(*args))
         plain_ms = cuda_ms(lambda: ref.statevector_gate(*args), iters=50)
         N = 1 << n
         nbytes = 16 * B * N + 32 * B       # planes in + out, gates in
         flops = 14 * B * N                 # 28 per amplitude pair
         bound_ms = max(nbytes / HBM_BYTES_PER_S,
                        flops / F32_FLOPS_PER_S) * 1e3
-        shapes.append(dict(B=B, n_qubits=n, ms=ms, plain_ms=plain_ms,
-                           bound_ms=bound_ms, bytes=nbytes))
-        print(f"  B={B} n={n}: kernel {ms * 1e3:.2f} us/launch, plain "
+        shapes.append(dict(B=B, n_qubits=n, ms=ms, graph_ms=dev_ms,
+                           plain_ms=plain_ms, bound_ms=bound_ms,
+                           bytes=nbytes))
+        print(f"  B={B} n={n}: kernel {ms * 1e3:.2f} us/launch "
+              f"({dev_ms * 1e3:.2f} us in a CUDA graph), plain "
               f"{plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
               f"({nbytes / 1e6:.2f} MB at 3.35 TB/s)")
     return max_err, shapes
 
 
 # ---------------------------------------------------------------------------
+# phase 2: lora_matmul and flash_attention against their plain versions
+# ---------------------------------------------------------------------------
+def _randn(gen, shape, scale=1.0, dtype=None):
+    import torch
+    t = torch.randn(*shape, generator=gen, device="cuda") * scale
+    return t if dtype is None else t.to(dtype)
+
+
+def abs_err(got, want) -> float:
+    return float((got.detach().float() - want.detach().float()).abs().max())
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max(1, max |want|)."""
+    got, want = got.detach().float(), want.detach().float()
+    return float((got - want).abs().max()
+                 / max(1.0, float(want.abs().max())))
+
+
+def bound_ms(flops: float, nbytes: float):
+    t_ops, t_bytes = flops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+# Projection shapes (K, N) of one layer, and the rows M each launch sees:
+# tiny-llm for the LLM-QFL quickstart (C=5 clients, 16 × 64 tokens a
+# step, 50 × 64 in the evaluation) and llama3.2-1b for the wide phase
+# (C=4, 16 × 64).
+def projections(d, H, KH, D, ff):
+    return {"wq": (d, H * D), "wkv": (d, 2 * KH * D), "wo": (H * D, d),
+            "w_in": (d, 2 * ff), "w_out": (ff, d)}
+
+
+TINY_PROJ = projections(128, 4, 2, 32, 256)
+WIDE_PROJ = projections(2048, 32, 8, 64, 8192)
+LORA_SHAPES = (
+    [("tiny-" + n, 5, 1024, K, N, 4) for n, (K, N) in TINY_PROJ.items()]
+    + [("tiny-eval-w_in", 5, 3200, 128, 512, 4)]
+    + [("llama-" + n, 4, 1024, K, N, 8) for n, (K, N) in WIDE_PROJ.items()])
+ATTN_SHAPES = (("tiny", 80, 64, 4, 2, 32), ("tiny-eval", 250, 64, 4, 2, 32),
+               ("llama", 64, 64, 32, 8, 64))
+
+
+def lora_flops_bytes(C, M, K, N, r, elem=4):
+    flops = 2 * C * M * (K * N + K * r + r * N)
+    nbytes = elem * (C * M * K + K * N + C * K * r + C * r * N + C * M * N)
+    return flops, nbytes
+
+
+def lora_phase(gen):
+    """lora_matmul forward (and dx, the same kernel on transposed views)
+    against ``ref.lora_matmul``, gradients against plain autograd."""
+    import torch
+    from repro_torch.kernels import lora_matmul as lm, ref
+    max_err, cases = 0.0, 0
+    # the JAX kernel test's sweep, 2-D, both dtypes: its tolerances
+    for (M, K, N, r) in ((128, 256, 128, 8), (256, 512, 384, 16),
+                         (64, 128, 512, 4), (32, 64, 64, 32)):
+        for dt, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+            x = _randn(gen, (M, K), dtype=dt)
+            w, a, b = (_randn(gen, sh, 0.05, dt)
+                       for sh in ((K, N), (K, r), (r, N)))
+            got = lm.lora_matmul(x, w, a, b, 2.0)
+            want = ref.lora_matmul(x, w, a, b, 2.0)
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                       atol=tol)
+            if dt == torch.float32:
+                max_err = max(max_err, abs_err(got, want))
+            cases += 1
+    # the main paths' shapes, float32: forward, dx, dA, dB
+    for name, C, M, K, N, r in LORA_SHAPES:
+        x = _randn(gen, (C, M, K)).requires_grad_()
+        w = _randn(gen, (K, N), K ** -0.5)
+        a = _randn(gen, (C, K, r), K ** -0.5).requires_grad_()
+        b = _randn(gen, (C, r, N), 0.1).requires_grad_()
+        dy = _randn(gen, (C, M, N))
+        got = lm.lora_matmul(x, w, a, b, 2.0)
+        g = torch.autograd.grad(got, (x, a, b), dy)
+        want = ref.lora_matmul(x, w, a, b, 2.0)
+        gw = torch.autograd.grad(want, (x, a, b), dy)
+        for what, u, v in (("y", got, want), ("dx", g[0], gw[0]),
+                           ("dA", g[1], gw[1]), ("dB", g[2], gw[2])):
+            err = rel_err(u, v)
+            check(err <= 2e-5, f"lora_matmul {name} {what}: relative error "
+                  f"{err} > 2e-5")
+        max_err = max(max_err, abs_err(got, want))
+        cases += 1
+    torch.cuda.synchronize()
+    print(f"kernel phase: lora_matmul == plain on {cases} cases (forward, "
+          "and dx/dA/dB at the main paths' shapes), float32 max abs err "
+          f"{max_err:.3g} (tolerance: the JAX sweep's 2e-5 float32 / 2e-2 "
+          "bfloat16; at the main paths' shapes 2e-5 of the largest "
+          "magnitude: float32 sums in another order than cuBLAS's)")
+
+    shapes = []
+    with torch.no_grad():
+        for name, C, M, K, N, r in LORA_SHAPES:
+            x = _randn(gen, (C, M, K))
+            w = _randn(gen, (K, N), K ** -0.5)
+            a = _randn(gen, (C, K, r), K ** -0.5)
+            b = _randn(gen, (C, r, N), 0.1)
+            dy = _randn(gen, (C, M, N))
+            big = K * N >= 1 << 24
+            it = 10 if big else 100
+            ms = cuda_ms(lambda: lm._launch(x, w, a, b, 2.0), iters=it)
+            dx_ms = cuda_ms(lambda: lm._launch(dy, w.t(), b.transpose(1, 2),
+                                               a.transpose(1, 2), 2.0),
+                            iters=it)
+            plain = cuda_ms(lambda: ref.lora_matmul(x, w, a, b, 2.0),
+                            iters=it)
+            lib = lambda: torch.baddbmm(  # noqa: E731
+                torch.matmul(x, w), torch.bmm(x, a), b, alpha=2.0)
+            library = cuda_ms(lib, iters=it)
+            n_graph = 3 if big else 20
+            dev = graph_ms(lambda: lm._launch(x, w, a, b, 2.0), n_graph)
+            lib_dev = graph_ms(lib, n_graph)
+            flops, nbytes = lora_flops_bytes(C, M, K, N, r)
+            bms, by = bound_ms(flops, nbytes)
+            shapes.append(dict(shape=name, C=C, M=M, K=K, N=N, r=r, ms=ms,
+                               graph_ms=dev, dx_ms=dx_ms, plain_ms=plain,
+                               library_ms=library, library_graph_ms=lib_dev,
+                               bound_ms=bms, bound_by=by, gflop=flops / 1e9))
+            print(f"  {name} (C={C} M={M} K={K} N={N} r={r}): kernel "
+                  f"{ms * 1e3:.1f} us, in a CUDA graph {dev * 1e3:.1f} us "
+                  f"({flops / dev / 1e9:.1f} TFLOP/s); dx {dx_ms * 1e3:.1f} "
+                  f"us; plain {plain * 1e3:.1f} us; cuBLAS "
+                  f"{library * 1e3:.1f} us, in a graph {lib_dev * 1e3:.1f} "
+                  f"us; bound {bms * 1e3:.1f} us ({by})")
+    return max_err, shapes
+
+
+def attn_pairs(S: int, causal: bool = True, window: int = 0) -> int:
+    """Attendable (query, key) pairs of one head: what the data needs."""
+    q = [min(S, i + 1) if causal else S for i in range(S)]
+    if window:
+        q = [min(n, window) if causal else n for n in q]
+    return sum(q)
+
+
+def attn_flops_bytes(B, S, H, KH, D, backward=False, elem=4):
+    pairs = B * H * attn_pairs(S)
+    q = B * S * H * D
+    kv = 2 * B * S * KH * D
+    if not backward:     # S = QK^T and PV, 2 D flops each per pair
+        return 4 * D * pairs, elem * (2 * q + kv) + 4 * B * H * S
+    # S, dP, dV, dK, dQ: 10 D flops per pair; read q k v o dO lse, write
+    # dq dk dv
+    return 10 * D * pairs, elem * (4 * q + 2 * kv) + 4 * B * H * S
+
+
+def attn_phase(gen):
+    """flash_attention forward and backward against ``ref`` and plain
+    autograd; times against SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa, ref
+    max_err, max_bwd_err, cases = 0.0, 0.0, 0
+    # the JAX kernel test's sweep in its (B, H, S, D) layout, read through
+    # transposed views, both dtypes: its tolerances
+    for (B, H, S, D) in ((1, 2, 128, 64), (2, 4, 256, 64), (1, 1, 512, 128)):
+        for window in (0, 64):
+            for dt, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+                q, k, v = (_randn(gen, (B, H, S, D), dtype=dt).transpose(1, 2)
+                           for _ in range(3))
+                got = fa.flash_attention(q, k, v, causal=True, window=window)
+                want = ref.flash_attention(q, k, v, causal=True,
+                                           window=window)
+                torch.testing.assert_close(got.float(), want.float(),
+                                           rtol=tol, atol=tol)
+                if dt == torch.float32:
+                    max_err = max(max_err, abs_err(got, want))
+                cases += 1
+    # grouped heads, masks and the main paths' shapes: forward and backward
+    for name, B, S, H, KH, D, causal, window in (
+            [(n, B, S, H, KH, D, True, 0) for n, B, S, H, KH, D in ATTN_SHAPES]
+            + [("non-causal", 2, 128, 4, 2, 32, False, 0),
+               ("window", 3, 100, 4, 1, 64, True, 16),
+               ("head-dim-128", 2, 70, 2, 2, 128, False, 24)]):
+        q = _randn(gen, (B, S, H, D)).requires_grad_()
+        k = _randn(gen, (B, S, KH, D)).requires_grad_()
+        v = _randn(gen, (B, S, KH, D)).requires_grad_()
+        do = _randn(gen, (B, S, H, D))
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        g = torch.autograd.grad(got, (q, k, v), do)
+        want = ref.flash_attention(q, k, v, causal=causal, window=window)
+        gw = torch.autograd.grad(want, (q, k, v), do)
+        err = rel_err(got, want)
+        check(err <= 2e-5, f"flash_attention {name}: error {err} > 2e-5")
+        max_err = max(max_err, abs_err(got, want))
+        for what, u, w in zip(("dq", "dk", "dv"), g, gw):
+            err = rel_err(u, w)
+            check(err <= 2e-5, f"flash_attention_bwd {name} {what}: "
+                  f"relative error {err} > 2e-5")
+            max_bwd_err = max(max_bwd_err, abs_err(u, w))
+        cases += 1
+    torch.cuda.synchronize()
+    print(f"kernel phase: flash_attention == plain on {cases} cases, max "
+          f"abs err {max_err:.3g} forward, {max_bwd_err:.3g} backward "
+          "(tolerance: the JAX sweep's 2e-5 float32 / 2e-2 bfloat16; "
+          "elsewhere 2e-5 of the largest magnitude: online softmax in "
+          "float32 against a full softmax)")
+
+    fwd, bwd = [], []
+    for name, B, S, H, KH, D in ATTN_SHAPES:
+        q = _randn(gen, (B, S, H, D)).requires_grad_()
+        k = _randn(gen, (B, S, KH, D)).requires_grad_()
+        v = _randn(gen, (B, S, KH, D)).requires_grad_()
+        do = _randn(gen, (B, S, H, D))
+        with torch.no_grad():
+            out, lse = fa._forward(q, k, v, True, 0, D ** -0.5)
+            ms = cuda_ms(lambda: fa._forward(q, k, v, True, 0, D ** -0.5),
+                         iters=100)
+            plain = cuda_ms(lambda: ref.flash_attention(q, k, v), iters=50)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+            library = cuda_ms(sdpa, iters=100)
+            dev = graph_ms(lambda: fa._forward(q, k, v, True, 0, D ** -0.5))
+            lib_dev = graph_ms(sdpa)
+            bms, by = bound_ms(*attn_flops_bytes(B, S, H, KH, D))
+        fwd.append(dict(shape=name, B=B, S=S, H=H, KH=KH, D=D, ms=ms,
+                        graph_ms=dev, plain_ms=plain, library_ms=library,
+                        library_graph_ms=lib_dev, bound_ms=bms, bound_by=by))
+        b_ms = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse, do),
+                       iters=100)
+        b_dev = graph_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse,
+                                                        do))
+        y = ref.flash_attention(q, k, v)
+        b_plain = cuda_ms(lambda: torch.autograd.grad(
+            y, (q, k, v), do, retain_graph=True), iters=50)
+        ys = F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True)
+        dos = do.transpose(1, 2)
+        b_lib = cuda_ms(lambda: torch.autograd.grad(
+            ys, (q, k, v), dos, retain_graph=True), iters=50)
+        bbms, bby = bound_ms(*attn_flops_bytes(B, S, H, KH, D, True))
+        bwd.append(dict(shape=name, B=B, S=S, H=H, KH=KH, D=D, ms=b_ms,
+                        graph_ms=b_dev, plain_ms=b_plain, library_ms=b_lib,
+                        bound_ms=bbms, bound_by=bby))
+        print(f"  {name} (B={B} S={S} H={H} KH={KH} D={D}): forward "
+              f"{ms * 1e3:.1f} us (graph {dev * 1e3:.1f} us), plain "
+              f"{plain * 1e3:.1f} us, SDPA {library * 1e3:.1f} us (graph "
+              f"{lib_dev * 1e3:.1f} us), bound {bms * 1e3:.2f} us ({by}); "
+              f"backward {b_ms * 1e3:.1f} us (graph {b_dev * 1e3:.1f} us), "
+              f"plain {b_plain * 1e3:.1f} us, SDPA {b_lib * 1e3:.1f} us, "
+              f"bound {bbms * 1e3:.2f} us ({bby})")
+    return max_err, max_bwd_err, fwd, bwd
+
+
+# ---------------------------------------------------------------------------
 # phases 3 and 4: the port's main path through its entry points
 # ---------------------------------------------------------------------------
-def run_main_path(device, cfg):
-    """One federated run; returns (task, result, per-round seconds)."""
+def run_main_path(device, cfg, method="qfl", llm_outputs=None):
+    """One federated run; returns (task, result, orchestrator)."""
     from repro_torch.core.orchestrator import Orchestrator, RunConfig
     from repro_torch.data.tasks import build_task
     task = build_task("genomic", **cfg["task"])
-    rc = RunConfig(method="qfl", optimizer="nelder-mead", engine="batched",
+    rc = RunConfig(method=method, optimizer="nelder-mead", engine="batched",
                    backend="exact", **cfg["run"])
-    orch = Orchestrator(task, rc, device=device)
+    orch = Orchestrator(task, rc, device=device, llm_outputs=llm_outputs)
     res = orch.run()
-    return task, res, orch.round_seconds
+    return task, res, orch
+
+
+def zero_counters():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import lora_matmul as lm
+    from repro_torch.kernels import statevector_gates as svg
+    from repro_torch.quantum import tape
+    svg.statevector_gate.launches = 0
+    tape.run_tape.replays = 0
+    lm.lora_matmul.launches = 0
+    fa.flash_attention.launches = 0
+    fa.flash_attention_bwd.launches = 0
+
+
+def read_counters() -> dict:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import lora_matmul as lm
+    from repro_torch.kernels import statevector_gates as svg
+    from repro_torch.quantum import tape
+    return {"statevector_gate": svg.statevector_gate.launches,
+            "replays": tape.run_tape.replays,
+            "lora_matmul": lm.lora_matmul.launches,
+            "flash_attention": fa.flash_attention.launches,
+            "flash_attention_bwd": fa.flash_attention_bwd.launches}
+
+
+def llm_launch_formula(steps: int, n_layers: int, n_proj: int = 5) -> dict:
+    """Launches of one run of the LLM stage (Step 1).
+
+    Each train step runs every adapted projection (wq, wkv, wo, w_in,
+    w_out) forward, and its dx backward except layer 0's wq and wkv,
+    whose input (the normed embedding of frozen tokens) needs no
+    gradient: steps × (2 · layers · 5 − 2).  The evaluation then runs
+    every projection forward once: layers · 5.  Attention runs one
+    forward per layer and step plus the evaluation's, and one backward
+    per layer and step.
+    """
+    return {"lora_matmul": steps * (2 * n_layers * n_proj - 2)
+            + n_layers * n_proj,
+            "flash_attention": steps * n_layers + n_layers,
+            "flash_attention_bwd": steps * n_layers}
 
 
 def compare_runs(gpu, cpu):
@@ -174,18 +517,16 @@ def compare_runs(gpu, cpu):
 
 
 def main_phase():
-    from repro_torch.kernels import statevector_gates as svg
-    from repro_torch.quantum import tape
-    svg.statevector_gate.launches = 0
-    tape.run_tape.replays = 0
+    zero_counters()
     t0 = time.perf_counter()
-    task, gpu, secs = run_main_path("cuda", QUICKSTART)
+    task, gpu, orch = run_main_path("cuda", QUICKSTART)
     wall = time.perf_counter() - t0
-    launches, replays = svg.statevector_gate.launches, tape.run_tape.replays
+    n = read_counters()
+    launches, replays = n["statevector_gate"], n["replays"]
     check(launches > 0, "the main path launched no statevector_gate")
     check(launches == 86 * replays,
           f"{launches} launches for {replays} tape replays of 86 gates")
-    for r, s in zip(gpu.rounds, secs):
+    for r, s in zip(gpu.rounds, orch.round_seconds):
         print(f"  round {r.t}: server loss {r.server_loss:.6f} val acc "
               f"{r.server_val_acc:.3f} test acc {r.server_test_acc:.3f} "
               f"cum evals {r.cum_evals} wall {s:.3f} s")
@@ -200,18 +541,73 @@ def main_phase():
     return launches
 
 
+def llm_phase() -> dict:
+    """The LLM-QFL quickstart on the card, held to the CPU's plain path."""
+    import numpy as np
+    zero_counters()
+    t0 = time.perf_counter()
+    task, gpu, orch = run_main_path("cuda", LLM_QUICKSTART, method="llm-qfl")
+    wall = time.perf_counter() - t0
+    n = read_counters()
+    want = llm_launch_formula(LLM_QUICKSTART["run"]["llm_steps"], 2)
+    for name, count in want.items():
+        check(n[name] == count > 0, f"llm-qfl: {n[name]} {name} launches, "
+              f"the formula gives {count}")
+    check(n["statevector_gate"] == 86 * n["replays"] > 0,
+          f"llm-qfl: {n['statevector_gate']} statevector_gate launches for "
+          f"{n['replays']} replays of 86 gates")
+    for r, s in zip(gpu.rounds, orch.round_seconds):
+        print(f"  round {r.t}: maxiters {r.maxiters} selected {r.selected} "
+              f"server loss {r.server_loss:.6f} cum evals {r.cum_evals} "
+              f"wall {s:.3f} s")
+    print(f"llm-qfl path (cuda): fine-tune {gpu.llm_finetune_time_s:.2f} s "
+          f"(30 steps, tiny-llm, 5 clients), {len(gpu.rounds)} rounds, "
+          f"{wall:.2f} s in all; L_LLM {np.round(gpu.llm_losses, 4).tolist()}"
+          f" F1 {np.round(gpu.llm_f1, 4).tolist()}; launches "
+          f"{json.dumps(n)}")
+
+    # Step 1 on the CPU (plain path), against the card's
+    t0 = time.perf_counter()
+    step1 = dict(LLM_QUICKSTART, run=dict(LLM_QUICKSTART["run"], n_rounds=1))
+    _, cpu1, orch1 = run_main_path("cpu", step1, method="llm-qfl")
+    d_loss = float(np.max(np.abs(np.subtract(gpu.llm_losses,
+                                             cpu1.llm_losses))))
+    d_f1 = float(np.max(np.abs(np.subtract(gpu.llm_f1, cpu1.llm_f1))))
+    d_teacher = max(float(np.max(np.abs(a - b))) for a, b in zip(
+        orch.llm_outputs.teacher_probs, orch1.llm_outputs.teacher_probs))
+    check(d_loss <= LLM_LOSS_TOL and d_f1 <= LLM_F1_TOL
+          and d_teacher <= TEACHER_TOL,
+          f"llm-qfl Step 1, cuda vs cpu: |Δ L_LLM| {d_loss}, |Δ F1| {d_f1}, "
+          f"|Δ teacher| {d_teacher} (tolerances {LLM_LOSS_TOL}, "
+          f"{LLM_F1_TOL}, {TEACHER_TOL})")
+    print(f"llm-qfl Step 1 (cpu, plain) in {cpu1.llm_finetune_time_s:.2f} s: "
+          f"max |Δ L_LLM| {d_loss:.3g}, |Δ F1| {d_f1:.3g}, |Δ teacher| "
+          f"{d_teacher:.3g}")
+
+    # the quantum rounds on the CPU, fed the card's Step 1
+    t0 = time.perf_counter()
+    _, cpu2, _ = run_main_path("cpu", LLM_QUICKSTART, method="llm-qfl",
+                               llm_outputs=orch.llm_outputs)
+    loss_gap, theta_gap = compare_runs(gpu, cpu2)
+    print(f"llm-qfl rounds (cpu, plain, on the card's Step 1) in "
+          f"{time.perf_counter() - t0:.2f} s: equal maxiters/selected/"
+          f"cum_evals; max |Δ server loss| {loss_gap:.3g}, max |Δ θ_g| "
+          f"{theta_gap:.3g}")
+    return dict(counts=n, wall_s=wall, finetune_s=gpu.llm_finetune_time_s,
+                round_s=orch.round_seconds)
+
+
 def wide_phase():
     import numpy as np
     import torch
-    from repro_torch.kernels import statevector_gates as svg
     from repro_torch.quantum import qnn, tape
-    svg.statevector_gate.launches = 0
-    tape.run_tape.replays = 0
+    zero_counters()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     task, res, _ = run_main_path("cuda", WIDE)
     wall = time.perf_counter() - t0
-    launches, replays = svg.statevector_gate.launches, tape.run_tape.replays
+    n = read_counters()
+    launches, replays = n["statevector_gate"], n["replays"]
     cq = tape.compile_qnn(qnn.QNNSpec("vqc", n_qubits=10))
     check(cq.tape.n_gates == 485, f"10-qubit tape has {cq.tape.n_gates}")
     check(launches > 0 and launches == 485 * replays,
@@ -231,30 +627,124 @@ def wide_phase():
     return launches
 
 
+def llm_wide_phase() -> dict:
+    """The LLM stage alone at llama3.2-1b widths, float32 base."""
+    import numpy as np
+    import torch
+    from repro_torch import random as jr
+    from repro_torch.core.batched_llm import BatchedLLMEngine
+    from repro_torch.core.llm_client import task_llm_config
+    from repro_torch.data.tasks import build_task
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_leaves
+    task = build_task("genomic", **LLM_WIDE["task"])
+    cfg = task_llm_config("llama3.2-1b", task.vocab_size, task.llm_seq_len)
+    steps, bs = LLM_WIDE["steps"], LLM_WIDE["batch_size"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    base = M.init_params(cfg, jr.PRNGKey(0), dtype=torch.float32,
+                         device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(base))
+    eng = BatchedLLMEngine(task, cfg, base, seed=0, steps=steps,
+                           batch_size=bs)
+    zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    n = read_counters()
+    want = llm_launch_formula(steps, cfg.n_layers)
+    for name, count in want.items():
+        check(n[name] == count, f"llm wide: {n[name]} {name} launches, the "
+              f"formula gives {count}")
+    check(np.all(np.isfinite(out.losses)) and np.all(np.isfinite(
+        out.final_train_loss)), f"llm wide: non-finite losses {out.losses}")
+    for i, cl in enumerate(task.clients):
+        rows = out.teacher[i, :cl.n].sum(-1)
+        check(np.all(np.abs(rows - 1) <= 1e-5),
+              f"llm wide: teacher rows sum to {rows}")
+    # per-step time: further train steps through the public step function
+    step = M.make_train_step(cfg, lr=3e-3)
+    rows = torch.arange(bs)
+    batch = {k: torch.stack([torch.as_tensor(cl.llm_batch[k][rows])
+                             for cl in task.clients]).long().cuda()
+             for k in ("tokens", "labels")}
+    adapters, opt = eng.adapters, eng.opt_state
+    step_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        adapters, opt, metrics = step(base, adapters, opt, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    check(bool(torch.isfinite(metrics["loss"]).all()), "llm wide: step loss")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"llm wide phase (llama3.2-1b widths, {cfg.n_layers} layers, "
+          f"{n_params / 1e9:.3f} B float32 base params, C={task.n_clients}, "
+          f"{bs} x 64 tokens): base init {init_s:.2f} s; run() of {steps} "
+          f"steps + distill + evaluation {run_s:.2f} s; train steps "
+          f"{', '.join(f'{t:.3f}' for t in step_s)} s; L_LLM "
+          f"{np.round(out.losses, 4).tolist()}; launches {json.dumps(n)}; "
+          f"peak memory {peak:.2f} GiB")
+    return dict(counts=n, step_s=step_s, run_s=run_s, peak_gib=peak,
+                n_params=n_params)
+
+
 def profile_phase():
-    """Device busy time and idle share of a warm quickstart run."""
+    """Device busy time and idle share of warm QFL and LLM-QFL runs."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    warm = dict(QUICKSTART, run=dict(n_rounds=1))
-    run_main_path("cuda", warm)
-    cfg = dict(QUICKSTART, run=dict(n_rounds=3, early_stop=False))
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _, _, secs = run_main_path("cuda", cfg)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    check(busy_us > 0, "the profiler saw no device time")
-    print(f"profile: 3 quickstart rounds in {wall:.3f} s under the "
-          f"profiler (rounds {', '.join(f'{s:.3f}' for s in secs)} s); "
-          f"device busy {busy_us / 1e3:.2f} ms, idle share "
-          f"{1 - busy_us / 1e6 / wall:.4f}")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:7d}x  "
-              f"{e.key[:90]}")
+    for method, cfg, warm in (
+            ("qfl", dict(QUICKSTART, run=dict(n_rounds=3, early_stop=False)),
+             dict(QUICKSTART, run=dict(n_rounds=1))),
+            ("llm-qfl", dict(LLM_QUICKSTART, run=dict(
+                LLM_QUICKSTART["run"], n_rounds=3, early_stop=False)),
+             dict(LLM_QUICKSTART, run=dict(n_rounds=1, llm_steps=2)))):
+        run_main_path("cuda", warm, method=method)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _, res, orch = run_main_path("cuda", cfg, method=method)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_us = sum(e.self_device_time_total for e in kernels)
+        check(busy_us > 0, "the profiler saw no device time")
+        secs = orch.round_seconds
+        print(f"profile ({method}): {wall:.3f} s under the profiler "
+              f"(fine-tune {res.llm_finetune_time_s:.3f} s; rounds "
+              f"{', '.join(f'{s:.3f}' for s in secs)} s); device busy "
+              f"{busy_us / 1e3:.2f} ms, idle share "
+              f"{1 - busy_us / 1e6 / wall:.4f}")
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+            print(f"  {e.self_device_time_total / 1e3:9.3f} ms  "
+                  f"{e.count:7d}x  {e.key[:90]}")
+
+
+def build_kernels():
+    """Every kernel source at once; prints the time and ptxas report."""
+    import re
+    from repro_torch.kernels import build
+    build.build_all(KERNELS)
+    for name in KERNELS:
+        log = build.build_log(name)
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+        spills = [int(b) for b in re.findall(r"(\d+) bytes spill stores",
+                                             log)]
+        print(f"built {name} in {build.BUILD_SECONDS[name]:.1f} s "
+              f"(parallel): {len(regs)} entry points, registers "
+              f"{min(regs)}-{max(regs)}, spill stores up to "
+              f"{max(spills or [0])} bytes")
+
+
+def headline(rows, shape):
+    row = next(r for r in rows if r["shape"] == shape)
+    return {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms")}
 
 
 def main(argv) -> int:
@@ -268,30 +758,52 @@ def main(argv) -> int:
     card = card_line()
     print(f"card: {card}")
     if argv == ["--profile"]:
+        build_kernels()
         profile_phase()
         return 0
     check(not argv, f"unknown arguments {argv}; use --profile or none")
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
+    build_kernels()
 
-    from repro_torch.kernels import build, statevector_gates as svg
-    svg._library()
-    print(f"built {svg.NAME} in {build.BUILD_SECONDS[svg.NAME]:.1f} s")
-    for line in build.build_log(svg.NAME).splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
-
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import lora_matmul as lm
+    from repro_torch.kernels import statevector_gates as svg
     max_err, shapes = kernel_phase()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    lm_err, lm_shapes = lora_phase(gen)
+    fa_err, fa_bwd_err, fa_shapes, fa_bwd_shapes = attn_phase(gen)
     launches = main_phase()
+    llm = llm_phase()
     wide_launches = wide_phase()
+    llm_wide = llm_wide_phase()
 
     quick = shapes[0]
-    kernels = [dict(
-        name=svg.NAME, route="cuda", source=svg.SOURCE,
-        replaces=svg.REPLACES, launches=launches, max_abs_err=max_err,
-        ms=quick["ms"], plain_ms=quick["plain_ms"],
-        bound_ms=quick["bound_ms"], bound_by="bytes", library_ms=None,
-        launches_wide=wide_launches, shapes=shapes)]
+    n, nw = llm["counts"], llm_wide["counts"]
+    kernels = [
+        dict(name=svg.NAME, route="cuda", source=svg.SOURCE,
+             replaces=svg.REPLACES, launches=launches, max_abs_err=max_err,
+             ms=quick["ms"], plain_ms=quick["plain_ms"],
+             bound_ms=quick["bound_ms"], bound_by="bytes", library_ms=None,
+             launches_llm_qfl=n["statevector_gate"],
+             launches_wide=wide_launches, shapes=shapes),
+        dict(name=lm.NAME, route="cuda", source=lm.SOURCE,
+             replaces=lm.REPLACES, launches=n["lora_matmul"],
+             max_abs_err=lm_err, **headline(lm_shapes, "tiny-w_in"),
+             launches_wide=nw["lora_matmul"], shapes=lm_shapes),
+        dict(name=fa.NAME, route="cuda", source=fa.SOURCE,
+             replaces=fa.REPLACES, launches=n["flash_attention"],
+             max_abs_err=fa_err, **headline(fa_shapes, "tiny"),
+             launches_wide=nw["flash_attention"], shapes=fa_shapes),
+        dict(name=fa.NAME + "_bwd", route="cuda", source=fa.SOURCE,
+             replaces=fa.REPLACES, launches=n["flash_attention_bwd"],
+             max_abs_err=fa_bwd_err, **headline(fa_bwd_shapes, "tiny"),
+             launches_wide=nw["flash_attention_bwd"],
+             shapes=fa_bwd_shapes)]
+    print(json.dumps({"llm_qfl": {k: llm[k] for k in ("wall_s", "finetune_s",
+                                                      "round_s")},
+                      "llm_wide": {k: llm_wide[k] for k in (
+                          "step_s", "run_s", "peak_gib", "n_params")}}))
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,43 @@
+"""The paper's LLMs that the port runs, as ``ModelConfig``s.
+
+Copies of ``repro/configs/paper_models.py``: ``LLAMA32_1B``
+(Meta-LLaMA-3.2-1B, the base model of the paper's Experiment I) and
+``TINY_LLM``, the reduced member of the same family that the federated
+driver fine-tunes by default.  Weights are drawn at random from a seed.
+"""
+from repro_torch.configs.base import LoRAConfig, ModelConfig
+
+LLAMA32_1B = ModelConfig(
+    name="llama3.2-1b",
+    arch_type="dense",
+    source="hf:meta-llama/Llama-3.2-1B",
+    n_layers=16,
+    d_model=2048,
+    n_heads=32,
+    n_kv_heads=8,
+    head_dim=64,
+    d_ff=8192,
+    vocab_size=128256,
+    pattern=(("attn", "mlp"),),
+    rope_theta=500000.0,
+    tie_embeddings=True,
+    lora=LoRAConfig(rank=8, alpha=16.0),
+)
+
+# Tiny proxy used by the federated driver: same family as llama3.2-1b,
+# small enough to fine-tune from scratch in-process.
+TINY_LLM = ModelConfig(
+    name="tiny-llm",
+    arch_type="dense",
+    source="reduced llama family (CPU federated driver)",
+    n_layers=2,
+    d_model=128,
+    n_heads=4,
+    n_kv_heads=2,
+    head_dim=32,
+    d_ff=256,
+    vocab_size=512,
+    pattern=(("attn", "mlp"),),
+    rope_theta=10000.0,
+    lora=LoRAConfig(rank=4, alpha=8.0),
+)

@@ -2,4 +2,4 @@
 engine, and the control laws (regulation, selection, termination)."""
 from repro_torch.core import regulation, selection, termination  # noqa: F401
 from repro_torch.core.orchestrator import (  # noqa: F401
-    Orchestrator, RunConfig, RunResult, run_experiment)
+    LLMOutputs, Orchestrator, RunConfig, RunResult, run_experiment)

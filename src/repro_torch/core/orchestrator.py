@@ -6,13 +6,18 @@ F_i + λ·KL + µ·prox] per device → alignment selection → weighted
 aggregation → server eval → termination check.  Communication time is
 accounted through the quantum backend's latency model (Table I).
 
-This slice runs ``method="qfl"`` with ``engine="batched"``,
-``rounds="host"`` and ``optimizer="nelder-mead"``: the local phase of
-every client runs as one batched computation on the device
-(``core/batched_engine.py``), and the round's control laws run on the
-host exactly as in the JAX package: θ_g and the aggregation are float64
-numpy, cast to float32 at the device boundary.  The other options raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+The port runs ``method="qfl"`` and ``method="llm-qfl"`` with
+``engine="batched"``, ``rounds="host"`` and ``optimizer="nelder-mead"``.
+For ``llm-qfl``, Step 1 fine-tunes every client's LoRA adapters on a
+frozen float32 base (``core/batched_llm.py``) in round 1; its teacher
+soft labels feed the quantum objective's KL term and its losses L_LLM
+the optimizer regulation, and the alignment selection picks the clients
+to aggregate.  The local phase of every client runs as one batched
+computation on the device (``core/batched_engine.py``), and the round's
+control laws run on the host exactly as in the JAX package: θ_g and the
+aggregation are float64 numpy, cast to float32 at the device boundary.
+The other options raise ``NotImplementedError`` naming the ROADMAP item
+that ports them.
 
 The device is ``"cuda"`` unless the caller asks for another; there is
 no silent fallback to the CPU.
@@ -27,10 +32,13 @@ import numpy as np
 import torch
 
 from repro_torch import random as jr
-from repro_torch.core import selection
+from repro_torch.core import regulation, selection
 from repro_torch.core.batched_engine import BatchedRoundEngine
+from repro_torch.core.batched_llm import BatchedLLMEngine
+from repro_torch.core.llm_client import task_llm_config
 from repro_torch.core.termination import TerminationCriterion
 from repro_torch.data.tasks import FederatedTask
+from repro_torch.models import model as M
 from repro_torch.quantum import backends as backend_mod
 from repro_torch.quantum import qnn
 from repro_torch.quantum import tape as tape_mod
@@ -101,9 +109,9 @@ class RunResult:
 
 def _not_ported(what: str, item: str):
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP §1, {item!r}); this slice "
-        "runs method='qfl', engine='batched', rounds='host', "
-        "optimizer='nelder-mead'")
+        f"{what} is not ported yet (ROADMAP §1, {item!r}); the port "
+        "runs method='qfl' or 'llm-qfl', engine='batched', "
+        "rounds='host', optimizer='nelder-mead'")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -115,10 +123,27 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+@dataclass
+class LLMOutputs:
+    """Step 1's outputs, as the quantum rounds consume them: per-client
+    L_LLM, macro-F1 and teacher soft labels ``(n_i, n_classes)``."""
+    losses: List[float]
+    f1: List[float]
+    teacher_probs: List[np.ndarray]
+
+
 class Orchestrator:
-    def __init__(self, task: FederatedTask, rc: RunConfig, device=None):
+    """One federated run.  ``llm_outputs`` installs Step 1's outputs from
+    another run (the card's, or the JAX package's) in place of this run's
+    fine-tuning, so the quantum rounds can be compared on equal inputs;
+    the key stream advances as if the stage had run.  After Step 1,
+    ``self.llm_outputs`` holds the outputs the rounds consumed."""
+
+    def __init__(self, task: FederatedTask, rc: RunConfig, device=None,
+                 llm_outputs: Optional[LLMOutputs] = None):
         self.task = task
         self.rc = rc
+        self._llm_outputs = llm_outputs
         if rc.engine not in ("sequential", "batched"):
             raise ValueError(f"unknown engine {rc.engine!r}")
         if rc.rounds not in ("host", "fused"):
@@ -129,9 +154,10 @@ class Orchestrator:
             raise ValueError(
                 "c_round / dropout are population semantics of the "
                 "fused round loop; set rounds='fused'")
-        if rc.uses_llm:
-            raise _not_ported("method='llm-qfl' (the LLM stage)",
-                              "the LLM stage")
+        if rc.method not in ("qfl", "llm-qfl"):
+            raise ValueError(f"unknown method {rc.method!r}")
+        if rc.uses_llm:       # an unported LLM raises before any work
+            task_llm_config(rc.llm_name, task.vocab_size, task.llm_seq_len)
         if rc.engine == "sequential":
             raise _not_ported("engine='sequential'",
                               "engine sequential and batched SPSA")
@@ -184,6 +210,39 @@ class Orchestrator:
         return float(qnn.accuracy(self._measure_probs(theta, X),
                                   self._put(y)))
 
+    # -- Step 1: LLM fine-tuning (round 1 only) -------------------------------
+    def _llm_round(self) -> float:
+        """Fine-tune every client's LoRA adapters, distill toward the
+        FedAvg teacher, and collect the regulation losses and soft
+        labels.  The base is drawn in float32 on the run's device from
+        the run key's next split."""
+        rc, task = self.rc, self.task
+        t0 = time.perf_counter()
+        cfg = task_llm_config(rc.llm_name, task.vocab_size, task.llm_seq_len)
+        keys = jr.split(self._key)
+        self._key, k0 = keys[0], keys[1]
+        if self._llm_outputs is not None:
+            self.llm_outputs = out = self._llm_outputs
+            self._llm_losses = [float(x) for x in out.losses]
+            self._llm_f1 = [float(x) for x in out.f1]
+            self._teacher_probs = [np.asarray(t, np.float32)
+                                   for t in out.teacher_probs]
+            return 0.0
+        base = M.init_params(cfg, k0, dtype=torch.float32,
+                             device=self.device)
+        self._llm_engine = BatchedLLMEngine(
+            task, cfg, base, seed=rc.seed, lr=rc.llm_lr, steps=rc.llm_steps,
+            rho=rc.distill_rho, n_devices=rc.n_devices)
+        out = self._llm_engine.run()
+        self._llm_losses = [float(x) for x in out.losses]
+        self._llm_f1 = [float(x) for x in out.f1]
+        self._teacher_probs = self._llm_engine.teacher_probs_list(
+            task, out.teacher)
+        self.llm_outputs = LLMOutputs(self._llm_losses, self._llm_f1,
+                                      self._teacher_probs)
+        # the host reads of the stage's outputs synchronise with the device
+        return time.perf_counter() - t0
+
     # -- main loop -------------------------------------------------------------
     def run(self) -> RunResult:
         rc, task = self.rc, self.task
@@ -193,21 +252,36 @@ class Orchestrator:
         self._key, k = keys[0], keys[1]
         self._theta_g = self.spec.init_params(k).numpy().astype(np.float64)
 
+        if rc.uses_llm:
+            res.llm_finetune_time_s = self._llm_round()
+            res.llm_losses = list(self._llm_losses)
+            res.llm_f1 = list(self._llm_f1)
+        else:
+            self._teacher_probs = None
+
         self._engine = BatchedRoundEngine(
             task, self.spec, self.backend, lam=rc.lam, mu=rc.mu,
-            use_llm=rc.uses_llm, max_iter=max(rc.maxiter_cap, rc.maxiter0),
-            device=self.device)
+            use_llm=rc.uses_llm, teacher_probs=self._teacher_probs,
+            max_iter=max(rc.maxiter_cap, rc.maxiter0), device=self.device)
 
         maxiters = [rc.maxiter0] * task.n_clients
+        last_losses = [float("inf")] * task.n_clients
         cum_evals = [0] * task.n_clients
         term = TerminationCriterion(epsilon=rc.epsilon, t_max=rc.n_rounds)
 
         self.round_seconds = []          # host wall time of each round
         for t in range(1, rc.n_rounds + 1):
             t0 = time.perf_counter()
-            # plain QFL: fixed budgets; regulation (Alg. 1 lines 11–17)
-            # and alignment selection come with the LLM stage
             ratios = [1.0] * task.n_clients
+            # Step 2: regulation (Alg. 1 lines 11–17; only after round 1)
+            if rc.uses_llm and t > 1:
+                for i in range(task.n_clients):
+                    llm_l = self._llm_losses[i]
+                    if np.isfinite(last_losses[i]) and llm_l > 0:
+                        ratios[i] = last_losses[i] / llm_l
+                    maxiters[i] = regulation.regulate(
+                        maxiters[i], last_losses[i], llm_l,
+                        variant=rc.regulation, cap=rc.maxiter_cap)
 
             # local training: every client's phase as one batched program
             thetas, losses, comm_t = [], [], 0.0
@@ -222,12 +296,18 @@ class Orchestrator:
                 # metered-run evals only — init is not comm-billed
                 comm_t = max(comm_t, self.backend.eval_time(cl.n)
                              * (int(n_evals[i]) - self._engine.init_evals))
+            last_losses = list(losses)
 
             # server loss of the current global model (pre-aggregation)
             server_loss_pre = self._nll(self._theta_g, task.val_qX,
                                         task.val_qy)
 
-            sel = list(range(task.n_clients))
+            # client selection (Sec. III-B)
+            if rc.uses_llm and rc.select_frac < 1.0:
+                sel = selection.select_aligned(losses, server_loss_pre,
+                                               rc.select_frac)
+            else:
+                sel = list(range(task.n_clients))
             var = selection.selection_variance(losses, server_loss_pre, sel)
 
             # aggregation (Eq. 3) over the selected set, float64 on host
@@ -259,5 +339,7 @@ class Orchestrator:
 
 
 def run_experiment(task: FederatedTask, device=None,
+                   llm_outputs: Optional[LLMOutputs] = None,
                    **overrides) -> RunResult:
-    return Orchestrator(task, RunConfig(**overrides), device=device).run()
+    return Orchestrator(task, RunConfig(**overrides), device=device,
+                        llm_outputs=llm_outputs).run()

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
 into a shared library with a plain C interface and loaded with
 ``ctypes``; nothing includes PyTorch's headers, so a build takes
 seconds.  Libraries are named by a digest of their source and flags, so
-an edited source is rebuilt and an unchanged one is loaded as it is.
+an edited source is rebuilt and an unchanged one is loaded as it is;
+``build_all`` compiles several sources at once, one ``nvcc`` each.
 
 The build directory is ``kernels/_build/`` inside the package (listed in
 ``.gitignore``), or ``$REPRO_TORCH_BUILD_DIR`` when that is set.
@@ -20,7 +21,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -55,25 +56,42 @@ def library_path(name: str) -> Path:
     return build_dir() / f"lib{name}_{digest}.so"
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` if needed and return the loaded library.
-    A failed build raises with the compiler's output."""
-    if name in _LOADED:
-        return _LOADED[name]
-    so = library_path(name)
+def build_all(names: Iterable[str]) -> None:
+    """Compile every library of ``names`` that is missing, one ``nvcc``
+    each, all started together, and load them all.  A failed build
+    raises with the compiler's output."""
+    names = [n for n in names if n not in _LOADED]
     t0 = time.perf_counter()
-    if not so.exists():
+    procs = {}
+    for name in names:
+        so = library_path(name)
+        if so.exists():
+            continue
         so.parent.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT,
+                                        text=True), tmp, so)
+    failed = []
+    for name, (proc, tmp, so) in procs.items():
+        out, _ = proc.communicate()
+        so.with_suffix(".log").write_text(out)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, so)
-    _LOADED[name] = ctypes.CDLL(str(so))
-    BUILD_SECONDS[name] = time.perf_counter() - t0
+            failed.append(f"nvcc failed for {name}.cu:\n{out}")
+        else:
+            os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    for name in names:
+        _LOADED[name] = ctypes.CDLL(str(library_path(name)))
+        BUILD_SECONDS[name] = time.perf_counter() - t0
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cu`` if needed and return the loaded library.
+    A failed build raises with the compiler's output."""
+    build_all([name])
     return _LOADED[name]
 
 

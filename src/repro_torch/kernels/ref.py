@@ -72,3 +72,49 @@ def statevector_gate(psi_re: torch.Tensor, psi_im: torch.Tensor,
     out_re[:, idx1] = m * n1r + (1.0 - m) * a1r
     out_im[:, idx1] = m * n1i + (1.0 - m) * a1i
     return out_re, out_im
+
+
+def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
+                b: torch.Tensor, scale: float) -> torch.Tensor:
+    """y = x @ W + scale · (x @ A) @ B, accumulated in float32.
+
+    Batched over clients: x ``(C, M, K)``, a shared W ``(K, N)``, A
+    ``(C, K, r)`` and B ``(C, r, N)`` give ``(C, M, N)``; the unbatched
+    2-D form is the JAX oracle's.  Its gradient is plain autograd.
+    """
+    xf = x.float()
+    y = xf @ w.float()
+    y = y + scale * ((xf @ a.float()) @ b.float())
+    return y.to(x.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    scale: float = None) -> torch.Tensor:
+    """Reference attention in the model's layout, with grouped heads.
+
+    q ``(B, S, H, D)``, k/v ``(B, Sk, KH, D)``: q-head ``h`` reads
+    kv-head ``h // (H // KH)``, so with ``KH == H`` this is the JAX
+    oracle on GQA-expanded K/V, transposed.  Key ``kpos`` is attendable
+    from ``qpos`` iff ``kpos <= qpos`` (causal) and ``qpos - kpos <
+    window`` (window > 0).  Returns ``(B, S, H, D)``; the gradient is
+    plain autograd.
+    """
+    B, S, H, D = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    scale = scale or D ** -0.5
+    qf = q.float().transpose(1, 2)                          # (B, H, S, D)
+    kf = k.float().transpose(1, 2).repeat_interleave(G, dim=1)
+    vf = v.float().transpose(1, 2).repeat_interleave(G, dim=1)
+    logits = (qf @ kf.transpose(-1, -2)) * scale
+    qpos = torch.arange(S, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones(S, Sk, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window:
+        mask &= (qpos - kpos) < window
+    logits = logits.masked_fill(~mask, -torch.inf)
+    p = torch.softmax(logits, dim=-1)
+    return (p @ vf).transpose(1, 2).to(q.dtype)

@@ -1,0 +1,150 @@
+"""The LLM stage's hand-written CUDA kernels against their plain
+versions, on the card: ``lora_matmul`` and ``flash_attention``, forward
+and backward.  This file imports no JAX, so it runs on a machine with a
+card and no JAX:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_llm.py
+
+Without a card every case skips: the kernels have no CPU mode.
+Tolerances: the JAX kernel tests' own for the forward sweep (float32
+2e-5, bfloat16 2e-2, rtol and atol); gradients 2e-5 of the largest
+magnitude (float32, sums over up to a few thousand terms taken in
+another order than cuBLAS's).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import lora_matmul as lm
+from repro_torch.kernels import ops, ref
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _tol(dtype):
+    return (dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16
+            else dict(rtol=2e-5, atol=2e-5))
+
+
+def _rel_err(got, want):
+    got, want = got.detach().float(), want.detach().float()
+    return float((got - want).abs().max() / max(1.0, float(want.abs().max())))
+
+
+def _randn(rng, shape, dev, dtype=torch.float32, scale=1.0):
+    return torch.from_numpy((rng.standard_normal(shape) * scale)
+                            .astype(np.float32)).to(dev, dtype)
+
+
+@pytest.mark.parametrize("M,K,N,r", [
+    (128, 256, 128, 8), (256, 512, 384, 16), (64, 128, 512, 4),
+    (32, 64, 64, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lora_matmul_sweep(cuda, M, K, N, r, dtype):
+    rng = np.random.default_rng(M + K + N + r)
+    x = _randn(rng, (M, K), cuda, dtype)
+    w, a, b = (_randn(rng, s, cuda, dtype, 0.05)
+               for s in ((K, N), (K, r), (r, N)))
+    before = lm.lora_matmul.launches
+    got = ops.lora_matmul(x, w, a, b, 2.0)
+    assert lm.lora_matmul.launches == before + 1
+    want = ref.lora_matmul(x, w, a, b, 2.0)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("C,M,K,N,r", [(3, 1024, 128, 512, 4),
+                                       (2, 200, 256, 128, 8)])
+def test_lora_matmul_batched_and_grads(cuda, C, M, K, N, r):
+    rng = np.random.default_rng(C * M)
+    x = _randn(rng, (C, M, K), cuda).requires_grad_()
+    w = _randn(rng, (K, N), cuda, scale=0.1)
+    a = _randn(rng, (C, K, r), cuda, scale=0.1).requires_grad_()
+    b = _randn(rng, (C, r, N), cuda, scale=0.1).requires_grad_()
+    dy = _randn(rng, (C, M, N), cuda)
+    got = ops.lora_matmul(x, w, a, b, 2.0)
+    g = torch.autograd.grad(got, (x, a, b), dy)
+    want = ref.lora_matmul(x, w, a, b, 2.0)
+    gw = torch.autograd.grad(want, (x, a, b), dy)
+    assert _rel_err(got, want) <= 2e-5
+    for name, u, v in zip(("dx", "dA", "dB"), g, gw):
+        assert _rel_err(u, v) <= 2e-5, name
+
+
+def test_lora_matmul_zero_b_gives_exact_zero_da(cuda):
+    rng = np.random.default_rng(0)
+    x = _randn(rng, (2, 64, 128), cuda)
+    w = _randn(rng, (128, 64), cuda)
+    a = _randn(rng, (2, 128, 4), cuda).requires_grad_()
+    b = torch.zeros(2, 4, 64, device=cuda, requires_grad=True)
+    (da,) = torch.autograd.grad(ops.lora_matmul(x, w, a, b, 2.0).sum(), (a,))
+    assert bool((da == 0).all())
+
+
+def _qkv(rng, B, S, H, KH, D, dev, dtype=torch.float32):
+    return (_randn(rng, (B, S, H, D), dev, dtype),
+            _randn(rng, (B, S, KH, D), dev, dtype),
+            _randn(rng, (B, S, KH, D), dev, dtype))
+
+
+@pytest.mark.parametrize("B,H,S,D", [(1, 2, 128, 64), (2, 4, 256, 64),
+                                     (1, 1, 512, 128)])
+@pytest.mark.parametrize("window", [0, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_sweep(cuda, B, H, S, D, window, dtype):
+    """The JAX test's (B, H, S, D) layout, read through a transposed
+    view."""
+    rng = np.random.default_rng(B * H * S + window)
+    q, k, v = (_randn(rng, (B, H, S, D), cuda, dtype).transpose(1, 2)
+               for _ in range(3))
+    before = fa.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=True, window=window)
+    assert fa.flash_attention.launches == before + 1
+    want = ref.flash_attention(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+def test_flash_non_causal(cuda):
+    rng = np.random.default_rng(1)
+    q, k, v = _qkv(rng, 1, 128, 2, 2, 32, cuda)
+    torch.testing.assert_close(
+        ops.flash_attention(q, k, v, causal=False),
+        ref.flash_attention(q, k, v, causal=False), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("B,S,H,KH,D,causal,window", [
+    (80, 64, 4, 2, 32, True, 0), (4, 64, 32, 8, 64, True, 0),
+    (3, 100, 4, 1, 32, True, 16), (2, 96, 4, 2, 64, False, 0),
+    (2, 70, 2, 2, 128, False, 24)])
+def test_flash_attention_gqa_and_grads(cuda, B, S, H, KH, D, causal, window):
+    rng = np.random.default_rng(B * S + H)
+    q, k, v = (t.requires_grad_() for t in _qkv(rng, B, S, H, KH, D, cuda))
+    do = _randn(rng, (B, S, H, D), cuda)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    before = fa.flash_attention_bwd.launches
+    g = torch.autograd.grad(got, (q, k, v), do)
+    assert fa.flash_attention_bwd.launches == before + 1
+    want = ref.flash_attention(q, k, v, causal=causal, window=window)
+    gw = torch.autograd.grad(want, (q, k, v), do)
+    assert _rel_err(got, want) <= 2e-5
+    for name, u, w in zip(("dq", "dk", "dv"), g, gw):
+        assert _rel_err(u, w) <= 2e-5, name
+
+
+def test_wrappers_reject_bad_operands(cuda):
+    x = torch.zeros(2, 8, 16, device=cuda)
+    with pytest.raises(ValueError):
+        lm.lora_matmul(x, torch.zeros(16, 8, device=cuda),
+                       torch.zeros(2, 16, 40, device=cuda),
+                       torch.zeros(2, 40, 8, device=cuda), 1.0)  # rank 40
+    q = torch.zeros(1, 8, 4, 48, device=cuda)                    # D = 48
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, q[:, :, :2], q[:, :, :2])

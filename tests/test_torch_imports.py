@@ -29,7 +29,12 @@ def test_port_has_its_modules():
     for name in ("random", "convert", "kernels.ref", "kernels.ops",
                  "kernels.statevector_gates", "quantum.tape",
                  "quantum.qnn", "quantum.backends", "optim.batched_nm",
-                 "core.batched_engine", "core.orchestrator", "data.tasks"):
+                 "core.batched_engine", "core.orchestrator", "data.tasks",
+                 "tree", "configs.base", "configs.paper_models",
+                 "models.common", "models.attention", "models.ffn",
+                 "models.layers", "models.model", "peft.lora",
+                 "optim.adamw", "core.llm_client", "core.batched_llm",
+                 "kernels.lora_matmul", "kernels.flash_attention"):
         assert f"repro_torch.{name}" in MODULES
 
 

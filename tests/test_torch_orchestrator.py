@@ -1,19 +1,26 @@
-"""The whole slice: the port's ``run_experiment`` (QFL, batched
+"""The whole port: ``run_experiment`` (QFL and LLM-QFL, batched
 Nelder–Mead, host rounds) against the JAX package's on the same task.
 
 Integer accounting — budgets, cumulative evals, selected sets, rounds —
 must be exactly equal; server and client losses agree within 1e-5 and
 θ_g within 1e-4, the JAX package's own engine-parity tolerances.  The
-port is held to the JAX **host** round loop.
+port is held to the JAX **host** round loop.  For LLM-QFL, Step 1 (drawn
+by each package from its own keys) is held to the batched-LLM
+tolerances (losses 5e-4, F1 0.05); the quantum rounds are compared with
+the JAX run's Step 1 outputs installed, since a 1e-6 difference in the
+teacher can flip a Nelder–Mead comparison.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro.core.orchestrator import Orchestrator as JaxOrchestrator
+from repro.core.orchestrator import RunConfig as JaxRunConfig
 from repro.core.orchestrator import run_experiment as jax_run_experiment
 from repro.data.tasks import build_task as jax_build_task
 from repro_torch.core import orchestrator
-from repro_torch.core.orchestrator import RunConfig, run_experiment
+from repro_torch.core.orchestrator import (LLMOutputs, RunConfig,
+                                           run_experiment)
 from repro_torch.data.tasks import build_task
 
 # small shapes: one intra-op thread per test worker, or the workers
@@ -67,7 +74,7 @@ def test_run_config_defaults_and_fields_match():
 
 
 @pytest.mark.parametrize("override,item", [
-    (dict(method="llm-qfl"), "LLM stage"),
+    (dict(method="llm-qfl", llm_name="gpt2"), "other model families"),
     (dict(engine="sequential"), "engine sequential"),
     (dict(optimizer="spsa"), "engine sequential"),
     (dict(rounds="fused"), "fused round loop"),
@@ -92,3 +99,60 @@ def test_no_device_means_cuda(monkeypatch):
         orchestrator.Orchestrator(task, RunConfig(**KW))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run_experiment(task, **KW)
+
+
+# --- LLM-QFL: Step 1 and the regulated, selected quantum rounds ---------------
+LLM_KW = dict(method="llm-qfl", optimizer="nelder-mead", engine="batched",
+              n_rounds=2, maxiter0=4, llm_steps=4, early_stop=False)
+LLM_TASK = ("genomic", dict(n_clients=3, train_size=60, test_size=24,
+                            val_size=24, seed=1))
+
+
+@pytest.fixture(scope="module")
+def jax_llm_runs():
+    """The JAX runs and their Step 1 teacher stacks, per select_frac."""
+    name, tkw = LLM_TASK
+    out = {}
+    for frac in (1.0, 0.5):
+        orch = JaxOrchestrator(jax_build_task(name, **tkw),
+                               JaxRunConfig(select_frac=frac, **LLM_KW))
+        res = orch.run()
+        out[frac] = (res, [np.asarray(t) for t in orch._teacher_probs])
+    return out
+
+
+def test_llm_qfl_stage_matches_jax(jax_llm_runs):
+    name, tkw = LLM_TASK
+    got = run_experiment(build_task(name, **tkw), device="cpu", **LLM_KW)
+    want, _ = jax_llm_runs[1.0]
+    assert len(got.llm_losses) == len(got.llm_f1) == 3
+    np.testing.assert_allclose(got.llm_losses, want.llm_losses, atol=5e-4)
+    np.testing.assert_allclose(got.llm_f1, want.llm_f1, atol=0.05)
+    assert got.llm_finetune_time_s > 0
+    assert len(got.rounds) == 2
+
+
+@pytest.mark.parametrize("select_frac", [1.0, 0.5])
+def test_llm_qfl_rounds_match_jax_with_step1_carried(jax_llm_runs,
+                                                     select_frac):
+    want, teachers = jax_llm_runs[select_frac]
+    name, tkw = LLM_TASK
+    got = run_experiment(
+        build_task(name, **tkw), device="cpu", select_frac=select_frac,
+        llm_outputs=LLMOutputs(want.llm_losses, want.llm_f1, teachers),
+        **LLM_KW)
+    assert got.llm_losses == want.llm_losses
+    for attr in ("t", "maxiters", "cum_evals", "selected"):
+        assert got.series(attr) == want.series(attr), attr
+    if select_frac < 1.0:
+        assert all(len(s) < 3 for s in got.series("selected"))
+    assert got.series("maxiters")[1] != [LLM_KW["maxiter0"]] * 3
+    np.testing.assert_allclose(got.series("ratios"), want.series("ratios"),
+                               rtol=1e-5)
+    np.testing.assert_allclose(got.series("server_loss"),
+                               want.series("server_loss"), atol=1e-5,
+                               rtol=0)
+    np.testing.assert_allclose(got.series("client_losses"),
+                               want.series("client_losses"), atol=1e-5,
+                               rtol=0)
+    np.testing.assert_allclose(got.theta_g, want.theta_g, atol=1e-4, rtol=0)
