@@ -31,18 +31,25 @@ failure, and the script then exits non-zero with no result line.
 5. Wide phases: a 10-qubit VQC (485 gates, 40 params), 8 clients, one
    round; and the LLM stage alone at ``llama3.2-1b`` widths (16 layers,
    d_model 2048, 4 clients × 16 rows × 64 tokens, 2 steps, float32 base).
-6. Prints the card line, one ``{"kernels": [...]}`` line, and last
+6. QLoRA stages (``lora.quantize_base=True``: every adapted projection's
+   base packed int4, consumed by ``int4_matmul`` forward and dx): the
+   LLM stage of the quickstart (``BatchedLLMEngine``, 5 clients, 30
+   steps, ``tiny-llm``) on the card, held to the same stage on the CPU
+   (plain path); then the stage at ``llama3.2-1b`` widths as in 5.
+7. Prints the card line, one ``{"kernels": [...]}`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Each path is driven with every launch counter set to 0 just before it
 and read just after, and the counts are held to the formulas stated in
 ``llm_launch_formula`` and the QFL phases.  ``--profile`` instead traces
-a warm 3-round QFL run and a warm LLM-QFL run (Step 1 and 3 rounds) with
-``torch.profiler`` and prints the device's busy time, its idle share of
-the wall time, and the kernels that take the device time.
+a warm 3-round QFL run, a warm LLM-QFL run (Step 1 and 3 rounds) and a
+warm QLoRA LLM stage with ``torch.profiler`` and prints the device's
+busy time, its idle share of the wall time, and the kernels that take
+the device time.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -67,7 +74,8 @@ LLM_WIDE = dict(task=dict(n_clients=4, train_size=64, test_size=16,
                 steps=2, batch_size=16)
 # the batched-LLM tolerances of the JAX package's tests
 LLM_LOSS_TOL, LLM_F1_TOL, TEACHER_TOL = 5e-4, 0.05, 5e-4
-KERNELS = ("statevector_gate", "lora_matmul", "flash_attention")
+KERNELS = ("statevector_gate", "lora_matmul", "flash_attention",
+           "int4_matmul", "distill_kl")
 
 
 def check(cond, msg):
@@ -441,6 +449,154 @@ def attn_phase(gen):
 
 
 # ---------------------------------------------------------------------------
+# phase 2: int4_matmul (NN and NT) and distill_kl against their plain versions
+# ---------------------------------------------------------------------------
+# Rows of each int4_matmul launch on the QLoRA paths: the client axis
+# folded into the rows (tiny-llm C=5 × 16 × 64 a train step, 5 × 50 × 64
+# in the evaluation; llama3.2-1b widths C=4 × 16 × 64), qblock 64.
+INT4_SHAPES = (
+    [("tiny-" + n, 5120, K, N) for n, (K, N) in TINY_PROJ.items()]
+    + [("tiny-eval-w_in", 16000, 128, 512)]
+    + [("llama-" + n, 4096, K, N) for n, (K, N) in WIDE_PROJ.items()])
+KL_SHAPES = ((64, 2), (256, 3), (512, 7), (100, 10), (4096, 4102))
+
+
+def int4_flops_bytes(M, K, N, qblock=64):
+    """NN and NT alike: 2MKN flops; x (or dy) and the output in float32,
+    the packed weight at half a byte and its scales."""
+    return 2 * M * K * N, 4 * M * K + K * N // 2 + 4 * K * N // qblock \
+        + 4 * M * N
+
+
+def int4_phase(gen):
+    """int4_matmul NN (float32 and bf16 rounding) and NT against
+    ``ref.int4_matmul``/``int4_matmul_t``; times at the QLoRA paths'
+    shapes against the bound, the plain version and torch's dequantize
+    followed by cuBLAS float32."""
+    import torch
+    from repro_torch.kernels import int4_matmul as i4, ref
+    from repro_torch.peft import lora
+    max_err, max_t_err, cases = 0.0, 0.0, 0
+    # the JAX kernel test's sweep, float32 rounding (the JAX oracle's)
+    for (M, K, N) in ((128, 256, 256), (64, 512, 384), (256, 128, 512)):
+        for qb in (32, 64):
+            x = _randn(gen, (M, K))
+            packed, scales = lora.quantize(_randn(gen, (K, N), 0.05), qb)
+            got = i4.int4_matmul(x, packed, scales, qb)
+            want = ref.int4_matmul(x, packed, scales, qb)
+            err = rel_err(got, want)
+            check(err <= 2e-5, f"int4_matmul M={M} K={K} N={N} qblock={qb}: "
+                  f"relative error {err} > 2e-5")
+            max_err = max(max_err, abs_err(got, want))
+            cases += 1
+    # the paths' shapes with bf16 rounding (the model's), NN and NT
+    bf16 = torch.bfloat16
+    for name, M, K, N in INT4_SHAPES:
+        x = _randn(gen, (M, K))
+        dy = _randn(gen, (M, N))
+        packed, scales = lora.quantize(_randn(gen, (K, N), K ** -0.5), 64)
+        for what, got, want in (
+                ("NN", i4.int4_matmul(x, packed, scales, 64, bf16),
+                 ref.int4_matmul(x, packed, scales, 64, bf16)),
+                ("NT", i4.int4_matmul_t(dy, packed, scales, 64, bf16),
+                 ref.int4_matmul_t(dy, packed, scales, 64, bf16))):
+            err = rel_err(got, want)
+            check(err <= 2e-5, f"int4_matmul {what} {name}: relative error "
+                  f"{err} > 2e-5")
+            if what == "NN":
+                max_err = max(max_err, abs_err(got, want))
+            else:
+                max_t_err = max(max_t_err, abs_err(got, want))
+        cases += 1
+    torch.cuda.synchronize()
+    print(f"kernel phase: int4_matmul == plain on {cases} cases (NN with "
+          "float32 rounding over the JAX sweep; NN and NT with bf16 "
+          "rounding at the QLoRA paths' shapes), max abs err "
+          f"{max_err:.3g} NN, {max_t_err:.3g} NT (tolerance 2e-5 of the "
+          "largest magnitude: float32 sums in another order than cuBLAS's)")
+
+    nn, nt = [], []
+    with torch.no_grad():
+        for name, M, K, N in INT4_SHAPES:
+            x = _randn(gen, (M, K))
+            dy = _randn(gen, (M, N))
+            packed, scales = lora.quantize(_randn(gen, (K, N), K ** -0.5), 64)
+            w = lora.dequantize(packed, scales, 64, dtype=torch.float32)
+            big = K * N >= 1 << 24
+            it, n_graph = (10, 3) if big else (100, 20)
+            flops, nbytes = int4_flops_bytes(M, K, N)
+            bms, by = bound_ms(flops, nbytes)
+            for rows, fn, plain, lib, cublas in (
+                    (nn, lambda: i4.int4_matmul(x, packed, scales, 64,
+                                                bf16),
+                     lambda: ref.int4_matmul(x, packed, scales, 64, bf16),
+                     lambda: x @ lora.dequantize(packed, scales, 64,
+                                                 torch.float32),
+                     lambda: x @ w),
+                    (nt, lambda: i4.int4_matmul_t(dy, packed, scales, 64,
+                                                  bf16),
+                     lambda: ref.int4_matmul_t(dy, packed, scales, 64, bf16),
+                     lambda: dy @ lora.dequantize(packed, scales, 64,
+                                                  torch.float32).t(),
+                     lambda: dy @ w.t())):
+                ms = cuda_ms(fn, iters=it)
+                dev = graph_ms(fn, n_graph)
+                rows.append(dict(
+                    shape=name, M=M, K=K, N=N, qblock=64, ms=ms,
+                    graph_ms=dev, plain_ms=cuda_ms(plain, iters=it),
+                    library_ms=cuda_ms(lib, iters=it),
+                    library_graph_ms=graph_ms(lib, n_graph),
+                    cublas_ms=cuda_ms(cublas, iters=it),
+                    bound_ms=bms, bound_by=by, gflop=flops / 1e9))
+            a, b = nn[-1], nt[-1]
+            print(f"  {name} (M={M} K={K} N={N}): NN {a['ms'] * 1e3:.1f} us, "
+                  f"graph {a['graph_ms'] * 1e3:.1f} us "
+                  f"({flops / a['graph_ms'] / 1e9:.1f} TFLOP/s); NT "
+                  f"{b['ms'] * 1e3:.1f} us, graph {b['graph_ms'] * 1e3:.1f} "
+                  f"us; plain {a['plain_ms'] * 1e3:.1f} us; dequantize + "
+                  f"cuBLAS {a['library_ms'] * 1e3:.1f} us (graph "
+                  f"{a['library_graph_ms'] * 1e3:.1f} us), cuBLAS alone "
+                  f"{a['cublas_ms'] * 1e3:.1f} us; bound {bms * 1e3:.1f} us "
+                  f"({by})")
+    return max_err, max_t_err, nn, nt
+
+
+def kl_phase(gen):
+    """distill_kl against ``ref.distill_kl`` over the JAX sweep and the
+    task vocabulary; times at (4096, 4102)."""
+    import torch
+    from repro_torch.kernels import distill_kl as dk, ref
+    max_err = 0.0
+    for B, C in KL_SHAPES:
+        t = torch.softmax(_randn(gen, (B, C)), -1)
+        z = _randn(gen, (B, C), 3.0)
+        got = dk.distill_kl(t, z)
+        want = ref.distill_kl(t, z)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+        check(bool((got >= -1e-6).all()), f"distill_kl B={B} C={C}: "
+              f"negative KL {float(got.min())}")
+        max_err = max(max_err, abs_err(got, want))
+    torch.cuda.synchronize()
+    print(f"kernel phase: distill_kl == plain on {len(KL_SHAPES)} cases, max "
+          f"abs err {max_err:.3g} (tolerance rtol 1e-5, atol 1e-6, the JAX "
+          "test's; every value >= -1e-6)")
+    B, C = KL_SHAPES[-1]
+    t = torch.softmax(_randn(gen, (B, C)), -1)
+    z = _randn(gen, (B, C), 3.0)
+    ms = cuda_ms(lambda: dk.distill_kl(t, z), iters=100)
+    dev = graph_ms(lambda: dk.distill_kl(t, z))
+    plain = cuda_ms(lambda: ref.distill_kl(t, z), iters=50)
+    # 2 transcendentals and ~6 flops an element; bytes: t and z once, (B,)
+    bms, by = bound_ms(8 * B * C, 8 * B * C + 4 * B)
+    row = dict(shape=f"B={B} C={C}", B=B, C=C, ms=ms, graph_ms=dev,
+               plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None)
+    print(f"  B={B} C={C}: kernel {ms * 1e3:.1f} us, graph {dev * 1e3:.1f} "
+          f"us, plain {plain * 1e3:.1f} us, bound {bms * 1e3:.1f} us ({by}); "
+          "no single PyTorch call computes it")
+    return max_err, [row]
+
+
+# ---------------------------------------------------------------------------
 # phases 3 and 4: the port's main path through its entry points
 # ---------------------------------------------------------------------------
 def run_main_path(device, cfg, method="qfl", llm_outputs=None):
@@ -455,28 +611,31 @@ def run_main_path(device, cfg, method="qfl", llm_outputs=None):
     return task, res, orch
 
 
-def zero_counters():
+def _counted():
+    """(name, counted function) of every launch counter."""
+    from repro_torch.kernels import distill_kl as dk
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import int4_matmul as i4
     from repro_torch.kernels import lora_matmul as lm
     from repro_torch.kernels import statevector_gates as svg
     from repro_torch.quantum import tape
-    svg.statevector_gate.launches = 0
-    tape.run_tape.replays = 0
-    lm.lora_matmul.launches = 0
-    fa.flash_attention.launches = 0
-    fa.flash_attention_bwd.launches = 0
+    return (("statevector_gate", svg.statevector_gate, "launches"),
+            ("replays", tape.run_tape, "replays"),
+            ("lora_matmul", lm.lora_matmul, "launches"),
+            ("flash_attention", fa.flash_attention, "launches"),
+            ("flash_attention_bwd", fa.flash_attention_bwd, "launches"),
+            ("int4_matmul", i4.int4_matmul, "launches"),
+            ("int4_matmul_t", i4.int4_matmul_t, "launches"),
+            ("distill_kl", dk.distill_kl, "launches"))
+
+
+def zero_counters():
+    for _, fn, attr in _counted():
+        setattr(fn, attr, 0)
 
 
 def read_counters() -> dict:
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import lora_matmul as lm
-    from repro_torch.kernels import statevector_gates as svg
-    from repro_torch.quantum import tape
-    return {"statevector_gate": svg.statevector_gate.launches,
-            "replays": tape.run_tape.replays,
-            "lora_matmul": lm.lora_matmul.launches,
-            "flash_attention": fa.flash_attention.launches,
-            "flash_attention_bwd": fa.flash_attention_bwd.launches}
+    return {name: getattr(fn, attr) for name, fn, attr in _counted()}
 
 
 def llm_launch_formula(steps: int, n_layers: int, n_proj: int = 5) -> dict:
@@ -553,6 +712,8 @@ def llm_phase() -> dict:
     for name, count in want.items():
         check(n[name] == count > 0, f"llm-qfl: {n[name]} {name} launches, "
               f"the formula gives {count}")
+    check(n["int4_matmul"] == n["int4_matmul_t"] == 0,
+          f"llm-qfl: int4_matmul launched on a float32 base: {n}")
     check(n["statevector_gate"] == 86 * n["replays"] > 0,
           f"llm-qfl: {n['statevector_gate']} statevector_gate launches for "
           f"{n['replays']} replays of 86 gates")
@@ -627,8 +788,43 @@ def wide_phase():
     return launches
 
 
-def llm_wide_phase() -> dict:
-    """The LLM stage alone at llama3.2-1b widths, float32 base."""
+def qlora(cfg):
+    """The QLoRA variant of an LLM config, as the JAX package enters it."""
+    import dataclasses
+    return dataclasses.replace(
+        cfg, lora=dataclasses.replace(cfg.lora, quantize_base=True))
+
+
+def check_llm_launches(n: dict, want: dict, quantized: bool, what: str):
+    """The stage's launches against ``llm_launch_formula``: on a QLoRA
+    base every projection is an int4_matmul (forward) or int4_matmul_t
+    (dx) launch where a float32 base has a lora_matmul one."""
+    for name in ("flash_attention", "flash_attention_bwd"):
+        check(n[name] == want[name] > 0, f"{what}: {n[name]} {name} "
+              f"launches, the formula gives {want[name]}")
+    proj = want["lora_matmul"]
+    got = ((n["int4_matmul"] + n["int4_matmul_t"], n["lora_matmul"])
+           if quantized else (n["lora_matmul"],
+                              n["int4_matmul"] + n["int4_matmul_t"]))
+    check(got == (proj, 0), f"{what}: projection launches {n}, the "
+          f"formula gives {proj} {'int4' if quantized else 'lora'}_matmul")
+
+
+def base_bytes(base) -> tuple:
+    """(bytes as stored, bytes of the same base in float32)."""
+    from repro_torch.tree import tree_leaves
+    stored = sum(t.numel() * t.element_size() for t in tree_leaves(base))
+    full = sum(t.numel() * 4 for layer in base["layers"]
+               for k, t in layer.items() if not k.endswith(("__q", "__s")))
+    full += sum(2 * t.numel() * 4 for layer in base["layers"]
+                for k, t in layer.items() if k.endswith("__q"))
+    full += sum(t.numel() * 4 for k, t in base.items() if k != "layers")
+    return stored, full
+
+
+def llm_wide_phase(quantized: bool = False) -> dict:
+    """The LLM stage alone at llama3.2-1b widths, float32 base (packed
+    int4 for every adapted projection if ``quantized``)."""
     import numpy as np
     import torch
     from repro_torch import random as jr
@@ -636,17 +832,22 @@ def llm_wide_phase() -> dict:
     from repro_torch.core.llm_client import task_llm_config
     from repro_torch.data.tasks import build_task
     from repro_torch.models import model as M
-    from repro_torch.tree import tree_leaves
+    what = "qlora wide" if quantized else "llm wide"
     task = build_task("genomic", **LLM_WIDE["task"])
     cfg = task_llm_config("llama3.2-1b", task.vocab_size, task.llm_seq_len)
+    if quantized:
+        cfg = qlora(cfg)
     steps, bs = LLM_WIDE["steps"], LLM_WIDE["batch_size"]
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     base = M.init_params(cfg, jr.PRNGKey(0), dtype=torch.float32,
                          device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    n_params = sum(t.numel() for t in tree_leaves(base))
+    stored, full = base_bytes(base)
+    n_params = full // 4                  # float32 values the base stands for
     eng = BatchedLLMEngine(task, cfg, base, seed=0, steps=steps,
                            batch_size=bs)
     zero_counters()
@@ -656,16 +857,14 @@ def llm_wide_phase() -> dict:
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     n = read_counters()
-    want = llm_launch_formula(steps, cfg.n_layers)
-    for name, count in want.items():
-        check(n[name] == count, f"llm wide: {n[name]} {name} launches, the "
-              f"formula gives {count}")
+    check_llm_launches(n, llm_launch_formula(steps, cfg.n_layers), quantized,
+                       what)
     check(np.all(np.isfinite(out.losses)) and np.all(np.isfinite(
-        out.final_train_loss)), f"llm wide: non-finite losses {out.losses}")
+        out.final_train_loss)), f"{what}: non-finite losses {out.losses}")
     for i, cl in enumerate(task.clients):
         rows = out.teacher[i, :cl.n].sum(-1)
         check(np.all(np.abs(rows - 1) <= 1e-5),
-              f"llm wide: teacher rows sum to {rows}")
+              f"{what}: teacher rows sum to {rows}")
     # per-step time: further train steps through the public step function
     step = M.make_train_step(cfg, lr=3e-3)
     rows = torch.arange(bs)
@@ -680,23 +879,104 @@ def llm_wide_phase() -> dict:
         adapters, opt, metrics = step(base, adapters, opt, batch)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
-    check(bool(torch.isfinite(metrics["loss"]).all()), "llm wide: step loss")
+    check(bool(torch.isfinite(metrics["loss"]).all()), f"{what}: step loss")
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"llm wide phase (llama3.2-1b widths, {cfg.n_layers} layers, "
-          f"{n_params / 1e9:.3f} B float32 base params, C={task.n_clients}, "
-          f"{bs} x 64 tokens): base init {init_s:.2f} s; run() of {steps} "
-          f"steps + distill + evaluation {run_s:.2f} s; train steps "
+    print(f"{what} phase (llama3.2-1b widths, {cfg.n_layers} layers, "
+          f"{n_params / 1e9:.3f} B base values, "
+          f"{'int4-packed projections, ' if quantized else ''}"
+          f"C={task.n_clients}, {bs} x 64 tokens): base init {init_s:.2f} s, "
+          f"base {stored / 2**30:.3f} GiB as stored ({full / 2**30:.3f} GiB "
+          f"in float32); run() of {steps} steps + distill + evaluation "
+          f"{run_s:.2f} s; train steps "
           f"{', '.join(f'{t:.3f}' for t in step_s)} s; L_LLM "
           f"{np.round(out.losses, 4).tolist()}; launches {json.dumps(n)}; "
           f"peak memory {peak:.2f} GiB")
     return dict(counts=n, step_s=step_s, run_s=run_s, peak_gib=peak,
-                n_params=n_params)
+                n_params=n_params, init_s=init_s, base_bytes=stored,
+                base_f32_bytes=full)
+
+
+def qlora_stage(device, steps: int):
+    """The QLoRA LLM stage of the quickstart task (tiny-llm, int4 base,
+    5 clients): base draw, engine and ``run()`` on ``device``.  Returns
+    (result, wall seconds, base)."""
+    import torch
+    from repro_torch import random as jr
+    from repro_torch.core.batched_llm import BatchedLLMEngine
+    from repro_torch.core.llm_client import task_llm_config
+    from repro_torch.data.tasks import build_task
+    from repro_torch.models import model as M
+    task = build_task("genomic", **LLM_QUICKSTART["task"])
+    cfg = qlora(task_llm_config("tiny-llm", task.vocab_size,
+                                task.llm_seq_len))
+    t0 = time.perf_counter()
+    base = M.init_params(cfg, jr.PRNGKey(0), dtype=torch.float32,
+                         device=device)
+    out = BatchedLLMEngine(task, cfg, base, seed=0, steps=steps).run()
+    return out, time.perf_counter() - t0, base
+
+
+def qlora_phase(device="cuda", cpu_device="cpu") -> dict:
+    """The QLoRA LLM stage of the quickstart (BatchedLLMEngine, tiny-llm,
+    5 clients, 30 steps) on ``device``, held to the same stage on
+    ``cpu_device`` (the plain path)."""
+    import numpy as np
+    steps = LLM_QUICKSTART["run"]["llm_steps"]
+    runs = []
+    for dev in (device, cpu_device):
+        zero_counters()
+        out, wall, base = qlora_stage(dev, steps)
+        n = read_counters()
+        runs.append((out, n, wall, base))
+        print(f"qlora stage ({dev}): tiny-llm, int4 base, 5 clients, "
+              f"{steps} steps + distill + evaluation in {wall:.2f} s; L_LLM "
+              f"{np.round(out.losses, 4).tolist()} F1 "
+              f"{np.round(out.f1, 4).tolist()}; launches {json.dumps(n)}")
+    (out, n, wall, base), (cpu, _, cpu_wall, cpu_base) = runs
+    check_llm_launches(n, llm_launch_formula(steps, 2), True, "qlora")
+    equal = total = 0
+    for a, b in zip(base["layers"], cpu_base["layers"]):
+        for k in a:
+            if k.endswith("__q"):
+                equal += int((a[k].cpu() == b[k]).sum())
+                total += a[k].numel()
+    share = equal / total
+    check(share >= 0.999, f"qlora: the card packs {share} of the CPU's "
+          "base bytes alike")
+    d_loss = float(np.max(np.abs(out.losses - cpu.losses)))
+    d_f1 = float(np.max(np.abs(out.f1 - cpu.f1)))
+    d_teacher = float(np.max(np.abs(out.teacher - cpu.teacher)))
+    check(d_loss <= LLM_LOSS_TOL and d_f1 <= LLM_F1_TOL
+          and d_teacher <= TEACHER_TOL,
+          f"qlora stage, card vs cpu: |Δ L_LLM| {d_loss}, |Δ F1| {d_f1}, "
+          f"|Δ teacher| {d_teacher} (tolerances {LLM_LOSS_TOL}, "
+          f"{LLM_F1_TOL}, {TEACHER_TOL})")
+    print(f"qlora stage: card vs cpu max |Δ L_LLM| {d_loss:.3g}, |Δ F1| "
+          f"{d_f1:.3g}, |Δ teacher| {d_teacher:.3g}; packed base bytes "
+          f"equal on {share:.6f} of {total}")
+    return dict(counts=n, wall_s=wall, cpu_wall_s=cpu_wall)
+
+
+def print_profile(prof, label: str, wall: float, detail: str):
+    import torch
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    check(busy_us > 0, "the profiler saw no device time")
+    print(f"profile ({label}): {wall:.3f} s under the profiler ({detail}); "
+          f"device busy {busy_us / 1e3:.2f} ms, idle share "
+          f"{1 - busy_us / 1e6 / wall:.4f}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  "
+              f"{e.count:7d}x  {e.key[:90]}")
 
 
 def profile_phase():
-    """Device busy time and idle share of warm QFL and LLM-QFL runs."""
+    """Device busy time and idle share of warm QFL and LLM-QFL runs, and
+    of the QLoRA LLM stage."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     for method, cfg, warm in (
             ("qfl", dict(QUICKSTART, run=dict(n_rounds=3, early_stop=False)),
              dict(QUICKSTART, run=dict(n_rounds=1))),
@@ -704,25 +984,24 @@ def profile_phase():
                 LLM_QUICKSTART["run"], n_rounds=3, early_stop=False)),
              dict(LLM_QUICKSTART, run=dict(n_rounds=1, llm_steps=2)))):
         run_main_path("cuda", warm, method=method)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=acts) as prof:
             t0 = time.perf_counter()
             _, res, orch = run_main_path("cuda", cfg, method=method)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy_us = sum(e.self_device_time_total for e in kernels)
-        check(busy_us > 0, "the profiler saw no device time")
-        secs = orch.round_seconds
-        print(f"profile ({method}): {wall:.3f} s under the profiler "
-              f"(fine-tune {res.llm_finetune_time_s:.3f} s; rounds "
-              f"{', '.join(f'{s:.3f}' for s in secs)} s); device busy "
-              f"{busy_us / 1e3:.2f} ms, idle share "
-              f"{1 - busy_us / 1e6 / wall:.4f}")
-        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
-            print(f"  {e.self_device_time_total / 1e3:9.3f} ms  "
-                  f"{e.count:7d}x  {e.key[:90]}")
+        print_profile(prof, method, wall, f"fine-tune "
+                      f"{res.llm_finetune_time_s:.3f} s; rounds "
+                      f"{', '.join(f'{s:.3f}' for s in orch.round_seconds)}"
+                      " s")
+    steps = LLM_QUICKSTART["run"]["llm_steps"]
+    qlora_stage("cuda", 2)
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        qlora_stage("cuda", steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    print_profile(prof, "qlora stage", wall, f"tiny-llm, int4 base, 5 "
+                  f"clients, {steps} steps + distill + evaluation")
 
 
 def build_kernels():
@@ -766,20 +1045,35 @@ def main(argv) -> int:
           f"cuda {torch.version.cuda}")
     build_kernels()
 
+    from repro_torch.kernels import distill_kl as dk
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import int4_matmul as i4
     from repro_torch.kernels import lora_matmul as lm
     from repro_torch.kernels import statevector_gates as svg
     max_err, shapes = kernel_phase()
     gen = torch.Generator(device="cuda").manual_seed(1)
     lm_err, lm_shapes = lora_phase(gen)
     fa_err, fa_bwd_err, fa_shapes, fa_bwd_shapes = attn_phase(gen)
+    i4_err, i4_t_err, i4_shapes, i4_t_shapes = int4_phase(gen)
+    kl_err, kl_shapes = kl_phase(gen)
     launches = main_phase()
     llm = llm_phase()
     wide_launches = wide_phase()
     llm_wide = llm_wide_phase()
+    ql = qlora_phase()
+    ql_wide = llm_wide_phase(quantized=True)
+    gib = 2 ** 30
+    print(f"qlora wide against llm wide: base "
+          f"{ql_wide['base_bytes'] / gib:.3f} GiB against "
+          f"{llm_wide['base_bytes'] / gib:.3f} GiB, peak "
+          f"memory {ql_wide['peak_gib']:.2f} GiB against "
+          f"{llm_wide['peak_gib']:.2f} GiB, train steps "
+          f"{min(ql_wide['step_s']):.3f} s against "
+          f"{min(llm_wide['step_s']):.3f} s")
 
     quick = shapes[0]
     n, nw = llm["counts"], llm_wide["counts"]
+    nq, nqw = ql["counts"], ql_wide["counts"]
     kernels = [
         dict(name=svg.NAME, route="cuda", source=svg.SOURCE,
              replaces=svg.REPLACES, launches=launches, max_abs_err=max_err,
@@ -799,11 +1093,32 @@ def main(argv) -> int:
              replaces=fa.REPLACES, launches=n["flash_attention_bwd"],
              max_abs_err=fa_bwd_err, **headline(fa_bwd_shapes, "tiny"),
              launches_wide=nw["flash_attention_bwd"],
-             shapes=fa_bwd_shapes)]
+             shapes=fa_bwd_shapes),
+        dict(name=i4.NAME, route="cuda", source=i4.SOURCE,
+             replaces=i4.REPLACES, launches=nq["int4_matmul"],
+             max_abs_err=i4_err, **headline(i4_shapes, "tiny-w_in"),
+             launches_wide=nqw["int4_matmul"], shapes=i4_shapes,
+             library="torch dequantize to float32 + cuBLAS float32 matmul "
+                     "(no single PyTorch call takes packed int4)"),
+        dict(name=i4.NAME + "_t", route="cuda", source=i4.SOURCE,
+             replaces=i4.REPLACES, launches=nq["int4_matmul_t"],
+             max_abs_err=i4_t_err, **headline(i4_t_shapes, "tiny-w_in"),
+             launches_wide=nqw["int4_matmul_t"], shapes=i4_t_shapes,
+             library="torch dequantize to float32 + cuBLAS float32 matmul "
+                     "(no single PyTorch call takes packed int4)"),
+        dict(name=dk.NAME, route="cuda", source=dk.SOURCE,
+             replaces=dk.REPLACES, launches=nq["distill_kl"],
+             max_abs_err=kl_err, **headline(kl_shapes, "B=4096 C=4102"),
+             on_main_path=False, shapes=kl_shapes)]
     print(json.dumps({"llm_qfl": {k: llm[k] for k in ("wall_s", "finetune_s",
                                                       "round_s")},
                       "llm_wide": {k: llm_wide[k] for k in (
-                          "step_s", "run_s", "peak_gib", "n_params")}}))
+                          "step_s", "run_s", "peak_gib", "n_params",
+                          "init_s", "base_bytes")},
+                      "qlora": {k: ql[k] for k in ("wall_s", "cpu_wall_s")},
+                      "qlora_wide": {k: ql_wide[k] for k in (
+                          "step_s", "run_s", "peak_gib", "n_params",
+                          "init_s", "base_bytes", "base_f32_bytes")}}))
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,10 @@
 The port runs dense decoder LLMs only (``pattern == (("attn", "mlp"),)``),
 so ``ModelConfig`` keeps the fields those use; the mixture-of-experts,
 latent-attention, state-space and encoder-decoder fields come with the
-ROADMAP item "the other model families", and ``quantize_base`` with
-"QLoRA".  LoRA dropout is left out: the JAX package never applies it.
+ROADMAP item "the other model families".  ``LoRAConfig.quantize_base``
+selects QLoRA: ``models.model.init_params`` then stores every adapted
+base weight as packed int4 plus scales (``peft.lora.quantize``).  LoRA
+dropout is left out: the JAX package never applies it.
 Field names, defaults and ``head_dim`` inference are the JAX package's.
 """
 from __future__ import annotations
@@ -21,6 +23,7 @@ class LoRAConfig:
     alpha: float = 32.0
     # which weight families receive adapters
     targets: Tuple[str, ...] = ("wq", "wkv", "wo", "w_in", "w_out")
+    quantize_base: bool = False    # QLoRA: int4 base weights
 
 
 @dataclass(frozen=True)

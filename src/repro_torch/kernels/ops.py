@@ -6,7 +6,11 @@ fallback from one to the other.
 """
 from __future__ import annotations
 
+import torch
+
+from repro_torch.kernels import distill_kl as _kl
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import int4_matmul as _i4
 from repro_torch.kernels import lora_matmul as _lm
 from repro_torch.kernels import ref
 from repro_torch.kernels import statevector_gates as _svg
@@ -33,6 +37,23 @@ def lora_matmul(x, w, a, b, scale: float):
     if not _on_cpu(x, "lora_matmul"):
         return _lm.lora_matmul(x, w, a, b, scale)
     return ref.lora_matmul(x, w, a, b, scale)
+
+
+def int4_matmul(x, packed, scales, qblock: int = 64,
+                round_to=torch.float32):
+    if not _on_cpu(x, "int4_matmul"):
+        return _i4.int4_matmul(x, packed, scales, qblock, round_to)
+    return ref.int4_matmul(x, packed, scales, qblock, round_to)
+
+
+def distill_kl(teacher_probs, student_logits, eps: float = 1e-9):
+    if not _on_cpu(student_logits, "distill_kl"):
+        return _kl.distill_kl(teacher_probs, student_logits, eps)
+    return ref.distill_kl(teacher_probs, student_logits, eps)
+
+
+def distill_kl_mean(teacher_probs, student_logits, eps: float = 1e-9):
+    return torch.mean(distill_kl(teacher_probs, student_logits, eps))
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,

@@ -13,6 +13,8 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.peft.lora import dequantize
+
 
 @functools.lru_cache(maxsize=None)
 def pair_indices(target: int, control: int, n_qubits: int,
@@ -86,6 +88,40 @@ def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     y = xf @ w.float()
     y = y + scale * ((xf @ a.float()) @ b.float())
     return y.to(x.dtype)
+
+
+def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
+                block: int, round_to=torch.float32) -> torch.Tensor:
+    """y = x @ dequant(packed, scales), accumulated in float32: the QLoRA
+    base-weight path.
+
+    x ``(M, K)``, packed ``(K, N/2)`` uint8, scales ``(K, N/block)``
+    float32 → ``(M, N)`` in x's dtype.  Each weight is ``(nibble - 8) ·
+    scale`` in float32, rounded to ``round_to``: float32 is the JAX
+    oracle's contract, bfloat16 the JAX model's (``common.weight``
+    dequantizes to bf16).  Differentiable in x by plain autograd.
+    """
+    w = dequantize(packed, scales, block, dtype=round_to).float()
+    return (x.float() @ w).to(x.dtype)
+
+
+def int4_matmul_t(dy: torch.Tensor, packed: torch.Tensor,
+                  scales: torch.Tensor, block: int,
+                  round_to=torch.float32) -> torch.Tensor:
+    """dx = dy @ dequant(packed, scales)ᵀ: dy ``(M, N)`` → ``(M, K)`` in
+    dy's dtype, the backward of ``int4_matmul`` with respect to x."""
+    w = dequantize(packed, scales, block, dtype=round_to).float()
+    return (dy.float() @ w.t()).to(dy.dtype)
+
+
+def distill_kl(teacher_probs: torch.Tensor, student_logits: torch.Tensor,
+               eps: float = 1e-9) -> torch.Tensor:
+    """Per-row KL(P_t ‖ softmax(z)), ``(B, C), (B, C) → (B,)`` float32,
+    with the teacher clipped to ``[eps, 1]``: the fused softmax + KL
+    contract."""
+    pt = torch.clamp(teacher_probs.float(), eps, 1.0)
+    logq = torch.log_softmax(student_logits.float(), dim=-1)
+    return torch.sum(pt * (torch.log(pt) - logq), dim=-1)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

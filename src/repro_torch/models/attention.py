@@ -16,7 +16,8 @@ import torch
 from repro_torch import random as jr
 from repro_torch.kernels import ops
 from repro_torch.models.common import (apply_rope, dense, init_dense,
-                                       lora_pair, rms_norm, rope_freqs)
+                                       lora_pair, rms_norm, rope_freqs,
+                                       weight)
 
 
 def gqa_params(key, cfg, dtype, device="cpu"):
@@ -37,9 +38,10 @@ def gqa_qkv(params, cfg, x, positions):
     H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     C, B, S, _ = x.shape
     xn = rms_norm(x, params["ln"], cfg.norm_eps)
-    q = dense(xn, params["wq"], lora_pair(params, "wq", cfg.lora)
-              ).reshape(C * B, S, H, D)
-    kv = dense(xn, params["wkv"], lora_pair(params, "wkv", cfg.lora)
+    q = dense(xn, weight(params, "wq"),
+              lora_pair(params, "wq", cfg.lora)).reshape(C * B, S, H, D)
+    kv = dense(xn, weight(params, "wkv"),
+               lora_pair(params, "wkv", cfg.lora)
                ).reshape(C * B, S, 2, KH, D)
     k, v = kv[:, :, 0], kv[:, :, 1]
     freqs = rope_freqs(D, cfg.rope_theta, x.device)
@@ -49,7 +51,7 @@ def gqa_qkv(params, cfg, x, positions):
 
 def gqa_out(params, cfg, x, attn_out):
     C, B, S, _ = x.shape
-    o = dense(attn_out.reshape(C, B, S, -1), params["wo"],
+    o = dense(attn_out.reshape(C, B, S, -1), weight(params, "wo"),
               lora_pair(params, "wo", cfg.lora))
     return x + o
 

@@ -10,7 +10,7 @@ import torch
 
 from repro_torch import random as jr
 from repro_torch.models.common import (dense, init_dense, lora_pair,
-                                       rms_norm, swiglu)
+                                       rms_norm, swiglu, weight)
 
 
 def mlp_params(key, cfg, dtype, d_ff=None, device="cpu"):
@@ -27,6 +27,7 @@ def mlp_params(key, cfg, dtype, d_ff=None, device="cpu"):
 
 def mlp(params, cfg, x):
     xn = rms_norm(x, params["ln2"], cfg.norm_eps)
-    h = swiglu(dense(xn, params["w_in"],
+    h = swiglu(dense(xn, weight(params, "w_in"),
                      lora_pair(params, "w_in", cfg.lora)))
-    return x + dense(h, params["w_out"], lora_pair(params, "w_out", cfg.lora))
+    return x + dense(h, weight(params, "w_out"),
+                     lora_pair(params, "w_out", cfg.lora))

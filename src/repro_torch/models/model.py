@@ -10,7 +10,9 @@ only), "layers": [layer dict, ...]}``: the JAX package's group-stacked
 (``convert.params_from_jax``).  Adapters are ``[layer dict, ...]`` of
 ``{name}_lora_a`` / ``{name}_lora_b``; in the batched engine every leaf
 carries a leading client axis ``(C, …)``, while the base is shared and
-never stacked.  Activations are ``(C, B, S, d)``.
+never stacked.  A QLoRA base (``cfg.lora.quantize_base``) holds
+``{name}__q``/``{name}__s`` in place of each adapted weight.
+Activations are ``(C, B, S, d)``.
 """
 from __future__ import annotations
 
@@ -32,7 +34,12 @@ from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 def init_params(cfg, key, dtype=None, device="cpu") -> Dict:
     """The frozen base, drawn on ``device`` under the JAX package's key
     tree (``split(key, 8)``; layer ``g·P + p`` from
-    ``split(split(keys[3], P)[p], n_groups)[g]``)."""
+    ``split(split(keys[3], P)[p], n_groups)[g]``).
+
+    With ``cfg.lora.quantize_base`` (QLoRA) every target weight is stored
+    packed (``peft.lora.quantize_layer_flat``), each layer as soon as it
+    is drawn, so the full float32 base never sits whole on the device;
+    the bytes are those of the JAX package's quantize-after."""
     dtype = dtype or getattr(torch, cfg.dtype)
     keys = jr.split(key, 8)
     params: Dict = {
@@ -48,8 +55,10 @@ def init_params(cfg, key, dtype=None, device="cpu") -> Dict:
     for p, (gk, (mixer, ffn)) in enumerate(
             zip(jr.split(keys[3], P), cfg.pattern)):
         for g, k in enumerate(jr.split(gk, cfg.n_groups)):
-            layers[g * P + p] = L.init_layer_params(k, cfg, mixer, ffn,
-                                                    dtype, device)
+            layer = L.init_layer_params(k, cfg, mixer, ffn, dtype, device)
+            if cfg.lora.quantize_base:
+                layer = lora_mod.quantize_layer_flat(layer, cfg.lora.targets)
+            layers[g * P + p] = layer
     params["layers"] = layers
     return params
 

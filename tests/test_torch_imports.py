@@ -34,7 +34,8 @@ def test_port_has_its_modules():
                  "models.common", "models.attention", "models.ffn",
                  "models.layers", "models.model", "peft.lora",
                  "optim.adamw", "core.llm_client", "core.batched_llm",
-                 "kernels.lora_matmul", "kernels.flash_attention"):
+                 "kernels.lora_matmul", "kernels.flash_attention",
+                 "kernels.int4_matmul", "kernels.distill_kl"):
         assert f"repro_torch.{name}" in MODULES
 
 
