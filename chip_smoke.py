@@ -60,6 +60,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, published
 F32_FLOPS_PER_S = 67e12            # H100 SXM, float32 outside tensor cores
+TF32_FLOPS_PER_S = 495e12          # H100 SXM, TF32 tensor cores, dense
 
 QUICKSTART = dict(task=dict(n_clients=5, train_size=250, test_size=100,
                             val_size=60, seed=0),
@@ -222,6 +223,17 @@ def bound_ms(flops: float, nbytes: float):
                                        else "bytes")
 
 
+def tc_bound_ms(products: int, flops: float, nbytes: float):
+    """The tensor-core bound of a projection taken as ``products`` TF32
+    products (3xTF32: 3 for float32 operands, 2 when the weight is exact
+    in TF32): products · 2MNK over 495 TFLOP/s, or bytes over 3.35 TB/s,
+    whichever is larger."""
+    t_ops = products * flops / TF32_FLOPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
 # Projection shapes (K, N) of one layer, and the rows M each launch sees:
 # tiny-llm for the LLM-QFL quickstart (C=5 clients, 16 × 64 tokens a
 # step, 50 × 64 in the evaluation) and llama3.2-1b for the wide phase
@@ -316,17 +328,52 @@ def lora_phase(gen):
             lib_dev = graph_ms(lib, n_graph)
             flops, nbytes = lora_flops_bytes(C, M, K, N, r)
             bms, by = bound_ms(flops, nbytes)
+            tms, tby = tc_bound_ms(3, 2 * C * M * N * K, nbytes)
             shapes.append(dict(shape=name, C=C, M=M, K=K, N=N, r=r, ms=ms,
                                graph_ms=dev, dx_ms=dx_ms, plain_ms=plain,
                                library_ms=library, library_graph_ms=lib_dev,
-                               bound_ms=bms, bound_by=by, gflop=flops / 1e9))
+                               bound_ms=bms, bound_by=by, tc_bound_ms=tms,
+                               tc_bound_by=tby, tc_products=3,
+                               tflops=flops / dev / 1e9,
+                               gflop=flops / 1e9))
             print(f"  {name} (C={C} M={M} K={K} N={N} r={r}): kernel "
                   f"{ms * 1e3:.1f} us, in a CUDA graph {dev * 1e3:.1f} us "
                   f"({flops / dev / 1e9:.1f} TFLOP/s); dx {dx_ms * 1e3:.1f} "
                   f"us; plain {plain * 1e3:.1f} us; cuBLAS "
                   f"{library * 1e3:.1f} us, in a graph {lib_dev * 1e3:.1f} "
-                  f"us; bound {bms * 1e3:.1f} us ({by})")
+                  f"us; bound {bms * 1e3:.1f} us ({by}, FFMA), tensor-core "
+                  f"bound {tms * 1e3:.1f} us ({tby}, 3 TF32 products)")
     return max_err, shapes
+
+
+def wave_probe(gen):
+    """Device time of the projection kernels at the tiny model's reduction
+    (K = 128, four steps of 32) on grids of 1, 132 and 264 output tiles of
+    128 x 128 (one CTA an SM: a lone CTA, one and two full waves on 132
+    SMs), in
+    a CUDA graph: the fixed cost of a launch and the time of a wave."""
+    import torch
+    from repro_torch.kernels import int4_matmul as i4, lora_matmul as lm
+    from repro_torch.peft import lora
+    rows = []
+    with torch.no_grad():
+        for tiles in (1, 132, 264):
+            M = 128 * tiles
+            x = _randn(gen, (1, M, 128))
+            w = _randn(gen, (128, 128), 128 ** -0.5)
+            a = _randn(gen, (1, 128, 4), 128 ** -0.5)
+            b = _randn(gen, (1, 4, 128), 0.1)
+            packed, scales = lora.quantize(_randn(gen, (128, 128), 0.1), 64)
+            rows.append(dict(
+                tiles=tiles,
+                lora_graph_ms=graph_ms(lambda: lm._launch(x, w, a, b, 2.0)),
+                int4_graph_ms=graph_ms(lambda: i4.int4_matmul(
+                    x[0], packed, scales, 64, torch.bfloat16))))
+            print(f"  wave probe, {tiles} tiles of 128 x 128, K=128: "
+                  f"lora_matmul {rows[-1]['lora_graph_ms'] * 1e3:.2f} us, "
+                  f"int4_matmul {rows[-1]['int4_graph_ms'] * 1e3:.2f} us "
+                  "(CUDA graph)")
+    return rows
 
 
 def attn_pairs(S: int, causal: bool = True, window: int = 0) -> int:
@@ -526,6 +573,7 @@ def int4_phase(gen):
             it, n_graph = (10, 3) if big else (100, 20)
             flops, nbytes = int4_flops_bytes(M, K, N)
             bms, by = bound_ms(flops, nbytes)
+            tms, tby = tc_bound_ms(2, flops, nbytes)
             for rows, fn, plain, lib, cublas in (
                     (nn, lambda: i4.int4_matmul(x, packed, scales, 64,
                                                 bf16),
@@ -547,7 +595,9 @@ def int4_phase(gen):
                     library_ms=cuda_ms(lib, iters=it),
                     library_graph_ms=graph_ms(lib, n_graph),
                     cublas_ms=cuda_ms(cublas, iters=it),
-                    bound_ms=bms, bound_by=by, gflop=flops / 1e9))
+                    bound_ms=bms, bound_by=by, tc_bound_ms=tms,
+                    tc_bound_by=tby, tc_products=2,
+                    tflops=flops / dev / 1e9, gflop=flops / 1e9))
             a, b = nn[-1], nt[-1]
             print(f"  {name} (M={M} K={K} N={N}): NN {a['ms'] * 1e3:.1f} us, "
                   f"graph {a['graph_ms'] * 1e3:.1f} us "
@@ -557,7 +607,8 @@ def int4_phase(gen):
                   f"cuBLAS {a['library_ms'] * 1e3:.1f} us (graph "
                   f"{a['library_graph_ms'] * 1e3:.1f} us), cuBLAS alone "
                   f"{a['cublas_ms'] * 1e3:.1f} us; bound {bms * 1e3:.1f} us "
-                  f"({by})")
+                  f"({by}, FFMA), tensor-core bound {tms * 1e3:.1f} us "
+                  f"({tby}, 2 TF32 products)")
     return max_err, max_t_err, nn, nt
 
 
@@ -1004,26 +1055,106 @@ def profile_phase():
                   f"clients, {steps} steps + distill + evaluation")
 
 
-def build_kernels():
-    """Every kernel source at once; prints the time and ptxas report."""
+def ptxas_entries(log: str) -> list:
+    """[{entry, registers, spill_bytes}] from ``nvcc -Xptxas -v`` output."""
     import re
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = dict(entry=m.group(1), registers=None, spill_bytes=0)
+            out.append(cur)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur is not None:
+            cur["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+def sass_mma_counts(lib_path) -> dict:
+    """{entry: (HGMMA, HMMA) instruction counts} from ``cuobjdump -sass``,
+    or {} where the toolkit has no cuobjdump."""
+    import os
+    import shutil
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=300).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            cur = line.split("Function :")[1].strip()
+            counts[cur] = [0, 0]
+        elif cur is not None:
+            counts[cur][0] += " HGMMA." in line
+            counts[cur][1] += " HMMA." in line
+    return {k: tuple(v) for k, v in counts.items()}
+
+
+def demangle(names) -> dict:
+    import shutil
+    names = list(names)
+    if not names or not shutil.which("c++filt"):
+        return {n: n for n in names}
+    out = subprocess.run(["c++filt"], input="\n".join(names),
+                         capture_output=True, text=True, timeout=60).stdout
+    return dict(zip(names, out.splitlines()))
+
+
+TENSOR_CORE_KERNELS = ("lora_matmul", "int4_matmul")
+
+
+def build_kernels() -> dict:
+    """Every kernel source at once; prints the time, and each entry
+    point's registers, spills and (for the tensor-core kernels) its
+    HGMMA/HMMA count in the SASS.  Returns {name: [entry, ...]}."""
     from repro_torch.kernels import build
     build.build_all(KERNELS)
+    report = {}
     for name in KERNELS:
-        log = build.build_log(name)
-        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
-        spills = [int(b) for b in re.findall(r"(\d+) bytes spill stores",
-                                             log)]
+        entries = ptxas_entries(build.build_log(name))
+        sass = sass_mma_counts(build.library_path(name))
+        pretty = demangle(e["entry"] for e in entries)
+        for e in entries:
+            e["hgmma"], e["hmma"] = sass.get(e["entry"], (None, None))
+        report[name] = entries
+        regs = [e["registers"] for e in entries]
         print(f"built {name} in {build.BUILD_SECONDS[name]:.1f} s "
-              f"(parallel): {len(regs)} entry points, registers "
-              f"{min(regs)}-{max(regs)}, spill stores up to "
-              f"{max(spills or [0])} bytes")
+              f"(parallel): {len(entries)} entry points, registers "
+              f"{min(regs)}-{max(regs)}, spill up to "
+              f"{max(e['spill_bytes'] for e in entries)} bytes")
+        for e in entries:
+            print(f"  {pretty[e['entry']][:110]}: {e['registers']} registers,"
+                  f" {e['spill_bytes']} bytes spill, SASS HGMMA {e['hgmma']}"
+                  f" HMMA {e['hmma']}")
+        if name in TENSOR_CORE_KERNELS:
+            check(all(e["spill_bytes"] == 0 for e in entries),
+                  f"{name}: an entry point spills")
+            mains = [e for e in entries if "_kernel" in pretty[e["entry"]]
+                     and "reduce" not in pretty[e["entry"]]]
+            check(not sass or all(e["hgmma"] for e in mains),
+                  f"{name}: an entry point has no HGMMA in its SASS")
+    return report
+
+
+def build_summary(entries) -> dict:
+    """Registers, spills and HGMMA count over a kernel's entry points."""
+    return dict(registers=max(e["registers"] for e in entries),
+                spill_bytes=max(e["spill_bytes"] for e in entries),
+                sass_hgmma=[e["hgmma"] for e in entries])
 
 
 def headline(rows, shape):
     row = next(r for r in rows if r["shape"] == shape)
     return {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                "library_ms")}
+                                "library_ms", "tc_bound_ms", "tc_bound_by")
+            if k in row}
 
 
 def main(argv) -> int:
@@ -1043,7 +1174,7 @@ def main(argv) -> int:
     check(not argv, f"unknown arguments {argv}; use --profile or none")
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
-    build_kernels()
+    builds = build_kernels()
 
     from repro_torch.kernels import distill_kl as dk
     from repro_torch.kernels import flash_attention as fa
@@ -1055,6 +1186,7 @@ def main(argv) -> int:
     lm_err, lm_shapes = lora_phase(gen)
     fa_err, fa_bwd_err, fa_shapes, fa_bwd_shapes = attn_phase(gen)
     i4_err, i4_t_err, i4_shapes, i4_t_shapes = int4_phase(gen)
+    waves = wave_probe(gen)
     kl_err, kl_shapes = kl_phase(gen)
     launches = main_phase()
     llm = llm_phase()
@@ -1084,7 +1216,10 @@ def main(argv) -> int:
         dict(name=lm.NAME, route="cuda", source=lm.SOURCE,
              replaces=lm.REPLACES, launches=n["lora_matmul"],
              max_abs_err=lm_err, **headline(lm_shapes, "tiny-w_in"),
-             launches_wide=nw["lora_matmul"], shapes=lm_shapes),
+             launches_wide=nw["lora_matmul"], shapes=lm_shapes,
+             waves=[{k: w[k] for k in ("tiles", "lora_graph_ms")}
+                    for w in waves],
+             **build_summary(builds["lora_matmul"])),
         dict(name=fa.NAME, route="cuda", source=fa.SOURCE,
              replaces=fa.REPLACES, launches=n["flash_attention"],
              max_abs_err=fa_err, **headline(fa_shapes, "tiny"),
@@ -1098,12 +1233,16 @@ def main(argv) -> int:
              replaces=i4.REPLACES, launches=nq["int4_matmul"],
              max_abs_err=i4_err, **headline(i4_shapes, "tiny-w_in"),
              launches_wide=nqw["int4_matmul"], shapes=i4_shapes,
+             waves=[{k: w[k] for k in ("tiles", "int4_graph_ms")}
+                    for w in waves],
+             **build_summary(builds["int4_matmul"]),
              library="torch dequantize to float32 + cuBLAS float32 matmul "
                      "(no single PyTorch call takes packed int4)"),
         dict(name=i4.NAME + "_t", route="cuda", source=i4.SOURCE,
              replaces=i4.REPLACES, launches=nq["int4_matmul_t"],
              max_abs_err=i4_t_err, **headline(i4_t_shapes, "tiny-w_in"),
              launches_wide=nqw["int4_matmul_t"], shapes=i4_t_shapes,
+             **build_summary(builds["int4_matmul"]),
              library="torch dequantize to float32 + cuBLAS float32 matmul "
                      "(no single PyTorch call takes packed int4)"),
         dict(name=dk.NAME, route="cuda", source=dk.SOURCE,

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
 into a shared library with a plain C interface and loaded with
 ``ctypes``; nothing includes PyTorch's headers, so a build takes
-seconds.  Libraries are named by a digest of their source and flags, so
-an edited source is rebuilt and an unchanged one is loaded as it is;
+seconds.  Libraries are named by a digest of their source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited source or header is
+rebuilt and an unchanged one is loaded as it is;
 ``build_all`` compiles several sources at once, one ``nvcc`` each.
 
 The build directory is ``kernels/_build/`` inside the package (listed in
@@ -51,8 +52,14 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(FLAGS).encode()).hexdigest()[:12]
+    """The library of ``csrc/<name>.cu``, named by a digest of that source,
+    every shared header ``csrc/*.cuh`` and the flags, so an edit to any
+    of them builds anew."""
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(FLAGS).encode())
+    digest = h.hexdigest()[:12]
     return build_dir() / f"lib{name}_{digest}.so"
 
 

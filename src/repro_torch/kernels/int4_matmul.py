@@ -20,7 +20,10 @@ the kernel's NT entry point, ``dy @ dequant(W)ᵀ``, reading the packed
 rows in place.  The packed weight and its scales are frozen: asking for
 their gradient raises.
 
-These wrappers take CUDA tensors only and launch the kernel or raise:
+Where the kernel splits a small grid's reduction, the wrapper allocates
+its float32 workspace (``i4_workspace`` floats); the split's second pass
+is part of the same launch and counts once.  These wrappers take CUDA
+tensors only and launch the kernel or raise:
 they never fall back to the plain version.  ``int4_matmul.launches``
 counts forward (NN) launches and ``int4_matmul_t.launches`` the NT ones.
 """
@@ -45,8 +48,10 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = build.load(NAME)
-    lib.i4_matmul.argtypes = [_P] * 4 + [_I64] * 3 + [_I] * 4 + [_P]
+    lib.i4_matmul.argtypes = [_P] * 4 + [_I64] * 3 + [_I] * 4 + [_P, _P]
     lib.i4_matmul.restype = _I
+    lib.i4_workspace.argtypes = [_I64] * 3 + [_I]
+    lib.i4_workspace.restype = _I64
     lib.i4_error_string.argtypes = [_I]
     lib.i4_error_string.restype = ctypes.c_char_p
     return lib
@@ -88,10 +93,14 @@ def _launch(a, packed, scales, qblock: int, round_to, trans: bool):
     lib = _library()
     M = a.shape[0]
     out = torch.empty((M, K if trans else N), dtype=a.dtype, device=a.device)
+    n_ws = lib.i4_workspace(M, K, N, int(trans))
+    ws = (torch.empty(n_ws, dtype=torch.float32, device=a.device)
+          if n_ws else None)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     err = lib.i4_matmul(a.data_ptr(), packed.data_ptr(), scales.data_ptr(),
                         out.data_ptr(), M, K, N, int(qblock), int(trans),
-                        ROUND_TO[round_to], DTYPES[a.dtype], stream)
+                        ROUND_TO[round_to], DTYPES[a.dtype],
+                        ws.data_ptr() if ws is not None else None, stream)
     if err:
         raise RuntimeError(f"{NAME} launch failed: "
                            f"{lib.i4_error_string(err).decode()}")

@@ -16,8 +16,11 @@ has no backward kernel; here the gradient is a ``torch.autograd.Function``:
     ``jax.grad`` leaves them to XLA outside any Pallas kernel,
   - W is frozen: asking for its gradient raises.
 
-This wrapper takes CUDA tensors only and launches the kernel or raises:
-it never falls back to the plain version.
+Where the kernel splits a small grid's reduction, the wrapper allocates
+its float32 workspace (``lm_workspace`` floats); the split's second pass
+is part of the same launch and counts once.  This wrapper takes CUDA
+tensors only and launches the kernel or raises: it never falls back to
+the plain version.
 """
 from __future__ import annotations
 
@@ -42,8 +45,10 @@ def _library() -> ctypes.CDLL:
     lib = build.load(NAME)
     fn = lib.lm_lora_matmul
     fn.argtypes = ([_P] * 5 + [_I64] * 4 + [ctypes.c_int, ctypes.c_float]
-                   + [_I64] * 11 + [ctypes.c_int, _P])
+                   + [_I64] * 11 + [ctypes.c_int, _P, _P])
     fn.restype = ctypes.c_int
+    lib.lm_workspace.argtypes = [_I64] * 4 + [ctypes.c_int]
+    lib.lm_workspace.restype = _I64
     lib.lm_error_string.argtypes = [ctypes.c_int]
     lib.lm_error_string.restype = ctypes.c_char_p
     return lib
@@ -74,12 +79,16 @@ def _launch(x, w, a, b, scale: float) -> torch.Tensor:
                          f"device is {torch.cuda.current_device()}")
     lib = _library()
     y = torch.empty((C, M, N), dtype=x.dtype, device=x.device)
+    n_ws = lib.lm_workspace(C, M, N, K, r)
+    ws = (torch.empty(n_ws, dtype=torch.float32, device=x.device)
+          if n_ws else None)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.lm_lora_matmul(
         x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
         y.data_ptr(), C, M, N, K, r, float(scale),
         *x.stride(), *w.stride(), *a.stride(), *b.stride(),
-        DTYPES[x.dtype], stream)
+        DTYPES[x.dtype], ws.data_ptr() if ws is not None else None,
+        stream)
     if err:
         raise RuntimeError(f"{NAME} launch failed: "
                            f"{lib.lm_error_string(err).decode()}")

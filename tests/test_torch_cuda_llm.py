@@ -148,3 +148,77 @@ def test_wrappers_reject_bad_operands(cuda):
     q = torch.zeros(1, 8, 4, 48, device=cuda)                    # D = 48
     with pytest.raises(ValueError):
         fa.flash_attention(q, q[:, :, :2], q[:, :, :2])
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core kernel's tiles (128 x 128, reduction steps of 32, rank
+# padded to 8, 16 or 32) and its split reduction for small grids
+# ---------------------------------------------------------------------------
+def _lora_operands(rng, C, M, K, N, r, dev, dtype=torch.float32):
+    return (_randn(rng, (C, M, K), dev, dtype),
+            _randn(rng, (K, N), dev, dtype, K ** -0.5),
+            _randn(rng, (C, K, r), dev, dtype, K ** -0.5),
+            _randn(rng, (C, r, N), dev, dtype, 0.1))
+
+
+@pytest.mark.parametrize("C,M,K,N,r", [
+    (1, 63, 77, 65, 4), (2, 65, 33, 127, 8), (1, 127, 100, 129, 16),
+    (3, 129, 31, 63, 32), (1, 1, 3, 1, 1), (2, 200, 64, 128, 9)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lora_matmul_ragged_edges(cuda, C, M, K, N, r, dtype):
+    rng = np.random.default_rng(C + M + K + N + r)
+    x, w, a, b = _lora_operands(rng, C, M, K, N, r, cuda, dtype)
+    got = ops.lora_matmul(x, w, a, b, 2.0)
+    want = ref.lora_matmul(x, w, a, b, 2.0)
+    if dtype == torch.float32:
+        assert _rel_err(got, want) <= 2e-5
+    else:
+        torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("r", range(1, 33))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lora_matmul_every_rank(cuda, r, dtype):
+    rng = np.random.default_rng(r)
+    x, w, a, b = _lora_operands(rng, 2, 96, 160, 136, r, cuda, dtype)
+    got = ops.lora_matmul(x, w, a, b, 2.0)
+    want = ref.lora_matmul(x, w, a, b, 2.0)
+    if dtype == torch.float32:
+        assert _rel_err(got, want) <= 2e-5
+    else:
+        torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("C,M,K,N,r", [(2, 129, 77, 65, 4),
+                                       (5, 1024, 128, 512, 4),
+                                       (1, 64, 96, 2048, 32)])
+def test_lora_matmul_dx_on_transposed_views(cuda, C, M, K, N, r):
+    """dx = dy@Wᵀ + s·(dy@Bᵀ)@Aᵀ: the kernel on transposed views, with
+    no copies, against the plain version on contiguous copies."""
+    rng = np.random.default_rng(C * K + N)
+    x, w, a, b = _lora_operands(rng, C, M, K, N, r, cuda)
+    dy = _randn(rng, (C, M, N), cuda)
+    wt, at, bt = w.t(), b.transpose(1, 2), a.transpose(1, 2)
+    assert not wt.is_contiguous()
+    got = lm._launch(dy, wt, at, bt, 2.0)
+    want = ref.lora_matmul(dy, wt.contiguous(), at.contiguous(),
+                           bt.contiguous(), 2.0)
+    assert _rel_err(got, want) <= 2e-5
+
+
+@pytest.mark.parametrize("C,M,K,N,r", [(1, 256, 1024, 128, 8),
+                                       (5, 1024, 512, 128, 4),
+                                       (2, 100, 4000, 70, 32)])
+def test_lora_matmul_split_reduction_is_deterministic(cuda, C, M, K, N, r):
+    """A small grid with a long reduction is split; the second pass sums
+    the splits in a fixed order, so two launches agree bit for bit, and
+    the wrapper counts one launch a call."""
+    rng = np.random.default_rng(K + r)
+    x, w, a, b = _lora_operands(rng, C, M, K, N, r, cuda)
+    assert lm._library().lm_workspace(C, M, N, K, r) > 0
+    before = lm.lora_matmul.launches
+    y1 = ops.lora_matmul(x, w, a, b, 2.0)
+    y2 = ops.lora_matmul(x, w, a, b, 2.0)
+    assert lm.lora_matmul.launches == before + 2
+    assert torch.equal(y1, y2)
+    assert _rel_err(y1, ref.lora_matmul(x, w, a, b, 2.0)) <= 2e-5

@@ -191,3 +191,54 @@ def test_qlora_train_step_runs_through_the_kernels(cuda):
         assert n == ([0, 0, 0] if dev == "cpu" else [10, 8, 0]), n
         losses.append(metrics["loss"].cpu())
     torch.testing.assert_close(losses[1], losses[0], rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core kernel's tiles (128 x 128, reduction steps of 32) and its
+# split reduction for small grids
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("M_,K,N,block", [
+    (63, 77, 130, 2), (65, 33, 128, 64), (129, 100, 62, 2),
+    (127, 31, 64, 32), (1, 1, 2, 2), (200, 256, 66, 2)])
+@pytest.mark.parametrize("round_to", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int4_matmul_ragged_edges(cuda, M_, K, N, block, round_to, dtype):
+    rng = np.random.default_rng(M_ + K + N + block)
+    packed, scales = _packed(rng, K, N, block, cuda)
+    x = _randn(rng, (M_, K), cuda, dtype=dtype)
+    dy = _randn(rng, (M_, N), cuda, dtype=dtype)
+    for got, want in (
+            (i4.int4_matmul(x, packed, scales, block, round_to),
+             ref.int4_matmul(x, packed, scales, block, round_to)),
+            (i4.int4_matmul_t(dy, packed, scales, block, round_to),
+             ref.int4_matmul_t(dy, packed, scales, block, round_to))):
+        if dtype == torch.float32:
+            assert _rel_err(got, want) <= 2e-5
+        else:
+            torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                       atol=2e-2)
+
+
+@pytest.mark.parametrize("M_,K,N,trans", [(5120, 128, 512, True),
+                                          (5120, 256, 128, False),
+                                          (256, 2048, 128, False),
+                                          (100, 77, 4000, True)])
+@pytest.mark.parametrize("round_to", [torch.float32, torch.bfloat16])
+def test_int4_matmul_split_reduction_is_deterministic(cuda, M_, K, N, trans,
+                                                      round_to):
+    """A small grid with a long reduction is split; the second pass sums
+    the splits in a fixed order, so two launches agree bit for bit, and
+    each call counts one launch."""
+    rng = np.random.default_rng(M_ + K + N)
+    block = 2 if N % 64 else 64
+    packed, scales = _packed(rng, K, N, block, cuda)
+    a = _randn(rng, (M_, N if trans else K), cuda)
+    assert i4._library().i4_workspace(M_, K, N, int(trans)) > 0
+    fn = i4.int4_matmul_t if trans else i4.int4_matmul
+    plain = ref.int4_matmul_t if trans else ref.int4_matmul
+    before = fn.launches
+    y1 = fn(a, packed, scales, block, round_to)
+    y2 = fn(a, packed, scales, block, round_to)
+    assert fn.launches == before + 2
+    assert torch.equal(y1, y2)
+    assert _rel_err(y1, plain(a, packed, scales, block, round_to)) <= 2e-5
