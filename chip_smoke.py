@@ -17,10 +17,16 @@ failure, and the script then exits non-zero with no result line.
    the card over a sweep of shapes (tolerance stated per kernel), the
    backward passes against plain autograd, and times the kernel, the
    plain version and a library call at the shapes the main paths give it.
+   The tape kernel ``statevector_tape`` is also held to the chain of
+   per-gate ``statevector_gate`` launches it replaces (its bitwise-equal
+   share printed) and timed beside that chain.
 3. QFL main path at the quickstart width: federated QFL with batched
    Nelder–Mead on the genomic task, 4-qubit VQC (86 gates, 16 params),
    5 clients, 10 rounds, on the card; then the same run on the CPU (the
-   plain path), which it must match.
+   plain path), which it must match.  Every tape replay is one
+   ``statevector_tape`` launch; the size-rule phase then drives
+   ``tape_probs`` above the tape kernel's limit of 14 qubits, where
+   ``run_tape`` launches ``statevector_gate`` once a gate.
 4. LLM-QFL main path (the README quickstart, Algorithm 1): the same task
    with ``method="llm-qfl"``: Step 1 fine-tunes ``tiny-llm`` LoRA
    adapters (30 steps) on the card, then 10 regulated quantum rounds.
@@ -75,8 +81,23 @@ LLM_WIDE = dict(task=dict(n_clients=4, train_size=64, test_size=16,
                 steps=2, batch_size=16)
 # the batched-LLM tolerances of the JAX package's tests
 LLM_LOSS_TOL, LLM_F1_TOL, TEACHER_TOL = 5e-4, 0.05, 5e-4
-KERNELS = ("statevector_gate", "lora_matmul", "flash_attention",
-           "int4_matmul", "distill_kl")
+KERNELS = ("statevector_gate", "statevector_tape", "lora_matmul",
+           "flash_attention", "int4_matmul", "distill_kl")
+# shared memory of the H100 SXM: 132 SMs × 128 bytes a clock at the
+# published 1.98 GHz boost clock
+SMEM_BYTES_PER_S = 132 * 128 * 1.98e9
+# (rows a replay, qubits) of the tape kernel on the main paths: the
+# quickstart (5 clients × 50 rows × 19 candidates) and the wide phase
+# (8 clients × 50 rows × 43 candidates)
+TAPE_SHAPES = ((4750, 4), (17200, 10))
+# (rows, qubits, the path that gives it) where statevector_gate is timed:
+# the size-rule phase's replay, where it runs, then the tape kernel's two
+# shapes, which it ran on before the tape kernel, for comparison
+SIZE_RULE_QUBITS, SIZE_RULE_ROWS = 15, 7
+GATE_SHAPES = ((SIZE_RULE_ROWS, SIZE_RULE_QUBITS,
+                "size rule: run_tape above 14 qubits"),
+               (4750, 4, "none: the quickstart's replays use the tape kernel"),
+               (17200, 10, "none: the wide replays use the tape kernel"))
 
 
 def check(cond, msg):
@@ -145,15 +166,15 @@ def _gate_inputs(B: int, n: int, gen):
 
 
 def kernel_phase():
-    """Max error over the sweep, and times at the main path's shapes."""
+    """Max error over the sweep, and times at ``GATE_SHAPES``."""
     import torch
     from repro_torch.kernels import ref, statevector_gates as svg
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    max_err, cases = 0.0, 0
-    for n in (1, 2, 4, 6, 10, 12):
+    max_err, cases, equal, total = 0.0, 0, 0, 0
+    for n in (1, 2, 4, 6, 10, 12, 15):
         for B in (1, 7, 4750, 17200):
-            if B == 17200 and n > 10:
+            if (B == 17200 and n > 10) or (B > 7 and n > 12):
                 continue
             psi_re, psi_im, g_re, g_im = _gate_inputs(B, n, gen)
             for target in range(n):
@@ -162,20 +183,24 @@ def kernel_phase():
                                                target, control, n)
                     want = ref.statevector_gate(psi_re, psi_im, g_re, g_im,
                                                 target, control, n)
-                    err = max(float((got[0] - want[0]).abs().max()),
-                              float((got[1] - want[1]).abs().max()))
+                    err = max(abs_err(g, w) for g, w in zip(got, want))
                     check(err <= 1e-6, f"statevector_gate n={n} B={B} "
                           f"target={target} control={control}: max abs "
                           f"error {err} > 1e-6")
                     max_err = max(max_err, err)
+                    equal += sum(int((g == w).sum())
+                                 for g, w in zip(got, want))
+                    total += 2 * B << n
                     cases += 1
     torch.cuda.synchronize()
-    print(f"kernel phase: statevector_gate == plain on {cases} cases, "
-          f"max abs err {max_err:.3g} (tolerance 1e-6: same f32 formula, "
-          "only FMA contraction differs)")
+    print(f"kernel phase: statevector_gate == plain on {cases} cases (n up "
+          f"to 15), max abs err {max_err:.3g} (tolerance 1e-6; every "
+          f"product and sum is rounded alone, as in the plain version, so "
+          f"meant to be bitwise), bitwise equal on {equal / total:.6f} of "
+          f"{total} values")
 
     shapes = []
-    for B, n in ((4750, 4), (17200, 10)):
+    for B, n, path in GATE_SHAPES:
         psi_re, psi_im, g_re, g_im = _gate_inputs(B, n, gen)
         # a controlled gate (CX-like) on the middle qubit, the common case
         args = (psi_re, psi_im, g_re, g_im, n // 2, 0, n)
@@ -187,14 +212,157 @@ def kernel_phase():
         flops = 14 * B * N                 # 28 per amplitude pair
         bound_ms = max(nbytes / HBM_BYTES_PER_S,
                        flops / F32_FLOPS_PER_S) * 1e3
-        shapes.append(dict(B=B, n_qubits=n, ms=ms, graph_ms=dev_ms,
-                           plain_ms=plain_ms, bound_ms=bound_ms,
-                           bytes=nbytes))
-        print(f"  B={B} n={n}: kernel {ms * 1e3:.2f} us/launch "
+        shapes.append(dict(B=B, n_qubits=n, path=path, ms=ms,
+                           graph_ms=dev_ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bytes=nbytes))
+        print(f"  B={B} n={n} ({path}): kernel {ms * 1e3:.2f} us/launch "
               f"({dev_ms * 1e3:.2f} us in a CUDA graph), plain "
               f"{plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
               f"({nbytes / 1e6:.2f} MB at 3.35 TB/s)")
-    return max_err, shapes
+    return max_err, equal / total, shapes
+
+
+# ---------------------------------------------------------------------------
+# phase 2: statevector_tape against its plain version and the gate chain
+# ---------------------------------------------------------------------------
+def tape_columns(n: int, kind: str, gen):
+    """(gate_id, target, control) int32 on the card: the compiled VQC
+    tape of ``n`` qubits, or one gate of a random kind for every (target,
+    control) pair."""
+    import numpy as np
+    import torch
+    from repro_torch.quantum import qnn, tape
+    if kind == "vqc":
+        t = tape.compile_qnn(qnn.QNNSpec("vqc", n_qubits=n)).tape
+        cols = (t.gate_id, t.target, t.control)
+    else:
+        pairs = [(t, c) for t in range(n)
+                 for c in [-1] + [c for c in range(n) if c != t]]
+        gid = torch.randint(0, 5, (len(pairs),), generator=gen,
+                            device="cuda").cpu().numpy()
+        cols = (gid, np.array([t for t, _ in pairs]),
+                np.array([c for _, c in pairs]))
+    return [torch.as_tensor(np.asarray(c, np.int32), device="cuda")
+            for c in cols]
+
+
+def tape_angles_for(n: int, kind: str, B: int, gen):
+    """(B, G) angles: the VQC tape's from features in [0, π) and
+    parameters in [-π, π), as the quantum rounds make them; a random
+    tape's uniform in [-2π, 2π)."""
+    import torch
+    from repro_torch.quantum import qnn, tape
+    if kind == "vqc":
+        spec = qnn.QNNSpec("vqc", n_qubits=n)
+        X = torch.rand(B, n, generator=gen, device="cuda") * math.pi
+        theta = (torch.rand(spec.n_params, generator=gen, device="cuda")
+                 * 2 - 1) * math.pi
+        return tape.tape_angles(tape.compile_qnn(spec).tape, X, theta)
+    G = n * n
+    return (torch.rand(B, G, generator=gen, device="cuda") * 4 - 2) * math.pi
+
+
+def tape_work(B: int, n: int, control) -> dict:
+    """What one replay needs: HBM bytes (angles and columns read once,
+    the planes written once), flops (28 a pair the gate acts on: all
+    2**(n-1) pairs, or the half whose control bit is set) and
+    shared-memory bytes (32 a pair, the state set up and read out)."""
+    c = control.tolist()
+    G, N = len(c), 1 << n
+    pairs = B * sum(N // 4 if cq >= 0 else N // 2 for cq in c)
+    return dict(hbm_bytes=4 * B * G + 12 * G + 8 * B * N,
+                flops=28 * pairs, smem_bytes=32 * pairs + 16 * B * N)
+
+
+def tape_phase(gate_shapes):
+    """statevector_tape over n up to its limit against ``ref`` and the
+    per-gate kernel chain; times at the main paths' shapes."""
+    import torch
+    from repro_torch.kernels import ref, statevector_gates as svg
+    from repro_torch.kernels import statevector_tape as svt
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    max_err = chain_err = norm_err = 0.0
+    equal = total = cases = 0
+    ns = (1, 2, 3, 4, 5, 6, 7, 8, 10, 12, 13, svt.MAX_QUBITS)
+    for n in ns:
+        for kind in ("vqc", "random"):
+            cols = tape_columns(n, kind, gen)
+            for B in (1, 7, 4750, 17200):
+                if B == 17200 and n > 10:
+                    continue
+                ang = tape_angles_for(n, kind, B, gen)
+                got = svt.statevector_tape(ang, *cols, n)
+                want = ref.statevector_tape(ang, *cols, n)
+                chain = ref.statevector_tape(ang, *cols, n,
+                                             gate=svg.statevector_gate)
+                err = max(abs_err(g, w) for g, w in zip(got, want))
+                tol = 1e-6 if n <= 4 else 1e-5
+                check(err <= tol, f"statevector_tape n={n} {kind} B={B}: "
+                      f"max abs error {err} > {tol}")
+                norm = float(((got[0] ** 2 + got[1] ** 2).sum(-1) - 1)
+                             .abs().max())
+                check(norm <= 1e-5, f"statevector_tape n={n} {kind} B={B}: "
+                      f"|norm - 1| = {norm}")
+                max_err, norm_err = max(max_err, err), max(norm_err, norm)
+                chain_err = max(chain_err, max(abs_err(g, c) for g, c
+                                               in zip(got, chain)))
+                equal += sum(int((g == c).sum()) for g, c in zip(got, chain))
+                total += 2 * B << n
+                cases += 1
+    torch.cuda.synchronize()
+    share = equal / total
+    print(f"kernel phase: statevector_tape == plain on {cases} cases (n in "
+          f"{list(ns)}, VQC and random tapes, B in 1, 7, 4750 and 17200 up "
+          f"to n = 10), max abs err {max_err:.3g} (tolerance 1e-6 up to "
+          f"n = 4, 1e-5 above), max |norm-1| {norm_err:.3g}; against the "
+          f"per-gate kernel chain max abs err {chain_err:.3g}, bitwise "
+          f"equal on {share:.6f} of {total} amplitude planes' values")
+
+    shapes = []
+    for B, n in TAPE_SHAPES:
+        gate = next(g for g in gate_shapes
+                    if (g["B"], g["n_qubits"]) == (B, n))
+        cols = tape_columns(n, "vqc", gen)
+        host_cols = [c.cpu().numpy() for c in cols[1:]]
+        ang = tape_angles_for(n, "vqc", B, gen)
+        G = cols[0].shape[0]
+        wide = n > 4
+        launch = lambda: svt.statevector_tape(ang, *cols, n)  # noqa: E731
+        chain = lambda: ref.statevector_tape(  # noqa: E731
+            ang, cols[0], *host_cols, n, gate=svg.statevector_gate)
+        ms = cuda_ms(launch, iters=20 if wide else 200)
+        dev = graph_ms(launch, 5 if wide else 20)
+        chain_ms = cuda_ms(chain, iters=3 if wide else 20, warmup=2)
+        chain_dev = graph_ms(chain, 1 if wide else 5, replays=3)
+        plain = cuda_ms(lambda: ref.statevector_tape(
+            ang, cols[0], *host_cols, n), iters=2 if wide else 10,
+            warmup=1)
+        # one CTA's rows alone: the latency of a row's serial gate chain
+        lone = ang[:svt.rows_per_block(n)].contiguous()
+        lone_ms = graph_ms(lambda: svt.statevector_tape(lone, *cols, n))
+        work = tape_work(B, n, cols[2])
+        bms, by = bound_ms(work["flops"], work["hbm_bytes"])
+        smem_ms = work["smem_bytes"] / SMEM_BYTES_PER_S * 1e3
+        shapes.append(dict(
+            B=B, n_qubits=n, gates=G, ms=ms, graph_ms=dev,
+            lone_cta_graph_ms=lone_ms, chain_ms=chain_ms,
+            chain_graph_ms=chain_dev, plain_ms=plain, bound_ms=bms,
+            bound_by=by, smem_bound_ms=smem_ms,
+            hbm_ms=work["hbm_bytes"] / HBM_BYTES_PER_S * 1e3,
+            ffma_ms=work["flops"] / F32_FLOPS_PER_S * 1e3, **work))
+        print(f"  B={B} n={n} G={G}: kernel {ms * 1e3:.2f} us a replay "
+              f"(graph {dev * 1e3:.2f} us; one CTA's {lone.shape[0]} rows "
+              f"alone {lone_ms * 1e3:.2f} us); per-gate chain {chain_ms * 1e3:.2f}"
+              f" us (graph {chain_dev * 1e3:.2f} us; a product, not "
+              f"measured: {G} x one timed per-gate launch "
+              f"{gate['ms'] * G * 1e3:.2f} us, graph "
+              f"{gate['graph_ms'] * G * 1e3:.2f} us); plain "
+              f"{plain * 1e3:.2f} us; bound {bms * 1e3:.2f} us ({by}: HBM "
+              f"{shapes[-1]['hbm_ms'] * 1e3:.2f} us, FFMA "
+              f"{shapes[-1]['ffma_ms'] * 1e3:.2f} us), shared-memory "
+              f"traffic {smem_ms * 1e3:.2f} us at "
+              f"{SMEM_BYTES_PER_S / 1e12:.1f} TB/s")
+    return max_err, share, shapes
 
 
 # ---------------------------------------------------------------------------
@@ -465,9 +633,12 @@ def attn_phase(gen):
             dev = graph_ms(lambda: fa._forward(q, k, v, True, 0, D ** -0.5))
             lib_dev = graph_ms(sdpa)
             bms, by = bound_ms(*attn_flops_bytes(B, S, H, KH, D))
+            # on the tensor cores at float32 accuracy: 3 TF32 products
+            tms, tby = tc_bound_ms(3, *attn_flops_bytes(B, S, H, KH, D))
         fwd.append(dict(shape=name, B=B, S=S, H=H, KH=KH, D=D, ms=ms,
                         graph_ms=dev, plain_ms=plain, library_ms=library,
-                        library_graph_ms=lib_dev, bound_ms=bms, bound_by=by))
+                        library_graph_ms=lib_dev, bound_ms=bms, bound_by=by,
+                        tc_bound_ms=tms, tc_bound_by=tby))
         b_ms = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse, do),
                        iters=100)
         b_dev = graph_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse,
@@ -482,16 +653,20 @@ def attn_phase(gen):
         b_lib = cuda_ms(lambda: torch.autograd.grad(
             ys, (q, k, v), dos, retain_graph=True), iters=50)
         bbms, bby = bound_ms(*attn_flops_bytes(B, S, H, KH, D, True))
+        btms, btby = tc_bound_ms(3, *attn_flops_bytes(B, S, H, KH, D, True))
         bwd.append(dict(shape=name, B=B, S=S, H=H, KH=KH, D=D, ms=b_ms,
                         graph_ms=b_dev, plain_ms=b_plain, library_ms=b_lib,
-                        bound_ms=bbms, bound_by=bby))
+                        bound_ms=bbms, bound_by=bby, tc_bound_ms=btms,
+                        tc_bound_by=btby))
         print(f"  {name} (B={B} S={S} H={H} KH={KH} D={D}): forward "
               f"{ms * 1e3:.1f} us (graph {dev * 1e3:.1f} us), plain "
               f"{plain * 1e3:.1f} us, SDPA {library * 1e3:.1f} us (graph "
-              f"{lib_dev * 1e3:.1f} us), bound {bms * 1e3:.2f} us ({by}); "
-              f"backward {b_ms * 1e3:.1f} us (graph {b_dev * 1e3:.1f} us), "
-              f"plain {b_plain * 1e3:.1f} us, SDPA {b_lib * 1e3:.1f} us, "
-              f"bound {bbms * 1e3:.2f} us ({bby})")
+              f"{lib_dev * 1e3:.1f} us), bound {bms * 1e3:.2f} us ({by}, "
+              f"FFMA), tensor-core {tms * 1e3:.2f} us ({tby}, 3 TF32 "
+              f"products); backward {b_ms * 1e3:.1f} us (graph "
+              f"{b_dev * 1e3:.1f} us), plain {b_plain * 1e3:.1f} us, SDPA "
+              f"{b_lib * 1e3:.1f} us, bound {bbms * 1e3:.2f} us ({bby}, "
+              f"FFMA), tensor-core {btms * 1e3:.2f} us ({btby})")
     return max_err, max_bwd_err, fwd, bwd
 
 
@@ -669,8 +844,10 @@ def _counted():
     from repro_torch.kernels import int4_matmul as i4
     from repro_torch.kernels import lora_matmul as lm
     from repro_torch.kernels import statevector_gates as svg
+    from repro_torch.kernels import statevector_tape as svt
     from repro_torch.quantum import tape
     return (("statevector_gate", svg.statevector_gate, "launches"),
+            ("statevector_tape", svt.statevector_tape, "launches"),
             ("replays", tape.run_tape, "replays"),
             ("lora_matmul", lm.lora_matmul, "launches"),
             ("flash_attention", fa.flash_attention, "launches"),
@@ -726,29 +903,39 @@ def compare_runs(gpu, cpu):
             float(np.max(np.abs(gpu.theta_g - cpu.theta_g))))
 
 
+def check_tape_launches(n: dict, what: str):
+    """Up to the tape kernel's limit (14 qubits; every path here) each
+    tape replay is one statevector_tape launch and no statevector_gate."""
+    check(n["statevector_tape"] == n["replays"] > 0
+          and n["statevector_gate"] == 0,
+          f"{what}: {n['statevector_tape']} statevector_tape and "
+          f"{n['statevector_gate']} statevector_gate launches for "
+          f"{n['replays']} tape replays (size rule: one statevector_tape a "
+          "replay up to 14 qubits)")
+
+
 def main_phase():
     zero_counters()
     t0 = time.perf_counter()
     task, gpu, orch = run_main_path("cuda", QUICKSTART)
     wall = time.perf_counter() - t0
     n = read_counters()
-    launches, replays = n["statevector_gate"], n["replays"]
-    check(launches > 0, "the main path launched no statevector_gate")
-    check(launches == 86 * replays,
-          f"{launches} launches for {replays} tape replays of 86 gates")
+    check_tape_launches(n, "qfl quickstart")
+    launches, replays = n["statevector_tape"], n["replays"]
     for r, s in zip(gpu.rounds, orch.round_seconds):
         print(f"  round {r.t}: server loss {r.server_loss:.6f} val acc "
               f"{r.server_val_acc:.3f} test acc {r.server_test_acc:.3f} "
               f"cum evals {r.cum_evals} wall {s:.3f} s")
     print(f"main path (cuda): {len(gpu.rounds)} rounds in {wall:.2f} s, "
-          f"{replays} tape replays, statevector_gate launches {launches}")
+          f"{replays} tape replays, statevector_tape launches {launches}, "
+          f"statevector_gate launches {n['statevector_gate']}")
     t0 = time.perf_counter()
     _, cpu, _ = run_main_path("cpu", QUICKSTART)
     loss_gap, theta_gap = compare_runs(gpu, cpu)
     print(f"main path (cpu, plain) in {time.perf_counter() - t0:.2f} s: "
           f"equal maxiters/selected/cum_evals; max |Δ server loss| "
           f"{loss_gap:.3g}, max |Δ θ_g| {theta_gap:.3g}")
-    return launches
+    return dict(counts=n, wall_s=wall, round_s=orch.round_seconds)
 
 
 def llm_phase() -> dict:
@@ -765,9 +952,7 @@ def llm_phase() -> dict:
               f"the formula gives {count}")
     check(n["int4_matmul"] == n["int4_matmul_t"] == 0,
           f"llm-qfl: int4_matmul launched on a float32 base: {n}")
-    check(n["statevector_gate"] == 86 * n["replays"] > 0,
-          f"llm-qfl: {n['statevector_gate']} statevector_gate launches for "
-          f"{n['replays']} replays of 86 gates")
+    check_tape_launches(n, "llm-qfl")
     for r, s in zip(gpu.rounds, orch.round_seconds):
         print(f"  round {r.t}: maxiters {r.maxiters} selected {r.selected} "
               f"server loss {r.server_loss:.6f} cum evals {r.cum_evals} "
@@ -819,11 +1004,9 @@ def wide_phase():
     task, res, _ = run_main_path("cuda", WIDE)
     wall = time.perf_counter() - t0
     n = read_counters()
-    launches, replays = n["statevector_gate"], n["replays"]
+    check_tape_launches(n, "wide")
     cq = tape.compile_qnn(qnn.QNNSpec("vqc", n_qubits=10))
     check(cq.tape.n_gates == 485, f"10-qubit tape has {cq.tape.n_gates}")
-    check(launches > 0 and launches == 485 * replays,
-          f"wide: {launches} launches for {replays} replays of 485 gates")
     r = res.rounds[-1]
     check(np.all(np.isfinite(r.client_losses)) and math.isfinite(
         r.server_loss), f"non-finite losses {r.client_losses}")
@@ -833,10 +1016,53 @@ def wide_phase():
     norm_err = float(((re * re + im * im).sum(-1) - 1).abs().max())
     check(norm_err <= 1e-5, f"statevector norms off by {norm_err}")
     print(f"wide phase (10 qubits, 485 gates, 8 clients): {wall:.2f} s, "
-          f"server loss {r.server_loss:.6f}, statevector_gate launches "
-          f"{launches}, max |norm-1| {norm_err:.3g}, peak memory "
+          f"server loss {r.server_loss:.6f}, {n['replays']} replays, "
+          f"statevector_tape launches {n['statevector_tape']}, "
+          f"statevector_gate launches {n['statevector_gate']}, max "
+          f"|norm-1| {norm_err:.3g}, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return launches
+    return n
+
+
+def size_rule_phase(n_qubits: int = SIZE_RULE_QUBITS,
+                    rows: int = SIZE_RULE_ROWS) -> dict:
+    """``tape.tape_probs`` above the tape kernel's limit: a VQC of
+    ``n_qubits`` on ``rows`` rows, where ``run_tape`` replays with one
+    statevector_gate launch a gate; held to the CPU's plain path."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import statevector_tape as svt
+    from repro_torch.quantum import qnn, tape
+    check(n_qubits > svt.MAX_QUBITS, f"{n_qubits} qubits fit the tape kernel")
+    spec = qnn.QNNSpec("vqc", n_qubits=n_qubits)
+    cq = tape.compile_qnn(spec)
+    rng = np.random.default_rng(0)
+    X = rng.uniform(0, np.pi, (rows, n_qubits)).astype(np.float32)
+    theta = rng.uniform(-np.pi, np.pi, spec.n_params).astype(np.float32)
+    zero_counters()
+    probs = tape.tape_probs(cq, torch.from_numpy(theta).cuda(),
+                            torch.from_numpy(X).cuda())
+    torch.cuda.synchronize()
+    n = read_counters()
+    G = cq.tape.n_gates
+    check(n["statevector_gate"] == G * n["replays"] > 0
+          and n["statevector_tape"] == 0,
+          f"size rule: {n['statevector_gate']} statevector_gate and "
+          f"{n['statevector_tape']} statevector_tape launches for "
+          f"{n['replays']} replays of {G} gates at {n_qubits} qubits")
+    want = tape.tape_probs(cq, torch.from_numpy(theta), torch.from_numpy(X))
+    err = float((probs.cpu() - want).abs().max())
+    # 1e-5: sin/cos may differ by an ulp between the card and the CPU,
+    # over 1065 gates, and a class sums 2**14 probabilities
+    check(err <= 1e-5, f"size rule: class probabilities off the CPU's by "
+          f"{err}")
+    print(f"size-rule phase ({n_qubits}-qubit VQC, {G} gates, {rows} rows, "
+          f"above the tape kernel's limit of {svt.MAX_QUBITS}): "
+          f"statevector_gate launches {n['statevector_gate']} for "
+          f"{n['replays']} replay, statevector_tape launches "
+          f"{n['statevector_tape']}; class probabilities within {err:.3g} "
+          "of the CPU's")
+    return n
 
 
 def qlora(cfg):
@@ -1181,16 +1407,19 @@ def main(argv) -> int:
     from repro_torch.kernels import int4_matmul as i4
     from repro_torch.kernels import lora_matmul as lm
     from repro_torch.kernels import statevector_gates as svg
-    max_err, shapes = kernel_phase()
+    from repro_torch.kernels import statevector_tape as svt
+    max_err, gate_share, shapes = kernel_phase()
+    tape_err, tape_share, tape_shapes = tape_phase(shapes)
     gen = torch.Generator(device="cuda").manual_seed(1)
     lm_err, lm_shapes = lora_phase(gen)
     fa_err, fa_bwd_err, fa_shapes, fa_bwd_shapes = attn_phase(gen)
     i4_err, i4_t_err, i4_shapes, i4_t_shapes = int4_phase(gen)
     waves = wave_probe(gen)
     kl_err, kl_shapes = kl_phase(gen)
-    launches = main_phase()
+    qfl = main_phase()
+    size_rule = size_rule_phase()
     llm = llm_phase()
-    wide_launches = wide_phase()
+    nwq = wide_phase()
     llm_wide = llm_wide_phase()
     ql = qlora_phase()
     ql_wide = llm_wide_phase(quantized=True)
@@ -1203,16 +1432,35 @@ def main(argv) -> int:
           f"{min(ql_wide['step_s']):.3f} s against "
           f"{min(llm_wide['step_s']):.3f} s")
 
-    quick = shapes[0]
+    rule, tquick = shapes[0], tape_shapes[0]
     n, nw = llm["counts"], llm_wide["counts"]
     nq, nqw = ql["counts"], ql_wide["counts"]
+    n0 = qfl["counts"]
     kernels = [
         dict(name=svg.NAME, route="cuda", source=svg.SOURCE,
-             replaces=svg.REPLACES, launches=launches, max_abs_err=max_err,
-             ms=quick["ms"], plain_ms=quick["plain_ms"],
-             bound_ms=quick["bound_ms"], bound_by="bytes", library_ms=None,
+             replaces=svg.REPLACES, launches=size_rule["statevector_gate"],
+             path=f"run_tape above {svt.MAX_QUBITS} qubits (size rule): "
+                  "launches from the size-rule phase, times at its shape "
+                  f"(B={rule['B']}, n={rule['n_qubits']})",
+             max_abs_err=max_err, bitwise_share_vs_plain=gate_share,
+             ms=rule["ms"], plain_ms=rule["plain_ms"],
+             bound_ms=rule["bound_ms"], bound_by="bytes", library_ms=None,
+             launches_qfl=n0["statevector_gate"],
              launches_llm_qfl=n["statevector_gate"],
-             launches_wide=wide_launches, shapes=shapes),
+             launches_wide=nwq["statevector_gate"], shapes=shapes),
+        dict(name=svt.NAME, route="cuda", source=svt.SOURCE,
+             replaces=svt.REPLACES, launches=n0["statevector_tape"],
+             replays=n0["replays"], max_abs_err=tape_err,
+             ms=tquick["ms"], plain_ms=tquick["plain_ms"],
+             bound_ms=tquick["bound_ms"], bound_by=tquick["bound_by"],
+             library_ms=None, launches_llm_qfl=n["statevector_tape"],
+             replays_llm_qfl=n["replays"],
+             launches_wide=nwq["statevector_tape"],
+             bitwise_share_vs_gate_chain=tape_share,
+             size_rule=f"n_qubits <= {svt.MAX_QUBITS}; above, run_tape "
+                       "launches statevector_gate once a gate",
+             shapes=tape_shapes,
+             **build_summary(builds["statevector_tape"])),
         dict(name=lm.NAME, route="cuda", source=lm.SOURCE,
              replaces=lm.REPLACES, launches=n["lora_matmul"],
              max_abs_err=lm_err, **headline(lm_shapes, "tiny-w_in"),
@@ -1249,7 +1497,8 @@ def main(argv) -> int:
              replaces=dk.REPLACES, launches=nq["distill_kl"],
              max_abs_err=kl_err, **headline(kl_shapes, "B=4096 C=4102"),
              on_main_path=False, shapes=kl_shapes)]
-    print(json.dumps({"llm_qfl": {k: llm[k] for k in ("wall_s", "finetune_s",
+    print(json.dumps({"qfl": {k: qfl[k] for k in ("wall_s", "round_s")},
+                      "llm_qfl": {k: llm[k] for k in ("wall_s", "finetune_s",
                                                       "round_s")},
                       "llm_wide": {k: llm_wide[k] for k in (
                           "step_s", "run_s", "peak_gib", "n_params",

@@ -16,16 +16,24 @@
 // amplitudes to separate output planes.  Each amplitude belongs to
 // exactly one pair, so every output element is written exactly once.
 //
+// The pair update itself is svp::pair_update (statevector_pair.cuh),
+// shared with the tape kernel (statevector_tape.cu), each product and sum
+// rounded on its own, so a chain of these launches and one tape launch
+// give the same bits.
+//
 // Bound: memory.  Per amplitude 8 bytes are read (re, im) and 8 written;
 // the arithmetic (14 flops per amplitude) is far below the card's rate.
 // At the quickstart size (B = 4750 rows of 16 amplitudes) one gate moves
 // about 1.2 MB, a few hundred nanoseconds at 3.35 TB/s, so the launch
-// itself bounds it there; the tape-fused variant that keeps a row's
-// statevector in shared memory across the whole tape is later work.
+// itself bounds it there.  repro_torch.quantum.tape.run_tape takes this
+// kernel only above the tape kernel's size limit (statevector_tape.cu),
+// where a row's statevector no longer fits in shared memory.
 //
 // C interface for ctypes: the launch returns cudaGetLastError() as int.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "statevector_pair.cuh"
 
 namespace {
 
@@ -48,15 +56,8 @@ __global__ void statevector_gate_kernel(
     float a1r = psi_re[i1], a1i = psi_im[i1];
     // the row offset lies above bit log_half, so i0's low bits are the
     // pair's own flat index and the control test needs no subtraction
-    if (!controlled || ((i0 >> cshift) & 1)) {
-        const float4 gr = g_re[row];   // (g00, g01, g10, g11)
-        const float4 gi = g_im[row];
-        const float n0r = (gr.x * a0r - gi.x * a0i) + (gr.y * a1r - gi.y * a1i);
-        const float n0i = (gr.x * a0i + gi.x * a0r) + (gr.y * a1i + gi.y * a1r);
-        const float n1r = (gr.z * a0r - gi.z * a0i) + (gr.w * a1r - gi.w * a1i);
-        const float n1i = (gr.z * a0i + gi.z * a0r) + (gr.w * a1i + gi.w * a1r);
-        a0r = n0r; a0i = n0i; a1r = n1r; a1i = n1i;
-    }
+    if (!controlled || ((i0 >> cshift) & 1))
+        svp::pair_update(g_re[row], g_im[row], a0r, a0i, a1r, a1i);
     out_re[i0] = a0r; out_im[i0] = a0i;
     out_re[i1] = a1r; out_im[i1] = a1i;
 }

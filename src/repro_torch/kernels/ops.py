@@ -14,6 +14,7 @@ from repro_torch.kernels import int4_matmul as _i4
 from repro_torch.kernels import lora_matmul as _lm
 from repro_torch.kernels import ref
 from repro_torch.kernels import statevector_gates as _svg
+from repro_torch.kernels import statevector_tape as _svt
 
 
 def _on_cpu(t, name: str) -> bool:
@@ -31,6 +32,13 @@ def statevector_gate(psi_re, psi_im, g_re, g_im, target: int, control: int,
                                      control, n_qubits)
     return ref.statevector_gate(psi_re, psi_im, g_re, g_im, target,
                                 control, n_qubits)
+
+
+def statevector_tape(angles, gate_id, target, control, n_qubits: int):
+    if not _on_cpu(angles, "statevector_tape"):
+        return _svt.statevector_tape(angles, gate_id, target, control,
+                                     n_qubits)
+    return ref.statevector_tape(angles, gate_id, target, control, n_qubits)
 
 
 def lora_matmul(x, w, a, b, scale: float):

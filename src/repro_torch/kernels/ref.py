@@ -11,9 +11,17 @@ from __future__ import annotations
 import functools
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.peft.lora import dequantize
+
+# gate kinds of a compiled tape (``quantum.tape``): every gate is one
+# (optionally controlled) 2×2 unitary
+GATE_H, GATE_P, GATE_RY, GATE_RZ, GATE_X = 0, 1, 2, 3, 4
+
+# 1/sqrt(2) in float32, the Hadamard entry of the JAX package's matrix
+_H = float(np.float32(1) / np.sqrt(np.float32(2)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -74,6 +82,61 @@ def statevector_gate(psi_re: torch.Tensor, psi_im: torch.Tensor,
     out_re[:, idx1] = m * n1r + (1.0 - m) * a1r
     out_im[:, idx1] = m * n1i + (1.0 - m) * a1i
     return out_re, out_im
+
+
+def gate_planes(gate_id: torch.Tensor, angles: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """All gates' matrices for a batch: gate ids ``(G,)`` and angles
+    ``(B, G)`` → re/im planes ``(G, B, 2, 2)``, one contiguous
+    ``(B, 2, 2)`` block per gate.
+
+    The values are the JAX package's ``_mat_*``: P = diag(1, e^{iθ}),
+    RY(θ) = [[c, −s], [s, c]] and RZ(θ) = diag(e^{−iθ/2}, e^{iθ/2}) with
+    c, s = cos(θ/2), sin(θ/2), H and X constant.
+    """
+    gid = gate_id[:, None]                                   # (G, 1)
+    ang = angles.T                                           # (G, B)
+    ch, sh = torch.cos(ang / 2), torch.sin(ang / 2)
+    cf, sf = torch.cos(ang), torch.sin(ang)
+    zero = torch.zeros_like(ang)
+    is_h, is_p = gid == GATE_H, gid == GATE_P
+    is_ry, is_rz, is_x = gid == GATE_RY, gid == GATE_RZ, gid == GATE_X
+    w = torch.where
+    g00r = w(is_h, _H, w(is_p, 1.0, w(is_ry | is_rz, ch, zero)))
+    g01r = w(is_h, _H, w(is_ry, -sh, w(is_x, 1.0, zero)))
+    g10r = w(is_h, _H, w(is_ry, sh, w(is_x, 1.0, zero)))
+    g11r = w(is_h, -_H, w(is_p, cf, w(is_ry | is_rz, ch, zero)))
+    g00i = w(is_rz, -sh, zero)
+    g11i = w(is_p, sf, w(is_rz, sh, zero))
+    G, B = ang.shape
+    g_re = torch.stack([g00r, g01r, g10r, g11r], -1).view(G, B, 2, 2)
+    g_im = torch.stack([g00i, zero, zero, g11i], -1).view(G, B, 2, 2)
+    return g_re, g_im
+
+
+def statevector_tape(angles: torch.Tensor, gate_id: torch.Tensor,
+                     target, control, n_qubits: int,
+                     gate=statevector_gate
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Replay a gate tape on |0…0⟩ for a batch: angles ``(B, G)``, the
+    tape's columns ``(G,)`` → statevector planes ``(re, im)``, each
+    ``(B, 2**n)`` float32.
+
+    ``gate_planes``, then one ``gate`` a row of the tape, in order:
+    ``statevector_gate`` here (the plain version), or the per-gate
+    kernel's dispatch, which ``quantum.tape.run_tape`` takes above the
+    tape kernel's size limit.  ``target`` and ``control`` may be tensors
+    or arrays; they are read to the host.
+    """
+    B = angles.shape[0]
+    g_re, g_im = gate_planes(gate_id, angles)
+    psi_re = torch.zeros((B, 1 << n_qubits), device=angles.device)
+    psi_re[:, 0] = 1.0
+    psi_im = torch.zeros_like(psi_re)
+    for gi, (t, c) in enumerate(zip(target.tolist(), control.tolist())):
+        psi_re, psi_im = gate(psi_re, psi_im, g_re[gi], g_im[gi], t, c,
+                              n_qubits)
+    return psi_re, psi_im
 
 
 def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,

@@ -14,11 +14,16 @@ gate reduces to one (optionally controlled) 2×2 unitary:
 ``theta_pad = [0, *theta]`` so index 0 means "no parameter".
 
 Qubit 0 is bit ``n-1-q`` of the flat big-endian index.  The statevector
-stays as two float32 planes (re, im) throughout.  ``run_tape`` first
-builds all G gates' ``(G, B, 2, 2)`` re/im planes in one vectorised pass
-(the JAX package's per-step ``lax.switch`` over gate kinds), then loops
-over the tape calling ``kernels.ops.statevector_gate`` once per gate: on
-the card each step is one launch of the hand-written kernel.
+stays as two float32 planes (re, im) throughout.  ``run_tape`` replays
+the whole tape through ``kernels.ops.statevector_tape``: on the card one
+launch of the hand-written tape kernel, which builds each gate's matrix
+from its angle and keeps every row's state in shared memory; on the CPU
+its plain version, which builds all G gates' ``(G, B, 2, 2)`` re/im
+planes in one vectorised pass (``gate_planes``, the JAX package's
+per-step ``lax.switch`` over gate kinds) and applies them one gate at a
+time.  Size rule: above ``statevector_tape.MAX_QUBITS`` (14) qubits a
+row's state no longer fits in shared memory, and ``run_tape`` applies
+the gate planes with ``kernels.ops.statevector_gate``, one launch a gate.
 
 Batch dimensions are written out: ``tape_probs`` takes ``theta``
 ``(..., P)`` and ``X`` ``(..., B, n)`` broadcasting against each other,
@@ -35,16 +40,13 @@ from typing import Callable, Dict, List, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels import ops
-from repro_torch.kernels.ref import pair_indices  # noqa: F401  (re-export)
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import statevector_tape as svt
+from repro_torch.kernels.ref import (  # noqa: F401  (re-export)
+    GATE_H, GATE_P, GATE_RY, GATE_RZ, GATE_X, pair_indices)
 from repro_torch.quantum import qnn
 
-GATE_H, GATE_P, GATE_RY, GATE_RZ, GATE_X = 0, 1, 2, 3, 4
-
 XMODE_NONE, XMODE_LINEAR, XMODE_ZZ = 0, 1, 2
-
-# 1/sqrt(2) in float32, the Hadamard entry of the JAX package's matrix
-_H = float(np.float32(1) / np.sqrt(np.float32(2)))
 
 
 @dataclass(frozen=True, eq=False)
@@ -221,8 +223,8 @@ def _columns(tape: GateTape, device) -> Dict[str, torch.Tensor]:
     per_device = _ON_DEVICE.setdefault(tape, {})
     if str(device) not in per_device:
         cols = {name: torch.as_tensor(getattr(tape, name)).to(device)
-                for name in ("gate_id", "const", "xmode", "xi", "xj",
-                             "theta_idx")}
+                for name in ("gate_id", "target", "control", "const",
+                             "xmode", "xi", "xj", "theta_idx")}
         for name in ("xi", "xj", "theta_idx"):
             cols[name] = cols[name].long()
         per_device[str(device)] = cols
@@ -249,47 +251,29 @@ def tape_angles(tape: GateTape, X: torch.Tensor,
 def gate_planes(tape: GateTape, angles: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """All gates' matrices for a batch: angles ``(B, G)`` → re/im planes
-    ``(G, B, 2, 2)``, one contiguous ``(B, 2, 2)`` block per gate.
-
-    The values are the JAX package's ``_mat_*``: P = diag(1, e^{iθ}),
-    RY(θ) = [[c, −s], [s, c]] and RZ(θ) = diag(e^{−iθ/2}, e^{iθ/2}) with
-    c, s = cos(θ/2), sin(θ/2), H and X constant.
-    """
-    gid = _columns(tape, angles.device)["gate_id"][:, None]   # (G, 1)
-    ang = angles.T                                            # (G, B)
-    ch, sh = torch.cos(ang / 2), torch.sin(ang / 2)
-    cf, sf = torch.cos(ang), torch.sin(ang)
-    zero = torch.zeros_like(ang)
-    is_h, is_p = gid == GATE_H, gid == GATE_P
-    is_ry, is_rz, is_x = gid == GATE_RY, gid == GATE_RZ, gid == GATE_X
-    w = torch.where
-    g00r = w(is_h, _H, w(is_p, 1.0, w(is_ry | is_rz, ch, zero)))
-    g01r = w(is_h, _H, w(is_ry, -sh, w(is_x, 1.0, zero)))
-    g10r = w(is_h, _H, w(is_ry, sh, w(is_x, 1.0, zero)))
-    g11r = w(is_h, -_H, w(is_p, cf, w(is_ry | is_rz, ch, zero)))
-    g00i = w(is_rz, -sh, zero)
-    g11i = w(is_p, sf, w(is_rz, sh, zero))
-    G, B = ang.shape
-    g_re = torch.stack([g00r, g01r, g10r, g11r], -1).view(G, B, 2, 2)
-    g_im = torch.stack([g00i, zero, zero, g11i], -1).view(G, B, 2, 2)
-    return g_re, g_im
+    ``(G, B, 2, 2)``, one contiguous ``(B, 2, 2)`` block per gate
+    (``kernels.ref.gate_planes`` on the tape's gate ids)."""
+    return ref.gate_planes(_columns(tape, angles.device)["gate_id"], angles)
 
 
 def run_tape(tape: GateTape, angles: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Replay the tape on |0…0⟩ for a batch: angles ``(B, G)`` →
-    statevector planes ``(re, im)``, each ``(B, 2**n)`` float32."""
-    B, n = angles.shape[0], tape.n_qubits
-    g_re, g_im = gate_planes(tape, angles)
-    psi_re = torch.zeros((B, 1 << n), device=angles.device)
-    psi_re[:, 0] = 1.0
-    psi_im = torch.zeros_like(psi_re)
-    for gi, (target, control) in enumerate(zip(tape.target.tolist(),
-                                               tape.control.tolist())):
-        psi_re, psi_im = ops.statevector_gate(psi_re, psi_im, g_re[gi],
-                                              g_im[gi], target, control, n)
+    statevector planes ``(re, im)``, each ``(B, 2**n)`` float32.
+
+    Up to ``svt.MAX_QUBITS`` qubits one ``ops.statevector_tape``; above
+    it (the size rule) the gate planes applied by one
+    ``ops.statevector_gate`` a gate."""
+    c = _columns(tape, angles.device)
+    if tape.n_qubits <= svt.MAX_QUBITS:
+        out = ops.statevector_tape(angles, c["gate_id"], c["target"],
+                                   c["control"], tape.n_qubits)
+    else:
+        out = ref.statevector_tape(angles, c["gate_id"], tape.target,
+                                   tape.control, tape.n_qubits,
+                                   gate=ops.statevector_gate)
     run_tape.replays += 1
-    return psi_re, psi_im
+    return out
 
 
 run_tape.replays = 0
