@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py              # the smoke run below
     python3 chip_smoke.py --profile    # device busy/idle of the main paths
+    python3 chip_smoke.py --attn       # attention kernels only: checks,
+                                       # times and the lone-CTA probe
 
 Run from the root of a checkout, on a machine with a CUDA card and
 ``nvcc``.  It imports nothing of JAX and nothing of the JAX package
@@ -19,7 +21,10 @@ failure, and the script then exits non-zero with no result line.
    plain version and a library call at the shapes the main paths give it.
    The tape kernel ``statevector_tape`` is also held to the chain of
    per-gate ``statevector_gate`` launches it replaces (its bitwise-equal
-   share printed) and timed beside that chain.
+   share printed) and timed beside that chain.  ``flash_attention`` is
+   also held at the edges of its 64-row / 64-key tiles, its backward
+   must repeat bit for bit, and a probe times it on a lone CTA and a
+   wave of 132.
 3. QFL main path at the quickstart width: federated QFL with batched
    Nelder–Mead on the genomic task, 4-qubit VQC (86 gates, 16 params),
    5 clients, 10 rounds, on the card; then the same run on the CPU (the
@@ -563,9 +568,54 @@ def attn_flops_bytes(B, S, H, KH, D, backward=False, elem=4):
     return 10 * D * pairs, elem * (4 * q + 2 * kv) + 4 * B * H * S
 
 
+# tile edges of the 64-row / 64-key tiles: (B, S, H, KH, D, causal,
+# window, dtype).  Above 64 keys an odd B·S·H puts the backward's dQ slabs
+# 4 bytes off the workspace's rowsum(dO O) area unless it is padded.
+ATTN_EDGES = tuple(
+    [(2, S, 4, 2, 32, True, 0, "float32") for S in (1, 63, 64, 65, 128, 129)]
+    + [(2, 65, 2 * G, 2, 64, True, 0, "float32") for G in (1, 4, 8)]
+    + [(2, 129, 4, 2, D, True, 0, "float32") for D in (64, 128)]
+    + [(2, 129, 4, 2, 32, True, w, "float32") for w in (16, 64)]
+    + [(2, 129, 8, 2, 64, False, 0, "float32"),
+       (2, 129, 16, 2, 128, True, 64, "float32")]
+    + [(2, S, 4, 2, 64, True, 0, "bfloat16") for S in (63, 129)]
+    + [(2, 100, 8, 2, 128, False, 16, "bfloat16")]
+    + [(1, S, 1, 1, D, True, 0, "float32") for S in (65, 129)
+       for D in (32, 64, 128)]
+    + [(3, 129, 3, KH, 64, True, 0, "float32") for KH in (1, 3)]
+    + [(1, 129, 1, 1, 64, True, 0, "bfloat16")])
+
+
+def attn_check(gen, name, B, S, H, KH, D, causal, window, dtype):
+    """Forward and dq/dk/dv of one case against ``ref`` and plain
+    autograd: 2e-5 (float32) or 2e-2 (bfloat16) of the largest magnitude.
+    Returns the float32 max abs errors (forward, backward)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa, ref
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    q = _randn(gen, (B, S, H, D), dtype=dtype).requires_grad_()
+    k = _randn(gen, (B, S, KH, D), dtype=dtype).requires_grad_()
+    v = _randn(gen, (B, S, KH, D), dtype=dtype).requires_grad_()
+    do = _randn(gen, (B, S, H, D), dtype=dtype)
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    g = torch.autograd.grad(got, (q, k, v), do)
+    want = ref.flash_attention(q, k, v, causal=causal, window=window)
+    gw = torch.autograd.grad(want, (q, k, v), do)
+    err = rel_err(got, want)
+    check(err <= tol, f"flash_attention {name}: error {err} > {tol}")
+    for what, u, w in zip(("dq", "dk", "dv"), g, gw):
+        e = rel_err(u, w)
+        check(e <= tol, f"flash_attention_bwd {name} {what}: relative error "
+              f"{e} > {tol}")
+    if dtype == torch.bfloat16:
+        return 0.0, 0.0
+    return abs_err(got, want), max(abs_err(u, w) for u, w in zip(g, gw))
+
+
 def attn_phase(gen):
     """flash_attention forward and backward against ``ref`` and plain
-    autograd; times against SDPA."""
+    autograd, the backward's bitwise repeatability; times against SDPA;
+    the probe."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa, ref
@@ -585,35 +635,43 @@ def attn_phase(gen):
                 if dt == torch.float32:
                     max_err = max(max_err, abs_err(got, want))
                 cases += 1
-    # grouped heads, masks and the main paths' shapes: forward and backward
-    for name, B, S, H, KH, D, causal, window in (
-            [(n, B, S, H, KH, D, True, 0) for n, B, S, H, KH, D in ATTN_SHAPES]
-            + [("non-causal", 2, 128, 4, 2, 32, False, 0),
-               ("window", 3, 100, 4, 1, 64, True, 16),
-               ("head-dim-128", 2, 70, 2, 2, 128, False, 24)]):
-        q = _randn(gen, (B, S, H, D)).requires_grad_()
-        k = _randn(gen, (B, S, KH, D)).requires_grad_()
-        v = _randn(gen, (B, S, KH, D)).requires_grad_()
-        do = _randn(gen, (B, S, H, D))
-        got = fa.flash_attention(q, k, v, causal=causal, window=window)
-        g = torch.autograd.grad(got, (q, k, v), do)
-        want = ref.flash_attention(q, k, v, causal=causal, window=window)
-        gw = torch.autograd.grad(want, (q, k, v), do)
-        err = rel_err(got, want)
-        check(err <= 2e-5, f"flash_attention {name}: error {err} > 2e-5")
-        max_err = max(max_err, abs_err(got, want))
-        for what, u, w in zip(("dq", "dk", "dv"), g, gw):
-            err = rel_err(u, w)
-            check(err <= 2e-5, f"flash_attention_bwd {name} {what}: "
-                  f"relative error {err} > 2e-5")
-            max_bwd_err = max(max_bwd_err, abs_err(u, w))
+    # grouped heads, masks, the main paths' shapes and the tile edges:
+    # forward and backward
+    for name, B, S, H, KH, D, causal, window, dt in (
+            [(n, B, S, H, KH, D, True, 0, "float32")
+             for n, B, S, H, KH, D in ATTN_SHAPES]
+            + [("non-causal", 2, 128, 4, 2, 32, False, 0, "float32"),
+               ("window", 3, 100, 4, 1, 64, True, 16, "float32"),
+               ("head-dim-128", 2, 70, 2, 2, 128, False, 24, "float32")]
+            + [(f"edge B={B} S={S} H={H} KH={KH} D={D} causal={c} "
+                f"window={w} {dt}", B, S, H, KH, D, c, w, dt)
+               for B, S, H, KH, D, c, w, dt in ATTN_EDGES]):
+        fe, be = attn_check(gen, name, B, S, H, KH, D, causal, window,
+                            getattr(torch, dt))
+        max_err, max_bwd_err = max(max_err, fe), max(max_bwd_err, be)
         cases += 1
+    # the backward twice on the same inputs: bitwise equal (one k-tile at
+    # the main paths' shapes; k-tile slabs summed in a fixed order above)
+    repeats = 0
+    for name, B, S, H, KH, D in ATTN_SHAPES + (
+            ("three k-tiles", 2, 160, 8, 2, 64),
+            ("three k-tiles, odd B·S·H", 3, 129, 3, 1, 64)):
+        q, do = _randn(gen, (B, S, H, D)), _randn(gen, (B, S, H, D))
+        k, v = _randn(gen, (B, S, KH, D)), _randn(gen, (B, S, KH, D))
+        out, lse = fa._forward(q, k, v, True, 0, D ** -0.5)
+        first = fa.flash_attention_bwd(q, k, v, out, lse, do)
+        again = fa.flash_attention_bwd(q, k, v, out, lse, do)
+        check(all(torch.equal(a, b) for a, b in zip(first, again)),
+              f"flash_attention_bwd {name}: two runs differ")
+        repeats += 1
     torch.cuda.synchronize()
-    print(f"kernel phase: flash_attention == plain on {cases} cases, max "
-          f"abs err {max_err:.3g} forward, {max_bwd_err:.3g} backward "
-          "(tolerance: the JAX sweep's 2e-5 float32 / 2e-2 bfloat16; "
-          "elsewhere 2e-5 of the largest magnitude: online softmax in "
-          "float32 against a full softmax)")
+    print(f"kernel phase: flash_attention == plain on {cases} cases "
+          f"({len(ATTN_EDGES)} at tile edges), max abs err {max_err:.3g} "
+          f"forward, {max_bwd_err:.3g} backward (tolerance: the JAX "
+          "sweep's 2e-5 float32 / 2e-2 bfloat16; elsewhere 2e-5 / 2e-2 of "
+          "the largest magnitude: online softmax and TF32-split products "
+          f"against a full float32 softmax); backward bitwise equal across "
+          f"two runs on {repeats} shapes")
 
     fwd, bwd = [], []
     for name, B, S, H, KH, D in ATTN_SHAPES:
@@ -659,15 +717,53 @@ def attn_phase(gen):
                         bound_ms=bbms, bound_by=bby, tc_bound_ms=btms,
                         tc_bound_by=btby))
         print(f"  {name} (B={B} S={S} H={H} KH={KH} D={D}): forward "
-              f"{ms * 1e3:.1f} us (graph {dev * 1e3:.1f} us), plain "
+              f"{ms * 1e3:.2f} us (graph {dev * 1e3:.2f} us), plain "
               f"{plain * 1e3:.1f} us, SDPA {library * 1e3:.1f} us (graph "
-              f"{lib_dev * 1e3:.1f} us), bound {bms * 1e3:.2f} us ({by}, "
+              f"{lib_dev * 1e3:.2f} us), bound {bms * 1e3:.2f} us ({by}, "
               f"FFMA), tensor-core {tms * 1e3:.2f} us ({tby}, 3 TF32 "
-              f"products); backward {b_ms * 1e3:.1f} us (graph "
-              f"{b_dev * 1e3:.1f} us), plain {b_plain * 1e3:.1f} us, SDPA "
+              f"products); backward {b_ms * 1e3:.2f} us (graph "
+              f"{b_dev * 1e3:.2f} us), plain {b_plain * 1e3:.1f} us, SDPA "
               f"{b_lib * 1e3:.1f} us, bound {bbms * 1e3:.2f} us ({bby}, "
               f"FFMA), tensor-core {btms * 1e3:.2f} us ({btby})")
-    return max_err, max_bwd_err, fwd, bwd
+    return max_err, max_bwd_err, fwd, bwd, attn_probe(gen)
+
+
+# (model, G, D) of the main paths' attention: G q-heads share a kv-head
+ATTN_PROBE = (("tiny", 2, 32), ("llama", 4, 64))
+
+
+def attn_probe(gen):
+    """Device time (CUDA graph) of flash_attention forward and backward on
+    small grids, at the main paths' head dims and grouping, causal:
+    (B=1, S=32, H=KH=1) is a grid of one CTA for every entry point;
+    (B=1, S=64, H=G, KH=1) is the work of one (sequence, kv-head) at the
+    main paths' length: G forward CTAs and one backward CTA; B=132 is
+    that 132 times, a wave of one backward CTA an SM; and the main path's
+    own shape."""
+    from repro_torch.kernels import flash_attention as fa
+    rows = []
+    for model, G, D in ATTN_PROBE:
+        main = next(s for s in ATTN_SHAPES if s[0] == model)
+        for what, B, S, H, KH in (("grid of one", 1, 32, 1, 1),
+                                  ("one kv-head", 1, 64, G, 1),
+                                  ("wave of 132", 132, 64, G, 1),
+                                  ("main path", *main[1:5])):
+            q = _randn(gen, (B, S, H, D))
+            k, v = _randn(gen, (B, S, KH, D)), _randn(gen, (B, S, KH, D))
+            do = _randn(gen, (B, S, H, D))
+            out, lse = fa._forward(q, k, v, True, 0, D ** -0.5)
+            row = dict(model=model, probe=what, B=B, S=S, H=H, KH=KH, D=D,
+                       fwd_graph_ms=graph_ms(
+                           lambda: fa._forward(q, k, v, True, 0, D ** -0.5)),
+                       bwd_graph_ms=graph_ms(
+                           lambda: fa.flash_attention_bwd(q, k, v, out, lse,
+                                                          do)))
+            rows.append(row)
+            print(f"  attention probe, {model} {what} (B={B} S={S} H={H} "
+                  f"KH={KH} D={D}): forward {row['fwd_graph_ms'] * 1e3:.2f} "
+                  f"us, backward {row['bwd_graph_ms'] * 1e3:.2f} us "
+                  "(CUDA graph)")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -852,6 +948,8 @@ def _counted():
             ("lora_matmul", lm.lora_matmul, "launches"),
             ("flash_attention", fa.flash_attention, "launches"),
             ("flash_attention_bwd", fa.flash_attention_bwd, "launches"),
+            ("flash_attention_bwd_side", fa.flash_attention_bwd,
+             "side_launches"),
             ("int4_matmul", i4.int4_matmul, "launches"),
             ("int4_matmul_t", i4.int4_matmul_t, "launches"),
             ("distill_kl", dk.distill_kl, "launches"))
@@ -952,6 +1050,7 @@ def llm_phase() -> dict:
               f"the formula gives {count}")
     check(n["int4_matmul"] == n["int4_matmul_t"] == 0,
           f"llm-qfl: int4_matmul launched on a float32 base: {n}")
+    check_one_k_tile(n, "llm-qfl")
     check_tape_launches(n, "llm-qfl")
     for r, s in zip(gpu.rounds, orch.round_seconds):
         print(f"  round {r.t}: maxiters {r.maxiters} selected {r.selected} "
@@ -1072,6 +1171,14 @@ def qlora(cfg):
         cfg, lora=dataclasses.replace(cfg.lora, quantize_base=True))
 
 
+def check_one_k_tile(n: dict, what: str):
+    """The main paths' 64 tokens are one k-tile: each backward call is one
+    launch, with no rowsum(dO O) or dQ-sum pass beside it."""
+    check(n["flash_attention_bwd_side"] == 0,
+          f"{what}: {n['flash_attention_bwd_side']} backward side-pass "
+          "launches at 64 tokens")
+
+
 def check_llm_launches(n: dict, want: dict, quantized: bool, what: str):
     """The stage's launches against ``llm_launch_formula``: on a QLoRA
     base every projection is an int4_matmul (forward) or int4_matmul_t
@@ -1079,6 +1186,7 @@ def check_llm_launches(n: dict, want: dict, quantized: bool, what: str):
     for name in ("flash_attention", "flash_attention_bwd"):
         check(n[name] == want[name] > 0, f"{what}: {n[name]} {name} "
               f"launches, the formula gives {want[name]}")
+    check_one_k_tile(n, what)
     proj = want["lora_matmul"]
     got = ((n["int4_matmul"] + n["int4_matmul_t"], n["lora_matmul"])
            if quantized else (n["lora_matmul"],
@@ -1333,7 +1441,13 @@ def demangle(names) -> dict:
     return dict(zip(names, out.splitlines()))
 
 
-TENSOR_CORE_KERNELS = ("lora_matmul", "int4_matmul")
+# kernels whose every main entry point runs on the tensor cores: wgmma
+# (SASS HGMMA), or mma.sync (HMMA) for flash_attention only
+TENSOR_CORE_KERNELS = {"lora_matmul": "hgmma", "int4_matmul": "hgmma",
+                       "flash_attention": "hmma"}
+# entry points that are elementwise passes beside a tensor-core kernel:
+# split-K sums, attention's rowsum(dO O) and dQ slab sum (Sk > 64)
+SIDE_PASSES = ("reduce", "delta_kernel", "dq_sum_kernel")
 
 
 def build_kernels() -> dict:
@@ -1363,17 +1477,21 @@ def build_kernels() -> dict:
             check(all(e["spill_bytes"] == 0 for e in entries),
                   f"{name}: an entry point spills")
             mains = [e for e in entries if "_kernel" in pretty[e["entry"]]
-                     and "reduce" not in pretty[e["entry"]]]
-            check(not sass or all(e["hgmma"] for e in mains),
-                  f"{name}: an entry point has no HGMMA in its SASS")
+                     and not any(x in pretty[e["entry"]]
+                                 for x in SIDE_PASSES)]
+            op = TENSOR_CORE_KERNELS[name]
+            check(not sass or (mains and all(e[op] for e in mains)),
+                  f"{name}: an entry point has no {op.upper()} in its SASS")
     return report
 
 
 def build_summary(entries) -> dict:
-    """Registers, spills and HGMMA count over a kernel's entry points."""
+    """Registers, spills and HGMMA / HMMA counts over a kernel's entry
+    points."""
     return dict(registers=max(e["registers"] for e in entries),
                 spill_bytes=max(e["spill_bytes"] for e in entries),
-                sass_hgmma=[e["hgmma"] for e in entries])
+                sass_hgmma=[e["hgmma"] for e in entries],
+                sass_hmma=[e["hmma"] for e in entries])
 
 
 def headline(rows, shape):
@@ -1397,7 +1515,12 @@ def main(argv) -> int:
         build_kernels()
         profile_phase()
         return 0
-    check(not argv, f"unknown arguments {argv}; use --profile or none")
+    if argv == ["--attn"]:
+        build_kernels()
+        attn_phase(torch.Generator(device="cuda").manual_seed(1))
+        return 0
+    check(not argv, f"unknown arguments {argv}; use --profile, --attn or "
+          "none")
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
     builds = build_kernels()
@@ -1412,7 +1535,8 @@ def main(argv) -> int:
     tape_err, tape_share, tape_shapes = tape_phase(shapes)
     gen = torch.Generator(device="cuda").manual_seed(1)
     lm_err, lm_shapes = lora_phase(gen)
-    fa_err, fa_bwd_err, fa_shapes, fa_bwd_shapes = attn_phase(gen)
+    fa_err, fa_bwd_err, fa_shapes, fa_bwd_shapes, fa_probe = \
+        attn_phase(gen)
     i4_err, i4_t_err, i4_shapes, i4_t_shapes = int4_phase(gen)
     waves = wave_probe(gen)
     kl_err, kl_shapes = kl_phase(gen)
@@ -1471,12 +1595,14 @@ def main(argv) -> int:
         dict(name=fa.NAME, route="cuda", source=fa.SOURCE,
              replaces=fa.REPLACES, launches=n["flash_attention"],
              max_abs_err=fa_err, **headline(fa_shapes, "tiny"),
-             launches_wide=nw["flash_attention"], shapes=fa_shapes),
+             launches_wide=nw["flash_attention"], shapes=fa_shapes,
+             probe=fa_probe, **build_summary(builds["flash_attention"])),
         dict(name=fa.NAME + "_bwd", route="cuda", source=fa.SOURCE,
              replaces=fa.REPLACES, launches=n["flash_attention_bwd"],
              max_abs_err=fa_bwd_err, **headline(fa_bwd_shapes, "tiny"),
              launches_wide=nw["flash_attention_bwd"],
-             shapes=fa_bwd_shapes),
+             shapes=fa_bwd_shapes,
+             **build_summary(builds["flash_attention"])),
         dict(name=i4.NAME, route="cuda", source=i4.SOURCE,
              replaces=i4.REPLACES, launches=nq["int4_matmul"],
              max_abs_err=i4_err, **headline(i4_shapes, "tiny-w_in"),

@@ -1,5 +1,6 @@
 // Error-compensated TF32 ("3xTF32") products on Hopper's tensor cores,
-// shared by lora_matmul.cu and int4_matmul.cu (sm_90a).
+// shared by lora_matmul.cu and int4_matmul.cu (sm_90a); flash_attention.cu
+// takes its split (tf32_rna) and cp.async copies (cp16) for mma.sync.
 //
 // Numerics.  A float32 x splits into two TF32 values, hi = rna(x) and
 // lo = rna(x - hi), where rna rounds to 10 mantissa bits, to nearest,

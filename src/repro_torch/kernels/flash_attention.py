@@ -7,16 +7,24 @@ version it is held to is ``ref.flash_attention``, with the same
 signature: q ``(B, S, H, D)`` and k/v ``(B, Sk, KH, D)`` in the model's
 layout, q-head ``h`` reading kv-head ``h // (H // KH)``.
 
-The JAX package trains through the jnp chunked flash of
-``models/attention.py``, so it has no backward kernel; here the gradient
-is a ``torch.autograd.Function`` whose backward is the FA2-style pair of
-passes in the same source (dK/dV per k-tile, then dQ per q-tile), from
-the logsumexp the forward saves.
+Every product runs on the tensor cores (TF32 ``mma.sync`` with the
+error-compensated split of ``csrc/tf32x3.cuh``, float32-accurate).  The
+forward takes 64 query rows of one q-head a CTA and stages each K/V
+tile of 64 keys once, by ``cp.async``.  The JAX package trains through
+the jnp chunked flash of ``models/attention.py``, so it has no backward
+kernel; here the gradient is a ``torch.autograd.Function`` whose
+backward computes dQ, dK and dV from the logsumexp the forward saves,
+one CTA per 64 keys.  Up to 64 keys (every main-path shape) that is one
+launch; above, a first launch computes rowsum(dO O) and a last one sums
+the k-tiles' dQ slabs (a float32 workspace the wrapper allocates) in a
+fixed order, so the backward is bitwise repeatable.
 
 Each wrapper takes CUDA tensors only and launches its kernels or raises:
 it never falls back to the plain version.  ``flash_attention.launches``
-counts forward launches; ``flash_attention_bwd.launches`` counts backward
-calls, each one launch of the two backward passes.
+counts forward launches.  ``flash_attention_bwd.launches`` counts
+backward calls, one each: a call is one launch up to 64 keys, three
+above (``flash_attention_bwd.side_launches`` counts the two extra, the
+rowsum(dO O) and dQ-sum passes).
 """
 from __future__ import annotations
 
@@ -36,17 +44,23 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = build.load(NAME)
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` with the argument and result types of the C interface."""
     dims = [_I] * 6 + [ctypes.c_float, _I, _I]
     lib.fa_forward.argtypes = [_P] * 5 + dims + [_I64] * 9 + [_I, _P]
     lib.fa_forward.restype = _I
-    lib.fa_backward.argtypes = [_P] * 9 + dims + [_I64] * 12 + [_I, _P]
+    lib.fa_backward.argtypes = [_P] * 9 + dims + [_I64] * 12 + [_I, _P, _P]
     lib.fa_backward.restype = _I
+    lib.fa_backward_workspace.argtypes = [_I] * 5
+    lib.fa_backward_workspace.restype = _I64
     lib.fa_error_string.argtypes = [_I]
     lib.fa_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    return declare(build.load(NAME))
 
 
 def _check(q, k, v, *more):
@@ -70,9 +84,22 @@ def _check(q, k, v, *more):
             raise TypeError(f"operands mix {t.dtype} and {q.dtype}")
         if t.stride(-1) != 1:
             raise ValueError("the head dim must have unit stride")
+        if not _rows_aligned(t):
+            raise ValueError("every row must start on 16 bytes "
+                             "(the kernels stage rows by cp.async)")
     if q.device.index != torch.cuda.current_device():
         raise ValueError(f"tensors lie on {q.device}, but the current "
                          f"device is {torch.cuda.current_device()}")
+
+
+def _rows_aligned(t) -> bool:
+    """Does every (b, s, h) row of ``t`` start on 16 bytes?"""
+    return t.data_ptr() % 16 == 0 and all(
+        st * t.element_size() % 16 == 0 for st in t.stride()[:-1])
+
+
+def _aligned(t):
+    return t if _rows_aligned(t) else t.contiguous()
 
 
 def _raise(lib, err, what):
@@ -82,6 +109,7 @@ def _raise(lib, err, what):
 
 
 def _forward(q, k, v, causal: bool, window: int, scale: float):
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     _check(q, k, v)
     B, S, H, D = q.shape
     Sk, KH = k.shape[1], k.shape[2]
@@ -104,6 +132,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     output ``out`` (contiguous) and row logsumexp ``lse`` ``(B, H, S)``."""
     if dout.stride(-1) != 1:
         dout = dout.contiguous()
+    q, k, v, dout = _aligned(q), _aligned(k), _aligned(v), _aligned(dout)
     _check(q, k, v, out, dout)
     B, S, H, D = q.shape
     Sk, KH = k.shape[1], k.shape[2]
@@ -119,15 +148,21 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, Sk, KH, D), dtype=q.dtype, device=q.device)
     dv = torch.empty((B, Sk, KH, D), dtype=q.dtype, device=q.device)
+    nbytes = lib.fa_backward_workspace(B, S, Sk, H, D)
+    work = torch.empty(nbytes, dtype=torch.uint8, device=q.device) \
+        if nbytes else None
     err = lib.fa_backward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), B, S, Sk, H, KH, D, float(scale), int(causal),
         int(window), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *dout.stride()[:3], DTYPES[q.dtype],
+        work.data_ptr() if work is not None else None,
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise(lib, err, f"{NAME} backward")
     flash_attention_bwd.launches += 1
+    if nbytes:
+        flash_attention_bwd.side_launches += 2
     return dq, dk, dv
 
 
@@ -161,3 +196,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention.launches = 0
 flash_attention_bwd.launches = 0
+flash_attention_bwd.side_launches = 0

@@ -9,7 +9,7 @@ Without a card every case skips: the kernels have no CPU mode.
 Tolerances: the JAX kernel tests' own for the forward sweep (float32
 2e-5, bfloat16 2e-2, rtol and atol); gradients 2e-5 of the largest
 magnitude (float32, sums over up to a few thousand terms taken in
-another order than cuBLAS's).
+another order than cuBLAS's), 2e-2 in bfloat16.
 """
 import numpy as np
 import pytest
@@ -137,6 +137,90 @@ def test_flash_attention_gqa_and_grads(cuda, B, S, H, KH, D, causal, window):
     assert _rel_err(got, want) <= 2e-5
     for name, u, w in zip(("dq", "dk", "dv"), g, gw):
         assert _rel_err(u, w) <= 2e-5, name
+
+
+def _grads_close(got, g, want, gw, dtype):
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    assert _rel_err(got, want) <= tol
+    for name, u, w in zip(("dq", "dk", "dv"), g, gw):
+        assert _rel_err(u, w) <= tol, name
+
+
+# the tensor-core kernels' tiles: 64 q rows of one q-head a forward CTA,
+# 64 keys a K/V tile and a backward CTA (three launches above 64 keys),
+# whose visits walk the G q-heads of its kv-head
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 128, 129])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_attention_tile_edges(cuda, S, G, D):
+    rng = np.random.default_rng(S * G + D)
+    q, k, v = (t.requires_grad_() for t in _qkv(rng, 2, S, 2 * G, 2, D,
+                                                cuda))
+    do = _randn(rng, (2, S, 2 * G, D), cuda)
+    got = ops.flash_attention(q, k, v)
+    g = torch.autograd.grad(got, (q, k, v), do)
+    want = ref.flash_attention(q, k, v)
+    gw = torch.autograd.grad(want, (q, k, v), do)
+    _grads_close(got, g, want, gw, torch.float32)
+
+
+# an odd count B·S·H of (sequence, position, q-head) rows above 64 keys:
+# the backward's dQ slabs follow its rowsum(dO O) area in the workspace
+# and are read and written as float2, so that area is padded to 16 bytes
+@pytest.mark.parametrize("B,S,H,KH", [(1, 65, 1, 1), (1, 129, 1, 1),
+                                      (3, 129, 3, 1), (3, 129, 3, 3)])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_attention_odd_row_count(cuda, B, S, H, KH, D):
+    rng = np.random.default_rng(B * S * H + KH + D)
+    q, k, v = (t.requires_grad_() for t in _qkv(rng, B, S, H, KH, D, cuda))
+    do = _randn(rng, (B, S, H, D), cuda)
+    got = ops.flash_attention(q, k, v)
+    before = (fa.flash_attention_bwd.launches,
+              fa.flash_attention_bwd.side_launches)
+    g = torch.autograd.grad(got, (q, k, v), do)
+    assert (fa.flash_attention_bwd.launches,
+            fa.flash_attention_bwd.side_launches) == (before[0] + 1,
+                                                      before[1] + 2)
+    want = ref.flash_attention(q, k, v)
+    gw = torch.autograd.grad(want, (q, k, v), do)
+    _grads_close(got, g, want, gw, torch.float32)
+
+
+@pytest.mark.parametrize("S", [65, 129])
+@pytest.mark.parametrize("causal,window", [(True, 16), (True, 64),
+                                           (False, 0), (False, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_masks_and_dtypes(cuda, S, causal, window, dtype):
+    rng = np.random.default_rng(S + window + causal)
+    q, k, v = (t.requires_grad_() for t in _qkv(rng, 2, S, 4, 2, 64, cuda,
+                                                dtype))
+    do = _randn(rng, (2, S, 4, 64), cuda, dtype)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    g = torch.autograd.grad(got, (q, k, v), do)
+    want = ref.flash_attention(q, k, v, causal=causal, window=window)
+    gw = torch.autograd.grad(want, (q, k, v), do)
+    _grads_close(got, g, want, gw, dtype)
+
+
+@pytest.mark.parametrize("S,H,KH", [(64, 8, 2), (129, 8, 2), (300, 8, 2),
+                                    (129, 3, 1)])
+def test_flash_attention_bwd_is_repeatable_one_launch_a_call(cuda, S, H, KH):
+    """One k-tile (S <= 64) finishes dQ in its CTA; above, the k-tiles'
+    dQ slabs are summed in a fixed order: two calls agree bit for bit,
+    and each call counts one launch (and two side passes above 64
+    keys)."""
+    rng = np.random.default_rng(S + H)
+    q, k, v = _qkv(rng, 3, S, H, KH, 64, cuda)
+    do = _randn(rng, (3, S, H, 64), cuda)
+    out, lse = fa._forward(q, k, v, True, 0, 64 ** -0.5)
+    before = fa.flash_attention_bwd.launches
+    side = fa.flash_attention_bwd.side_launches
+    first = fa.flash_attention_bwd(q, k, v, out, lse, do)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, do)
+    assert fa.flash_attention_bwd.launches == before + 2
+    assert fa.flash_attention_bwd.side_launches == side + (4 if S > 64 else 0)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
 
 
 def test_wrappers_reject_bad_operands(cuda):
