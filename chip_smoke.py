@@ -47,16 +47,31 @@ failure, and the script then exits non-zero with no result line.
    LLM stage of the quickstart (``BatchedLLMEngine``, 5 clients, 30
    steps, ``tiny-llm``) on the card, held to the same stage on the CPU
    (plain path); then the stage at ``llama3.2-1b`` widths as in 5.
-7. Prints the card line, one ``{"kernels": [...]}`` line, and last
-   ``{"ok": true, "device": {...}}``.
+7. The sequential engine and SPSA (after phase 4), at the quickstart's
+   width with the rounds cut to 3 (the sequential engine reads every
+   objective evaluation back to the host): QFL and LLM-QFL with
+   Nelder–Mead on ``engine="sequential"``, each held to the batched
+   engine on the card (the LLM-QFL rounds on one Step 1) and the QFL one
+   to the CPU; the sequential Step 1 (one client a launch, three
+   evaluation forwards a client) held to the batched Step 1 on the same
+   base, its launches to ``llm_launch_formula(clients=5, evals=3)``;
+   SPSA in both engines, QFL and LLM-QFL, batched on the card held to
+   sequential on the card and to batched on the CPU.  After phase 5,
+   ``run_sequential_stage`` at ``llama3.2-1b`` widths against
+   ``BatchedLLMEngine`` on one base, with each client's step time.
+8. Prints the phases' wall times, the card line, one
+   ``{"kernels": [...]}`` line (``launches_sequential``: the launches of
+   phase 7's sequential LLM-QFL Step 1, and for ``statevector_tape`` of
+   its batched SPSA QFL run), and last ``{"ok": true, "device": {...}}``.
 
 Each path is driven with every launch counter set to 0 just before it
 and read just after, and the counts are held to the formulas stated in
 ``llm_launch_formula`` and the QFL phases.  ``--profile`` instead traces
-a warm 3-round QFL run, a warm LLM-QFL run (Step 1 and 3 rounds) and a
-warm QLoRA LLM stage with ``torch.profiler`` and prints the device's
-busy time, its idle share of the wall time, and the kernels that take
-the device time.
+a warm 3-round QFL run, a warm LLM-QFL run (Step 1 and 3 rounds), a
+warm QLoRA LLM stage, a warm 3-round batched SPSA QFL run and a warm
+sequential LLM-QFL run (Step 1 and 1 round) with ``torch.profiler``
+and prints the device's busy time, its idle share of the wall time, and
+the kernels that take the device time.
 """
 from __future__ import annotations
 
@@ -409,8 +424,8 @@ def tc_bound_ms(products: int, flops: float, nbytes: float):
 
 # Projection shapes (K, N) of one layer, and the rows M each launch sees:
 # tiny-llm for the LLM-QFL quickstart (C=5 clients, 16 × 64 tokens a
-# step, 50 × 64 in the evaluation) and llama3.2-1b for the wide phase
-# (C=4, 16 × 64).
+# step, 50 × 64 in the evaluation; the sequential Step 1 one client at a
+# time, C=1) and llama3.2-1b for the wide phase (C=4, 16 × 64).
 def projections(d, H, KH, D, ff):
     return {"wq": (d, H * D), "wkv": (d, 2 * KH * D), "wo": (H * D, d),
             "w_in": (d, 2 * ff), "w_out": (ff, d)}
@@ -420,9 +435,12 @@ TINY_PROJ = projections(128, 4, 2, 32, 256)
 WIDE_PROJ = projections(2048, 32, 8, 64, 8192)
 LORA_SHAPES = (
     [("tiny-" + n, 5, 1024, K, N, 4) for n, (K, N) in TINY_PROJ.items()]
-    + [("tiny-eval-w_in", 5, 3200, 128, 512, 4)]
+    + [("tiny-eval-w_in", 5, 3200, 128, 512, 4),
+       ("seq-w_in", 1, 1024, 128, 512, 4),
+       ("seq-eval-w_in", 1, 3200, 128, 512, 4)]
     + [("llama-" + n, 4, 1024, K, N, 8) for n, (K, N) in WIDE_PROJ.items()])
 ATTN_SHAPES = (("tiny", 80, 64, 4, 2, 32), ("tiny-eval", 250, 64, 4, 2, 32),
+               ("seq", 16, 64, 4, 2, 32), ("seq-eval", 50, 64, 4, 2, 32),
                ("llama", 64, 64, 32, 8, 64))
 
 
@@ -921,12 +939,13 @@ def kl_phase(gen):
 # ---------------------------------------------------------------------------
 # phases 3 and 4: the port's main path through its entry points
 # ---------------------------------------------------------------------------
-def run_main_path(device, cfg, method="qfl", llm_outputs=None):
+def run_main_path(device, cfg, method="qfl", llm_outputs=None,
+                  engine="batched", optimizer="nelder-mead"):
     """One federated run; returns (task, result, orchestrator)."""
     from repro_torch.core.orchestrator import Orchestrator, RunConfig
     from repro_torch.data.tasks import build_task
     task = build_task("genomic", **cfg["task"])
-    rc = RunConfig(method=method, optimizer="nelder-mead", engine="batched",
+    rc = RunConfig(method=method, optimizer=optimizer, engine=engine,
                    backend="exact", **cfg["run"])
     orch = Orchestrator(task, rc, device=device, llm_outputs=llm_outputs)
     res = orch.run()
@@ -964,38 +983,48 @@ def read_counters() -> dict:
     return {name: getattr(fn, attr) for name, fn, attr in _counted()}
 
 
-def llm_launch_formula(steps: int, n_layers: int, n_proj: int = 5) -> dict:
+def llm_launch_formula(steps: int, n_layers: int, n_proj: int = 5,
+                       clients: int = 1, evals: int = 1) -> dict:
     """Launches of one run of the LLM stage (Step 1).
 
     Each train step runs every adapted projection (wq, wkv, wo, w_in,
     w_out) forward, and its dx backward except layer 0's wq and wkv,
     whose input (the normed embedding of frozen tokens) needs no
-    gradient: steps × (2 · layers · 5 − 2).  The evaluation then runs
-    every projection forward once: layers · 5.  Attention runs one
-    forward per layer and step plus the evaluation's, and one backward
-    per layer and step.
+    gradient: steps × (2 · layers · 5 − 2).  Each evaluation forward then
+    runs every projection once: layers · 5.  Attention runs one forward
+    per layer and step plus each evaluation's, and one backward per layer
+    and step.  The batched engine trains and evaluates every client in
+    each launch (``clients=1, evals=1``); the sequential stage runs each
+    of its C clients alone and evaluates three times (``eval_loss``,
+    ``f1``, ``teacher_probs``, as the JAX package's ``LLMClient``):
+    ``clients=C, evals=3``.
     """
-    return {"lora_matmul": steps * (2 * n_layers * n_proj - 2)
-            + n_layers * n_proj,
-            "flash_attention": steps * n_layers + n_layers,
-            "flash_attention_bwd": steps * n_layers}
+    return {"lora_matmul": clients * (steps * (2 * n_layers * n_proj - 2)
+                                      + evals * n_layers * n_proj),
+            "flash_attention": clients * (steps * n_layers
+                                          + evals * n_layers),
+            "flash_attention_bwd": clients * steps * n_layers}
 
 
-def compare_runs(gpu, cpu):
-    """The card run against the plain path on the CPU: integer accounting
-    exactly, losses within 1e-5 and θ_g within 1e-4 (the JAX package's
-    own engine-parity tolerances)."""
+def compare_runs(gpu, cpu, loss_tol=1e-5, theta_tol=1e-4, what="cuda/cpu"):
+    """One run against another (the card's against the plain path on the
+    CPU, or one engine against the other): integer accounting exactly,
+    losses within 1e-5 and θ_g within 1e-4 unless stated (the JAX
+    package's own engine-parity tolerances)."""
     import numpy as np
     for attr in ("maxiters", "selected", "cum_evals"):
         check(gpu.series(attr) == cpu.series(attr),
-              f"{attr} differ: cuda {gpu.series(attr)} cpu {cpu.series(attr)}")
-    check(len(gpu.rounds) == len(cpu.rounds), "round counts differ")
+              f"{what}: {attr} differ: {gpu.series(attr)} against "
+              f"{cpu.series(attr)}")
+    check(len(gpu.rounds) == len(cpu.rounds), f"{what}: round counts differ")
     np.testing.assert_allclose(gpu.series("server_loss"),
-                               cpu.series("server_loss"), atol=1e-5, rtol=0)
+                               cpu.series("server_loss"), atol=loss_tol,
+                               rtol=0, err_msg=what)
     np.testing.assert_allclose(gpu.series("client_losses"),
-                               cpu.series("client_losses"), atol=1e-5,
-                               rtol=0)
-    np.testing.assert_allclose(gpu.theta_g, cpu.theta_g, atol=1e-4, rtol=0)
+                               cpu.series("client_losses"), atol=loss_tol,
+                               rtol=0, err_msg=what)
+    np.testing.assert_allclose(gpu.theta_g, cpu.theta_g, atol=theta_tol,
+                               rtol=0, err_msg=what)
     return (float(np.max(np.abs(np.subtract(gpu.series("server_loss"),
                                             cpu.series("server_loss"))))),
             float(np.max(np.abs(gpu.theta_g - cpu.theta_g))))
@@ -1342,6 +1371,266 @@ def qlora_phase(device="cuda", cpu_device="cpu") -> dict:
     return dict(counts=n, wall_s=wall, cpu_wall_s=cpu_wall)
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the sequential engine and SPSA
+# ---------------------------------------------------------------------------
+# the quickstart task at full width, its rounds cut to 3: the sequential
+# engine reads every objective evaluation back to the host, and 10
+# regulated LLM-QFL rounds of it would take minutes
+SEQ_QFL = dict(task=QUICKSTART["task"], run=dict(n_rounds=3))
+SEQ_LLM = dict(task=QUICKSTART["task"],
+               run=dict(n_rounds=3, llm_steps=LLM_QUICKSTART["run"][
+                   "llm_steps"]))
+
+
+def drive(label: str, device: str, cfg, **kw):
+    """One run through ``run_experiment``'s path with every launch counter
+    set to 0 just before it and read just after; returns (result,
+    orchestrator, counts, wall seconds)."""
+    import numpy as np
+    zero_counters()
+    t0 = time.perf_counter()
+    _, res, orch = run_main_path(device, cfg, **kw)
+    wall = time.perf_counter() - t0
+    n = read_counters()
+    print(f"  {label} ({device}): {len(res.rounds)} rounds in {wall:.2f} s "
+          f"(fine-tune {res.llm_finetune_time_s:.2f} s; rounds "
+          f"{', '.join(f'{t:.3f}' for t in orch.round_seconds)} s); "
+          f"maxiters {res.series('maxiters')}; cum evals "
+          f"{res.series('cum_evals')[-1]}; server loss "
+          f"{np.round(res.series('server_loss'), 6).tolist()}; launches "
+          f"{json.dumps({k: v for k, v in n.items() if v})}")
+    return res, orch, n, wall
+
+
+def check_no_tape(n: dict, what: str):
+    """The sequential engine's forward is the eager circuit: no tape
+    replay, no statevector kernel."""
+    check(n["replays"] == n["statevector_tape"] == n["statevector_gate"]
+          == 0, f"{what}: the sequential engine replayed a tape: {n}")
+
+
+def sequential_phase() -> dict:
+    """The sequential engine (Nelder–Mead and SPSA) and the batched SPSA
+    at the quickstart's width, QFL and LLM-QFL, on the card: each held to
+    the other engine on the card and to a run on the CPU."""
+    import numpy as np
+    print("sequential and SPSA phase (genomic, 5 clients x 50 rows, 4-qubit "
+          "VQC, tiny-llm 30 Step-1 steps, 3 rounds):")
+    wall, counts, gaps = {}, {}, {}
+
+    def run(label, device, cfg, **kw):
+        res, orch, n, t = drive(label, device, cfg, **kw)
+        if device == "cuda":
+            wall[label], counts[label] = t, n
+        return res, orch, n
+
+    def hold(name, a, b, loss_tol=1e-5, theta_tol=1e-4):
+        compare_runs(a, b, loss_tol, theta_tol, what=name)
+        gaps[name] = (
+            float(np.max(np.abs(np.subtract(a.series("server_loss"),
+                                            b.series("server_loss"))))),
+            float(np.max(np.abs(a.theta_g - b.theta_g))))
+        print(f"  {name}: equal maxiters/selected/cum_evals; max |Δ server "
+              f"loss| {gaps[name][0]:.3g} (tol {loss_tol}), max |Δ θ_g| "
+              f"{gaps[name][1]:.3g} (tol {theta_tol})")
+
+    # 1. QFL, Nelder–Mead: sequential against batched, and against the CPU
+    seq, _, n = run("qfl nm sequential", "cuda", SEQ_QFL,
+                    engine="sequential")
+    check_no_tape(n, "qfl nm sequential")
+    bat, _, n = run("qfl nm batched", "cuda", SEQ_QFL)
+    check_tape_launches(n, "qfl nm batched")
+    hold("qfl nm: sequential vs batched (cuda)", seq, bat)
+    cpu, _, _ = run("qfl nm sequential", "cpu", SEQ_QFL, engine="sequential")
+    hold("qfl nm sequential: cuda vs cpu", seq, cpu)
+
+    # 2. LLM-QFL, Nelder–Mead: the sequential Step 1 and its launches,
+    # against the batched Step 1 on the same base; the rounds against the
+    # batched rounds on the sequential Step 1
+    seq, orch, n = run("llm-qfl nm sequential", "cuda", SEQ_LLM,
+                       method="llm-qfl", engine="sequential")
+    want = llm_launch_formula(SEQ_LLM["run"]["llm_steps"], 2,
+                              clients=SEQ_LLM["task"]["n_clients"], evals=3)
+    for name, count in want.items():
+        check(n[name] == count > 0, f"llm-qfl sequential: {n[name]} {name} "
+              f"launches, the formula gives {count}")
+    check(n["int4_matmul"] == n["int4_matmul_t"] == 0,
+          f"llm-qfl sequential: int4_matmul launched: {n}")
+    check_one_k_tile(n, "llm-qfl sequential")
+    check_no_tape(n, "llm-qfl sequential")
+    seq_launches = {k: n[k] for k in want}
+    print(f"  llm-qfl sequential Step 1 launches {json.dumps(seq_launches)}"
+          f" == C·(S·(10L−2) + 3·5L), C·(S·L + 3L), C·S·L (C=5, S=30, L=2)")
+    bat, borch, _ = run("llm-qfl nm batched", "cuda", SEQ_LLM,
+                        method="llm-qfl")
+    d_loss = float(np.max(np.abs(np.subtract(seq.llm_losses,
+                                             bat.llm_losses))))
+    d_f1 = float(np.max(np.abs(np.subtract(seq.llm_f1, bat.llm_f1))))
+    d_teacher = max(float(np.max(np.abs(a - b))) for a, b in zip(
+        orch.llm_outputs.teacher_probs, borch.llm_outputs.teacher_probs))
+    check(d_loss <= LLM_LOSS_TOL and d_f1 <= LLM_F1_TOL
+          and d_teacher <= TEACHER_TOL,
+          f"llm-qfl Step 1, sequential vs batched: |Δ L_LLM| {d_loss}, "
+          f"|Δ F1| {d_f1}, |Δ teacher| {d_teacher} (tolerances "
+          f"{LLM_LOSS_TOL}, {LLM_F1_TOL}, {TEACHER_TOL})")
+    gaps["llm-qfl Step 1: sequential vs batched (cuda)"] = (d_loss, d_f1,
+                                                            d_teacher)
+    print(f"  llm-qfl Step 1, sequential vs batched (cuda, one base): max "
+          f"|Δ L_LLM| {d_loss:.3g}, |Δ F1| {d_f1:.3g}, |Δ teacher| "
+          f"{d_teacher:.3g}; fine-tune {seq.llm_finetune_time_s:.2f} s "
+          f"against {bat.llm_finetune_time_s:.2f} s")
+    same = all(seq.series(a) == bat.series(a)
+               for a in ("maxiters", "cum_evals", "selected"))
+    print(f"  llm-qfl nm rounds, each engine on its own Step 1: integer "
+          f"accounting {'equal' if same else 'NOT equal (teacher noise)'}")
+    step1 = orch.llm_outputs
+    bat2, _, n = run("llm-qfl nm batched, sequential Step 1", "cuda",
+                     SEQ_LLM, method="llm-qfl", llm_outputs=step1)
+    check_tape_launches(n, "llm-qfl nm batched")
+    hold("llm-qfl nm: sequential vs batched (cuda, one Step 1)", seq, bat2,
+         loss_tol=1e-4)
+
+    # 3. SPSA: batched against sequential on the card, and against the CPU
+    sb, _, n = run("qfl spsa batched", "cuda", SEQ_QFL, optimizer="spsa")
+    check_tape_launches(n, "qfl spsa batched")
+    tape_launches = n["statevector_tape"]
+    ss, _, n = run("qfl spsa sequential", "cuda", SEQ_QFL, optimizer="spsa",
+                   engine="sequential")
+    check_no_tape(n, "qfl spsa sequential")
+    hold("qfl spsa: batched vs sequential (cuda)", sb, ss, 1e-4, 1e-4)
+    sc, _, _ = run("qfl spsa batched", "cpu", SEQ_QFL, optimizer="spsa")
+    hold("qfl spsa batched: cuda vs cpu", sb, sc, 1e-4, 1e-4)
+    lb, _, n = run("llm-qfl spsa batched", "cuda", SEQ_LLM,
+                   method="llm-qfl", optimizer="spsa", llm_outputs=step1)
+    check_tape_launches(n, "llm-qfl spsa batched")
+    tape_launches_llm = n["statevector_tape"]
+    ls, _, n = run("llm-qfl spsa sequential", "cuda", SEQ_LLM,
+                   method="llm-qfl", optimizer="spsa", engine="sequential",
+                   llm_outputs=step1)
+    check_no_tape(n, "llm-qfl spsa sequential")
+    hold("llm-qfl spsa: batched vs sequential (cuda, one Step 1)", lb, ls,
+         1e-4, 1e-3)
+    lc, _, _ = run("llm-qfl spsa batched", "cpu", SEQ_LLM, method="llm-qfl",
+                   optimizer="spsa", llm_outputs=step1)
+    hold("llm-qfl spsa batched: cuda vs cpu (one Step 1)", lb, lc, 1e-4,
+         1e-3)
+    return dict(wall_s=wall, seq_launches=seq_launches,
+                tape_launches=tape_launches,
+                tape_launches_llm=tape_launches_llm, gaps=gaps)
+
+
+def stage_gaps(losses, f1s, teachers, out, task) -> tuple:
+    """(|Δ L_LLM|, |Δ F1|, |Δ teacher|) of a stage's per-client outputs
+    against a ``BatchedLLMEngine`` result."""
+    import numpy as np
+    return (float(np.max(np.abs(np.subtract(losses, out.losses)))),
+            float(np.max(np.abs(np.subtract(f1s, out.f1)))),
+            max(float(np.max(np.abs(np.asarray(t) - out.teacher[
+                i, :task.clients[i].n]))) for i, t in enumerate(teachers)))
+
+
+def llm_wide_sequential_phase() -> dict:
+    """``run_sequential_stage`` at llama3.2-1b widths (float32 base, one
+    client a launch) against ``BatchedLLMEngine`` on the same base.
+
+    After one step the two are held to the batched-LLM tolerances.  After
+    LLM_WIDE's two steps, AdamW's first update of each ``lora_a`` (its
+    gradient is zero at step 1, since ``lora_b`` starts at zero) maps
+    every noise-level gradient to ±lr, so any change of arithmetic order
+    moves L_LLM by more than 5e-4 at these widths: the batched engine
+    itself moves that much when one inert padding client changes its
+    stack (``pad_to``).  There the sequential stage is held to the larger
+    of the tolerance and twice that spread (its larger component: one
+    realisation of arithmetic-order noise bounding another), measured in
+    the same run."""
+    import numpy as np
+    import torch
+    from repro_torch import random as jr
+    from repro_torch.core.batched_llm import BatchedLLMEngine
+    from repro_torch.core.llm_client import (run_sequential_stage,
+                                             task_llm_config)
+    from repro_torch.data.tasks import build_task
+    from repro_torch.models import model as M
+    what = "llm wide sequential"
+    task = build_task("genomic", **LLM_WIDE["task"])
+    cfg = task_llm_config("llama3.2-1b", task.vocab_size, task.llm_seq_len)
+    steps, bs = LLM_WIDE["steps"], LLM_WIDE["batch_size"]
+    C = task.n_clients
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = M.init_params(cfg, jr.PRNGKey(0), dtype=torch.float32,
+                         device="cuda")
+    zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    clients, losses, f1s, teachers = run_sequential_stage(
+        task, cfg, base, seed=0, steps=steps, batch_size=bs)
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t0
+    n = read_counters()
+    check_llm_launches(n, llm_launch_formula(steps, cfg.n_layers, clients=C,
+                                             evals=3), False, what)
+    seq_peak = torch.cuda.max_memory_allocated() / 2**30
+    teachers = [t.cpu().numpy() for t in teachers]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = BatchedLLMEngine(task, cfg, base, seed=0, steps=steps,
+                           batch_size=bs).run()
+    bat_s = time.perf_counter() - t0
+    gap = stage_gaps(losses, f1s, teachers, out, task)
+    padded = BatchedLLMEngine(task, cfg, base, seed=0, steps=steps,
+                              batch_size=bs, pad_to=C + 1).run()
+    spread = stage_gaps(padded.losses, padded.f1,
+                        [padded.teacher[i, :cl.n]
+                         for i, cl in enumerate(task.clients)], out, task)
+    # one step: the batched-LLM tolerances themselves
+    _, l1, f1, t1 = run_sequential_stage(task, cfg, base, seed=0, steps=1,
+                                         batch_size=bs)
+    out1 = BatchedLLMEngine(task, cfg, base, seed=0, steps=1,
+                            batch_size=bs).run()
+    gap1 = stage_gaps(l1, f1, [t.cpu().numpy() for t in t1], out1, task)
+    print(f"{what}: after 1 step |Δ L_LLM| {gap1[0]:.3g}, |Δ F1| "
+          f"{gap1[1]:.3g}, |Δ teacher| {gap1[2]:.3g} against the batched "
+          f"engine; after {steps} steps {gap[0]:.3g}, {gap[1]:.3g}, "
+          f"{gap[2]:.3g}, where the batched engine with one inert padding "
+          f"client differs from itself by {spread[0]:.3g}, {spread[1]:.3g}, "
+          f"{spread[2]:.3g}; L_LLM sequential "
+          f"{np.round(losses, 5).tolist()}, batched "
+          f"{np.round(out.losses, 5).tolist()}")
+    check(gap1[0] <= LLM_LOSS_TOL and gap1[1] <= LLM_F1_TOL
+          and gap1[2] <= TEACHER_TOL,
+          f"{what} vs batched after 1 step: {gap1} (tolerances "
+          f"{LLM_LOSS_TOL}, {LLM_F1_TOL}, {TEACHER_TOL})")
+    noise = 2 * max(spread[0], spread[2])
+    check(gap[0] <= max(LLM_LOSS_TOL, noise) and gap[1] <= LLM_F1_TOL
+          and gap[2] <= max(TEACHER_TOL, noise),
+          f"{what} vs batched after {steps} steps: {gap}, beyond both the "
+          f"tolerances ({LLM_LOSS_TOL}, {LLM_F1_TOL}, {TEACHER_TOL}) and "
+          f"twice the batched engine's own spread {spread}")
+    # one more train step of each client alone (C = 1), timed
+    step_s = []
+    for i, cl in enumerate(clients):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last = cl.fine_tune(task.clients[i].llm_batch, steps=1)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        check(math.isfinite(last), f"{what}: client {i} step loss {last}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{what} phase (llama3.2-1b widths, {cfg.n_layers} layers, "
+          f"C={C} one at a time, {bs} x 64 tokens, {steps} steps): stage "
+          f"{seq_s:.2f} s against the batched engine's {bat_s:.2f} s; "
+          f"per-client train steps {', '.join(f'{t:.3f}' for t in step_s)}"
+          f" s; launches {json.dumps({k: v for k, v in n.items() if v})}; "
+          f"peak memory {seq_peak:.2f} GiB in the sequential stage, "
+          f"{peak:.2f} GiB in all")
+    return dict(counts=n, stage_s=seq_s, batched_s=bat_s, step_s=step_s,
+                peak_gib=peak, seq_peak_gib=seq_peak, gap=gap, gap1=gap1,
+                spread=spread)
+
+
 def print_profile(prof, label: str, wall: float, detail: str):
     import torch
     kernels = [e for e in prof.key_averages()
@@ -1387,6 +1676,22 @@ def profile_phase():
         wall = time.perf_counter() - t0
     print_profile(prof, "qlora stage", wall, f"tiny-llm, int4 base, 5 "
                   f"clients, {steps} steps + distill + evaluation")
+    for label, cfg, kw in (
+            ("qfl spsa batched", SEQ_QFL, dict(optimizer="spsa")),
+            ("llm-qfl nm sequential",
+             dict(SEQ_LLM, run=dict(SEQ_LLM["run"], n_rounds=1)),
+             dict(method="llm-qfl", engine="sequential"))):
+        run_main_path("cuda", dict(cfg, run=dict(cfg["run"], n_rounds=1,
+                                                 llm_steps=2)), **kw)
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            _, res, orch = run_main_path("cuda", cfg, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        print_profile(prof, label, wall, f"fine-tune "
+                      f"{res.llm_finetune_time_s:.3f} s; rounds "
+                      f"{', '.join(f'{s:.3f}' for s in orch.round_seconds)}"
+                      " s")
 
 
 def ptxas_entries(log: str) -> list:
@@ -1543,8 +1848,10 @@ def main(argv) -> int:
     qfl = main_phase()
     size_rule = size_rule_phase()
     llm = llm_phase()
+    seq = sequential_phase()
     nwq = wide_phase()
     llm_wide = llm_wide_phase()
+    seq_wide = llm_wide_sequential_phase()
     ql = qlora_phase()
     ql_wide = llm_wide_phase(quantized=True)
     gib = 2 ** 30
@@ -1557,7 +1864,7 @@ def main(argv) -> int:
           f"{min(llm_wide['step_s']):.3f} s")
 
     rule, tquick = shapes[0], tape_shapes[0]
-    n, nw = llm["counts"], llm_wide["counts"]
+    n, nw, ns = llm["counts"], llm_wide["counts"], seq["seq_launches"]
     nq, nqw = ql["counts"], ql_wide["counts"]
     n0 = qfl["counts"]
     kernels = [
@@ -1579,6 +1886,8 @@ def main(argv) -> int:
              bound_ms=tquick["bound_ms"], bound_by=tquick["bound_by"],
              library_ms=None, launches_llm_qfl=n["statevector_tape"],
              replays_llm_qfl=n["replays"],
+             launches_sequential=seq["tape_launches"],
+             launches_sequential_llm_qfl=seq["tape_launches_llm"],
              launches_wide=nwq["statevector_tape"],
              bitwise_share_vs_gate_chain=tape_share,
              size_rule=f"n_qubits <= {svt.MAX_QUBITS}; above, run_tape "
@@ -1588,19 +1897,31 @@ def main(argv) -> int:
         dict(name=lm.NAME, route="cuda", source=lm.SOURCE,
              replaces=lm.REPLACES, launches=n["lora_matmul"],
              max_abs_err=lm_err, **headline(lm_shapes, "tiny-w_in"),
-             launches_wide=nw["lora_matmul"], shapes=lm_shapes,
+             launches_wide=nw["lora_matmul"],
+             launches_sequential=ns["lora_matmul"],
+             sequential=headline(lm_shapes, "seq-w_in"),
+             launches_sequential_wide=seq_wide["counts"]["lora_matmul"],
+             shapes=lm_shapes,
              waves=[{k: w[k] for k in ("tiles", "lora_graph_ms")}
                     for w in waves],
              **build_summary(builds["lora_matmul"])),
         dict(name=fa.NAME, route="cuda", source=fa.SOURCE,
              replaces=fa.REPLACES, launches=n["flash_attention"],
              max_abs_err=fa_err, **headline(fa_shapes, "tiny"),
-             launches_wide=nw["flash_attention"], shapes=fa_shapes,
+             launches_wide=nw["flash_attention"],
+             launches_sequential=ns["flash_attention"],
+             sequential=headline(fa_shapes, "seq"),
+             launches_sequential_wide=seq_wide["counts"]["flash_attention"],
+             shapes=fa_shapes,
              probe=fa_probe, **build_summary(builds["flash_attention"])),
         dict(name=fa.NAME + "_bwd", route="cuda", source=fa.SOURCE,
              replaces=fa.REPLACES, launches=n["flash_attention_bwd"],
              max_abs_err=fa_bwd_err, **headline(fa_bwd_shapes, "tiny"),
              launches_wide=nw["flash_attention_bwd"],
+             launches_sequential=ns["flash_attention_bwd"],
+             sequential=headline(fa_bwd_shapes, "seq"),
+             launches_sequential_wide=seq_wide["counts"][
+                 "flash_attention_bwd"],
              shapes=fa_bwd_shapes,
              **build_summary(builds["flash_attention"])),
         dict(name=i4.NAME, route="cuda", source=i4.SOURCE,
@@ -1626,9 +1947,13 @@ def main(argv) -> int:
     print(json.dumps({"qfl": {k: qfl[k] for k in ("wall_s", "round_s")},
                       "llm_qfl": {k: llm[k] for k in ("wall_s", "finetune_s",
                                                       "round_s")},
+                      "sequential": seq["wall_s"],
                       "llm_wide": {k: llm_wide[k] for k in (
                           "step_s", "run_s", "peak_gib", "n_params",
                           "init_s", "base_bytes")},
+                      "llm_wide_sequential": {k: seq_wide[k] for k in (
+                          "stage_s", "batched_s", "step_s", "peak_gib",
+                          "seq_peak_gib", "gap", "gap1", "spread")},
                       "qlora": {k: ql[k] for k in ("wall_s", "cpu_wall_s")},
                       "qlora_wide": {k: ql_wide[k] for k in (
                           "step_s", "run_s", "peak_gib", "n_params",

@@ -1,14 +1,15 @@
 """Batched federated round engine: every client's local phase at once.
 
-The port of ``repro/core/batched_engine.py`` for the Nelder–Mead
-optimizer.  One round's local training — all clients, every regulated
-iteration, the distillation objective — runs on the engine's device as
-one batched computation:
+The port of ``repro/core/batched_engine.py``.  One round's local
+training — all clients, every regulated iteration, the distillation
+objective — runs on the engine's device as one batched computation:
 
   - the circuit tape (``quantum/tape.py``) replayed over every client's
     every candidate point as one ``(C·K·Bmax, 2**n)`` statevector batch,
-  - the masked batched Nelder–Mead (``optim/batched_nm.py``): speculative
-    ``(C, n+3, P)`` candidates + masked branch selection,
+  - a masked batched optimizer: Nelder–Mead (``optim/batched_nm.py``,
+    speculative ``(C, n+3, P)`` candidates + masked branch selection) or
+    SPSA (``optim/batched_spsa.py``, ``(C, 2, P)`` perturbation pairs and
+    ``(C, 1, P)`` candidates, host-drawn Rademacher signs),
   - the per-client objective F_i + λ·KL(teacher‖student) + µ·prox,
     term for term the JAX package's ``client_objective``.
 
@@ -27,8 +28,10 @@ Every batch reduction is mask-weighted: NLL and KL average as
 nothing.  The denominator is clamped to 1, so an all-padding client
 stays finite; for real clients (Σ mask ≥ 1) the clamp is inert.
 
-Per-client ``maxiter`` budgets are iteration masks.  Finite-shot
-backends are a later slice of the port and raise here.
+Per-client ``maxiter`` budgets are iteration masks.  Every evaluation
+call of either optimizer is one tape replay of every client's every
+candidate row.  Finite-shot backends are a later slice of the port and
+raise here.
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.optim.batched_nm import batched_nm, best_point
+from repro_torch.optim.batched_spsa import batched_spsa, make_deltas
 from repro_torch.quantum import backends as backend_mod
 from repro_torch.quantum import tape as tape_mod
 
@@ -49,13 +53,15 @@ def _numpy(a) -> np.ndarray:
 
 
 def build_local_phase(spec, backend, *, lam: float, mu: float,
-                      use_llm: bool, max_iter: int = 100):
-    """The round's local-training phase (Nelder–Mead) as a function of
-    its inputs.
+                      use_llm: bool, optimizer: str = "nelder-mead",
+                      max_iter: int = 100):
+    """The round's local-training phase as a function of its inputs.
 
-    Returns ``local_phase(qX, qy, mask, teacher, theta_g, iters) →
-    (x (C, P) float32, n_evals (C,) int32)``; every tensor lies on one
-    device, and the phase runs there.
+    Returns ``local_phase(qX, qy, mask, teacher, theta_g, iters,
+    deltas=None) → (x (C, P) float32, n_evals (C,) int32)``; every tensor
+    lies on one device, and the phase runs there.  ``deltas`` (the
+    perturbation signs, ``(C, M, P)``) is required for SPSA and ignored
+    by Nelder–Mead.
     """
     if backend.shots:
         raise NotImplementedError(backend_mod.SHOTS_NOT_PORTED)
@@ -80,12 +86,18 @@ def build_local_phase(spec, backend, *, lam: float, mu: float,
             loss = loss + mu * torch.mean((xs - theta_g) ** 2, -1)
         return loss
 
-    def local_phase(qX, qy, mask, teacher, theta_g, iters):
+    if optimizer not in ("nelder-mead", "spsa"):
+        raise ValueError(f"unknown batched optimizer {optimizer!r}")
+
+    def local_phase(qX, qy, mask, teacher, theta_g, iters, deltas=None):
         x0 = theta_g[None, :].expand(qX.shape[0], -1)
 
         def f(xs):
             return client_objectives(xs, qX, qy, mask, teacher, theta_g)
 
+        if optimizer == "spsa":
+            x, _, n_evals = batched_spsa(f, x0, iters, deltas)
+            return x, n_evals
         simplex, fvals, n_evals, _ = batched_nm(f, x0, iters, int(max_iter))
         x, _ = best_point(simplex, fvals)
         return x, n_evals
@@ -94,11 +106,20 @@ def build_local_phase(spec, backend, *, lam: float, mu: float,
 
 
 class BatchedRoundEngine:
-    """Stacks client data once; runs each round's local phase on device."""
+    """Stacks client data once; runs each round's local phase on device.
+
+    ``seeds`` are the clients' SPSA seeds (``make_deltas``); ``seed``,
+    the root of the JAX package's shot-noise key chain, is taken for its
+    signature and unused until finite shots are ported.  The optimizer
+    defaults to Nelder–Mead, the port's first (the JAX engine's default
+    is SPSA; the orchestrator always names one).
+    """
 
     def __init__(self, task, spec, backend, *, lam: float, mu: float,
                  use_llm: bool, teacher_probs: Optional[List] = None,
-                 max_iter: int = 100, device="cuda"):
+                 seeds: Sequence[int] = (), max_iter: int = 100,
+                 optimizer: str = "nelder-mead", seed: int = 0,
+                 device="cuda"):
         C = task.n_clients
         n_cls = task.n_classes
         b_max = max(cl.n for cl in task.clients)
@@ -116,11 +137,18 @@ class BatchedRoundEngine:
         to = lambda a: torch.from_numpy(a).to(self.device)   # noqa: E731
         self._qX, self._qy = to(qX), to(qy)
         self._mask, self._teacher = to(mask), to(teacher)
-        # sequential-path evals spent before the metered run: nm_init
-        # does n+1 (the initial simplex)
-        self.init_evals = spec.n_params + 1
+        self._deltas = None            # NM is deterministic — no draws
+        if optimizer == "spsa":
+            # float32 signs on the device; the port has no client mesh, so
+            # no padding rows (the JAX engine pads its mesh rows with ones)
+            self._deltas = to(make_deltas(seeds, max_iter, spec.n_params)
+                              .astype(np.float32))
+        # sequential-path evals spent before the metered run: spsa_init
+        # does 1, nm_init does n+1 (the initial simplex)
+        self.init_evals = 1 if optimizer == "spsa" else spec.n_params + 1
         self._local = build_local_phase(spec, backend, lam=lam, mu=mu,
-                                        use_llm=use_llm, max_iter=max_iter)
+                                        use_llm=use_llm, optimizer=optimizer,
+                                        max_iter=max_iter)
 
     def run_round(self, theta_g: np.ndarray, maxiters: Sequence[int]
                   ) -> Tuple[np.ndarray, np.ndarray]:
@@ -135,6 +163,7 @@ class BatchedRoundEngine:
         iters = torch.as_tensor(np.asarray(maxiters, np.int32),
                                 device=self.device)
         x, n_evals = self._local(self._qX, self._qy, self._mask,
-                                 self._teacher, theta_g, iters)
+                                 self._teacher, theta_g, iters,
+                                 deltas=self._deltas)
         return (_numpy(x).astype(np.float64),
                 _numpy(n_evals).astype(np.int64))

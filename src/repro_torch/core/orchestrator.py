@@ -7,17 +7,24 @@ aggregation → server eval → termination check.  Communication time is
 accounted through the quantum backend's latency model (Table I).
 
 The port runs ``method="qfl"`` and ``method="llm-qfl"`` with
-``engine="batched"``, ``rounds="host"`` and ``optimizer="nelder-mead"``.
-For ``llm-qfl``, Step 1 fine-tunes every client's LoRA adapters on a
-frozen float32 base (``core/batched_llm.py``) in round 1; its teacher
-soft labels feed the quantum objective's KL term and its losses L_LLM
-the optimizer regulation, and the alignment selection picks the clients
-to aggregate.  The local phase of every client runs as one batched
-computation on the device (``core/batched_engine.py``), and the round's
-control laws run on the host exactly as in the JAX package: θ_g and the
-aggregation are float64 numpy, cast to float32 at the device boundary.
-The other options raise ``NotImplementedError`` naming the ROADMAP item
-that ports them.
+``rounds="host"``, ``engine="sequential"`` (the default) or
+``"batched"``, and ``optimizer="nelder-mead"`` (the default) or
+``"spsa"``.  For ``llm-qfl``, Step 1 fine-tunes every client's LoRA
+adapters on a frozen float32 base in round 1 — one client at a time
+(``core/llm_client.run_sequential_stage``) or all at once
+(``core/batched_llm.py``); its teacher soft labels feed the quantum
+objective's KL term and its losses L_LLM the optimizer regulation, and
+the alignment selection picks the clients to aggregate.
+
+The sequential engine trains one client at a time with the host
+optimizers of ``optim/gradfree.py`` on the eager circuit
+(``quantum/qnn.make_forward``), every objective evaluation read back to
+the host; the batched engine runs every client's local phase as one
+batched computation on the device (``core/batched_engine.py``) over the
+compiled tape.  The round's control laws run on the host exactly as in
+the JAX package: θ_g and the aggregation are float64 numpy, cast to
+float32 at the device boundary.  The other options raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 
 The device is ``"cuda"`` unless the caller asks for another; there is
 no silent fallback to the CPU.
@@ -32,13 +39,15 @@ import numpy as np
 import torch
 
 from repro_torch import random as jr
-from repro_torch.core import regulation, selection
+from repro_torch.core import distill, regulation, selection
 from repro_torch.core.batched_engine import BatchedRoundEngine
 from repro_torch.core.batched_llm import BatchedLLMEngine
-from repro_torch.core.llm_client import task_llm_config
+from repro_torch.core.llm_client import run_sequential_stage, task_llm_config
 from repro_torch.core.termination import TerminationCriterion
 from repro_torch.data.tasks import FederatedTask
+from repro_torch.device import resolve_device  # noqa: F401  (re-export)
 from repro_torch.models import model as M
+from repro_torch.optim.gradfree import GradFreeOptimizer
 from repro_torch.quantum import backends as backend_mod
 from repro_torch.quantum import qnn
 from repro_torch.quantum import tape as tape_mod
@@ -110,17 +119,8 @@ class RunResult:
 def _not_ported(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP §1, {item!r}); the port "
-        "runs method='qfl' or 'llm-qfl', engine='batched', "
-        "rounds='host', optimizer='nelder-mead'")
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the card; asking for CUDA without one raises."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass device='cpu' to "
-                           "run the port's plain path on the CPU")
-    return device
+        "runs method='qfl' or 'llm-qfl', engine='sequential' or "
+        "'batched', rounds='host', optimizer='nelder-mead' or 'spsa'")
 
 
 @dataclass
@@ -149,21 +149,28 @@ class Orchestrator:
         if rc.rounds not in ("host", "fused"):
             raise ValueError(f"unknown rounds mode {rc.rounds!r}; "
                              "'host' or 'fused'")
+        if rc.rounds == "fused" and rc.engine != "batched":
+            raise ValueError(
+                "rounds='fused' runs the whole loop as one device "
+                "program and needs the batched local phase; use "
+                "engine='batched'")
         if rc.rounds != "fused" and (rc.c_round is not None
                                      or rc.dropout != 0.0):
             raise ValueError(
                 "c_round / dropout are population semantics of the "
                 "fused round loop; set rounds='fused'")
+        if rc.n_devices is not None and rc.n_devices > 1 \
+                and rc.engine != "batched":
+            raise ValueError(
+                "n_devices > 1 shards the batched engine's client axis; "
+                "the sequential engine is single-device — use "
+                "engine='batched'")
         if rc.method not in ("qfl", "llm-qfl"):
             raise ValueError(f"unknown method {rc.method!r}")
+        if rc.optimizer not in ("nelder-mead", "spsa"):
+            raise ValueError(f"unknown optimizer {rc.optimizer!r}")
         if rc.uses_llm:       # an unported LLM raises before any work
             task_llm_config(rc.llm_name, task.vocab_size, task.llm_seq_len)
-        if rc.engine == "sequential":
-            raise _not_ported("engine='sequential'",
-                              "engine sequential and batched SPSA")
-        if rc.optimizer != "nelder-mead":
-            raise _not_ported(f"optimizer={rc.optimizer!r}",
-                              "engine sequential and batched SPSA")
         if rc.rounds == "fused":
             raise _not_ported("rounds='fused'", "the fused round loop")
         if rc.n_devices is not None and rc.n_devices > 1:
@@ -185,7 +192,11 @@ class Orchestrator:
         if self.backend.shots:
             raise NotImplementedError(backend_mod.SHOTS_NOT_PORTED)
         self.device = resolve_device(device)
-        self.fwd = tape_mod.make_tape_forward(self.spec, self.device)
+        if rc.engine == "batched":
+            # the compiled tape: the same math as the eager circuit (≤1e-6)
+            self.fwd = tape_mod.make_tape_forward(self.spec, self.device)
+        else:
+            self.fwd = qnn.make_forward(self.spec, self.device)
         self._key = jr.PRNGKey(rc.seed)
         self._engine = None
         self._on_device = {}
@@ -210,6 +221,18 @@ class Orchestrator:
         return float(qnn.accuracy(self._measure_probs(theta, X),
                                   self._put(y)))
 
+    def _client_loss_fn(self, i: int):
+        """Client i's objective for the sequential engine: θ (numpy) →
+        float, F_i alone for QFL, F_i + λ·KL + µ·prox for LLM-QFL."""
+        c = self.task.clients[i]
+        X, y = self._put(c.qX), self._put(c.qy)
+        base = qnn.make_loss_fn(self.spec, X, y, backend=self.backend)
+        if not self.rc.uses_llm:
+            return lambda th: float(base(th))
+        return distill.make_client_objective(
+            base, self.fwd, X, self._put(self._teacher_probs[i]),
+            self._theta_g, lam=self.rc.lam, mu=self.rc.mu)
+
     # -- Step 1: LLM fine-tuning (round 1 only) -------------------------------
     def _llm_round(self) -> float:
         """Fine-tune every client's LoRA adapters, distill toward the
@@ -225,19 +248,29 @@ class Orchestrator:
             self.llm_outputs = out = self._llm_outputs
             self._llm_losses = [float(x) for x in out.losses]
             self._llm_f1 = [float(x) for x in out.f1]
-            self._teacher_probs = [np.asarray(t, np.float32)
+            self._teacher_probs = [np.array(t, np.float32)
                                    for t in out.teacher_probs]
             return 0.0
         base = M.init_params(cfg, k0, dtype=torch.float32,
                              device=self.device)
-        self._llm_engine = BatchedLLMEngine(
-            task, cfg, base, seed=rc.seed, lr=rc.llm_lr, steps=rc.llm_steps,
-            rho=rc.distill_rho, n_devices=rc.n_devices)
-        out = self._llm_engine.run()
-        self._llm_losses = [float(x) for x in out.losses]
-        self._llm_f1 = [float(x) for x in out.f1]
-        self._teacher_probs = self._llm_engine.teacher_probs_list(
-            task, out.teacher)
+        if rc.engine == "batched":
+            self.llm_clients = None     # per-client wrappers exist only
+                                        # on the sequential path
+            self._llm_engine = BatchedLLMEngine(
+                task, cfg, base, seed=rc.seed, lr=rc.llm_lr,
+                steps=rc.llm_steps, rho=rc.distill_rho,
+                n_devices=rc.n_devices)
+            out = self._llm_engine.run()
+            self._llm_losses = [float(x) for x in out.losses]
+            self._llm_f1 = [float(x) for x in out.f1]
+            self._teacher_probs = self._llm_engine.teacher_probs_list(
+                task, out.teacher)
+        else:
+            (self.llm_clients, self._llm_losses, self._llm_f1,
+             teachers) = run_sequential_stage(
+                task, cfg, base, seed=rc.seed, lr=rc.llm_lr,
+                steps=rc.llm_steps, rho=rc.distill_rho)
+            self._teacher_probs = [t.cpu().numpy() for t in teachers]
         self.llm_outputs = LLMOutputs(self._llm_losses, self._llm_f1,
                                       self._teacher_probs)
         # the host reads of the stage's outputs synchronise with the device
@@ -259,10 +292,13 @@ class Orchestrator:
         else:
             self._teacher_probs = None
 
-        self._engine = BatchedRoundEngine(
-            task, self.spec, self.backend, lam=rc.lam, mu=rc.mu,
-            use_llm=rc.uses_llm, teacher_probs=self._teacher_probs,
-            max_iter=max(rc.maxiter_cap, rc.maxiter0), device=self.device)
+        if rc.engine == "batched":
+            self._engine = BatchedRoundEngine(
+                task, self.spec, self.backend, lam=rc.lam, mu=rc.mu,
+                use_llm=rc.uses_llm, teacher_probs=self._teacher_probs,
+                seeds=[rc.seed * 997 + i for i in range(task.n_clients)],
+                max_iter=max(rc.maxiter_cap, rc.maxiter0),
+                optimizer=rc.optimizer, seed=rc.seed, device=self.device)
 
         maxiters = [rc.maxiter0] * task.n_clients
         last_losses = [float("inf")] * task.n_clients
@@ -283,19 +319,37 @@ class Orchestrator:
                         maxiters[i], last_losses[i], llm_l,
                         variant=rc.regulation, cap=rc.maxiter_cap)
 
-            # local training: every client's phase as one batched program
+            # local training: one batched program (batched) or the
+            # per-client sequential reference
             thetas, losses, comm_t = [], [], 0.0
-            th_stack, n_evals = self._engine.run_round(self._theta_g,
-                                                       maxiters)
-            for i in range(task.n_clients):
-                cl = task.clients[i]
-                thetas.append(th_stack[i])
-                # report pure F_i (no penalty) as the device loss
-                losses.append(self._nll(th_stack[i], cl.qX, cl.qy))
-                cum_evals[i] += int(n_evals[i])
-                # metered-run evals only — init is not comm-billed
-                comm_t = max(comm_t, self.backend.eval_time(cl.n)
-                             * (int(n_evals[i]) - self._engine.init_evals))
+            if self._engine is not None:
+                th_stack, n_evals = self._engine.run_round(self._theta_g,
+                                                           maxiters)
+                for i in range(task.n_clients):
+                    cl = task.clients[i]
+                    thetas.append(th_stack[i])
+                    # report pure F_i (no penalty) as the device loss
+                    losses.append(self._nll(th_stack[i], cl.qX, cl.qy))
+                    cum_evals[i] += int(n_evals[i])
+                    # metered-run evals only — init is not comm-billed
+                    comm_t = max(comm_t, self.backend.eval_time(cl.n)
+                                 * (int(n_evals[i])
+                                    - self._engine.init_evals))
+            else:
+                for i in range(task.n_clients):
+                    cl = task.clients[i]
+                    opt = GradFreeOptimizer(self._client_loss_fn(i),
+                                            self._theta_g,
+                                            method=rc.optimizer,
+                                            seed=rc.seed * 997 + i)
+                    n0 = opt.n_evals
+                    th, _ = opt.run(maxiters[i])
+                    thetas.append(np.asarray(th, np.float64))
+                    # report pure F_i (no penalty) as the device loss
+                    losses.append(self._nll(th, cl.qX, cl.qy))
+                    cum_evals[i] += opt.n_evals
+                    comm_t = max(comm_t, self.backend.eval_time(cl.n)
+                                 * (opt.n_evals - n0))
             last_losses = list(losses)
 
             # server loss of the current global model (pre-aggregation)

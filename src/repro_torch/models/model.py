@@ -21,6 +21,7 @@ from typing import Dict, List
 import torch
 
 from repro_torch import random as jr
+from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.common import init_dense, rms_norm
 from repro_torch.optim import adamw
@@ -31,16 +32,18 @@ from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
-def init_params(cfg, key, dtype=None, device="cpu") -> Dict:
+def init_params(cfg, key, dtype=None, device=None) -> Dict:
     """The frozen base, drawn on ``device`` under the JAX package's key
     tree (``split(key, 8)``; layer ``g·P + p`` from
-    ``split(split(keys[3], P)[p], n_groups)[g]``).
+    ``split(split(keys[3], P)[p], n_groups)[g]``).  ``device=None`` is
+    the card, and raises without one (``device.resolve_device``).
 
     With ``cfg.lora.quantize_base`` (QLoRA) every target weight is stored
     packed (``peft.lora.quantize_layer_flat``), each layer as soon as it
     is drawn, so the full float32 base never sits whole on the device;
     the bytes are those of the JAX package's quantize-after."""
     dtype = dtype or getattr(torch, cfg.dtype)
+    device = resolve_device(device)
     keys = jr.split(key, 8)
     params: Dict = {
         "embed": init_dense(keys[0], (cfg.vocab_size, cfg.d_model), dtype,

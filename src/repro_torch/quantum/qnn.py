@@ -7,31 +7,25 @@ I-B.2).  Two model families (Table II):
   - VQC  : ZZFeatureMap(reps=2) + RealAmplitudes(reps=3)      [Experiment I]
   - QCNN : ZZFeatureMap encoding + conv/pool stages            [Experiment II]
 
-The forward itself is the compiled tape (``quantum/tape.py``).
+Two forwards compute the same class probabilities: ``make_forward``,
+the eager circuit on the statevector simulator (``quantum/circuits.py``,
+the sequential engine's forward, as in the JAX package), and
+``quantum/tape.py``'s compiled tape (the batched engine's).
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import Callable
 
 import torch
 
 from repro_torch import random as jr
-
-
-def real_amplitudes_n_params(n_qubits: int, reps: int = 3) -> int:
-    return n_qubits * (reps + 1)
-
-
-def qcnn_n_params(n_qubits: int) -> int:
-    """3 params per conv pair + 3 per pool pair per stage."""
-    n, total = n_qubits, 0
-    while n > 1:
-        pairs = n // 2
-        total += 3 * pairs          # conv
-        total += 3 * pairs          # pool
-        n -= pairs
-    return total
+from repro_torch.quantum import backends as backend_mod
+from repro_torch.quantum import circuits as C
+from repro_torch.quantum import statevector as sv
+from repro_torch.quantum.circuits import (  # noqa: F401  (re-export)
+    qcnn_n_params, real_amplitudes_n_params)
 
 
 def parity_interpret(probs: torch.Tensor, n_qubits: int,
@@ -45,6 +39,14 @@ def parity_interpret(probs: torch.Tensor, n_qubits: int,
     onehot = torch.nn.functional.one_hot(pop % n_classes,
                                          n_classes).to(probs.dtype)
     return probs @ onehot
+
+
+def last_qubit_interpret(psi: torch.Tensor, q: int) -> torch.Tensor:
+    """P(qubit q = 0/1) per row, ``(B, 2)``: the QCNN readout on the
+    surviving qubit."""
+    p = torch.abs(psi) ** 2
+    axes = tuple(i for i in range(1, psi.dim()) if i != q + 1)
+    return p.sum(dim=axes) if axes else p
 
 
 @dataclass(frozen=True)
@@ -70,6 +72,40 @@ class QNNSpec:
             jr.uniform(key, (self.n_params,), -math.pi, math.pi))
 
 
+def _forward_one(spec: QNNSpec, theta: torch.Tensor,
+                 X: torch.Tensor) -> torch.Tensor:
+    """Class probabilities ``(B, n_classes)`` of the rows of X ``(B, n)``:
+    the JAX package's per-example forward, vectorised over rows (it
+    ``vmap``s this function)."""
+    psi = C.zz_feature_map(X, reps=spec.fm_reps)
+    if spec.kind == "vqc":
+        psi = C.real_amplitudes(psi, theta, reps=spec.ansatz_reps)
+        return parity_interpret(sv.probabilities(psi), spec.n_qubits,
+                                spec.n_classes)
+    if spec.kind == "qcnn":
+        psi, q = C.qcnn(psi, theta)
+        if spec.n_classes == 2:
+            return last_qubit_interpret(psi, q)
+        # >2 classes: fall back to parity on the full register
+        return parity_interpret(sv.probabilities(psi), spec.n_qubits,
+                                spec.n_classes)
+    raise ValueError(spec.kind)
+
+
+def make_forward(spec: QNNSpec, device) -> Callable:
+    """(theta, X (B, n)) → class probs (B, n_classes) on ``device``, by
+    the eager circuit."""
+    device = torch.device(device)
+
+    def forward(theta, X):
+        theta = torch.as_tensor(theta).to(device=device,
+                                          dtype=torch.float32)
+        X = torch.as_tensor(X).to(device=device, dtype=torch.float32)
+        return _forward_one(spec, theta, X)
+
+    return forward
+
+
 def nll_loss(probs: torch.Tensor, labels: torch.Tensor,
              eps: float = 1e-9) -> torch.Tensor:
     """Mean negative log-likelihood of class probabilities."""
@@ -79,3 +115,22 @@ def nll_loss(probs: torch.Tensor, labels: torch.Tensor,
 
 def accuracy(probs: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.mean((torch.argmax(probs, dim=1) == labels).float())
+
+
+def make_loss_fn(spec: QNNSpec, X: torch.Tensor, y: torch.Tensor,
+                 backend=None) -> Callable:
+    """theta → scalar NLL on (X, y), optionally through a backend's noise
+    channel, on the device of ``X``.  A finite-shot backend
+    (``backend.shots > 0``) would make the loss keyed, ``loss(theta,
+    key)``; shot sampling is not ported, and that raises."""
+    if backend is not None and backend.shots:
+        raise NotImplementedError(backend_mod.SHOTS_NOT_PORTED)
+    fwd = make_forward(spec, X.device)
+
+    def loss(theta):
+        probs = fwd(theta, X)
+        if backend is not None:
+            probs = backend.apply_channel(probs)
+        return nll_loss(probs, y)
+
+    return loss

@@ -107,7 +107,8 @@ def test_base_init_within_2ulp():
     cfg = llmc.task_llm_config("tiny-llm", 600, 64)
     want = convert.params_from_jax(_tolist(
         JM.init_params(jcfg, jax.random.PRNGKey(4), dtype=jnp.float32)))
-    got = M.init_params(cfg, jr.PRNGKey(4), dtype=torch.float32)
+    got = M.init_params(cfg, jr.PRNGKey(4), dtype=torch.float32,
+                        device="cpu")
     for g, w in zip(tree_leaves(got), tree_leaves(want)):
         ulps = np.abs(g.numpy().view(np.int32).astype(np.int64)
                       - w.numpy().view(np.int32).astype(np.int64))

@@ -35,7 +35,10 @@ def test_port_has_its_modules():
                  "models.layers", "models.model", "peft.lora",
                  "optim.adamw", "core.llm_client", "core.batched_llm",
                  "kernels.lora_matmul", "kernels.flash_attention",
-                 "kernels.int4_matmul", "kernels.distill_kl"):
+                 "kernels.int4_matmul", "kernels.distill_kl",
+                 "quantum.statevector", "quantum.circuits",
+                 "optim.gradfree", "optim.batched_spsa", "core.distill",
+                 "device"):
         assert f"repro_torch.{name}" in MODULES
 
 

@@ -73,20 +73,29 @@ def test_run_config_defaults_and_fields_match():
     assert RunConfig() == RunConfig(**vars(JaxRunConfig()))
 
 
-@pytest.mark.parametrize("override,item", [
-    (dict(method="llm-qfl", llm_name="gpt2"), "other model families"),
-    (dict(engine="sequential"), "engine sequential"),
-    (dict(optimizer="spsa"), "engine sequential"),
-    (dict(rounds="fused"), "fused round loop"),
-    (dict(n_devices=2), "multi-GPU"),
-    (dict(backend="fake"), "finite-shot"),
+@pytest.mark.parametrize("override,exc,item", [
+    (dict(method="llm-qfl", llm_name="gpt2"), NotImplementedError,
+     "other model families"),
+    (dict(engine="sequential", rounds="fused"), ValueError,
+     "rounds='fused'.*engine='batched'"),
+    (dict(engine="sequential", n_devices=2), ValueError,
+     "n_devices > 1.*engine='batched'"),
+    (dict(rounds="fused"), NotImplementedError, "fused round loop"),
+    (dict(n_devices=2), NotImplementedError, "multi-GPU"),
+    (dict(backend="fake"), NotImplementedError, "finite-shot"),
 ])
-def test_unported_options_raise(override, item):
+def test_unported_options_raise(override, exc, item):
+    """Options the port does not run raise ``NotImplementedError`` naming
+    their ROADMAP item; the JAX package's own ``ValueError`` checks come
+    first, in its order."""
     name, tkw = TASKS["genomic"]
     task = build_task(name, **tkw)
     kw = dict(KW, **override)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(exc, match=item):
         orchestrator.Orchestrator(task, RunConfig(**kw), device="cpu")
+    if exc is ValueError:
+        with pytest.raises(exc, match=item):
+            JaxOrchestrator(jax_build_task(name, **tkw), JaxRunConfig(**kw))
 
 
 def test_no_device_means_cuda(monkeypatch):
@@ -99,6 +108,12 @@ def test_no_device_means_cuda(monkeypatch):
         orchestrator.Orchestrator(task, RunConfig(**KW))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run_experiment(task, **KW)
+    from repro_torch import random as jr
+    from repro_torch.core.llm_client import task_llm_config
+    from repro_torch.models import model as M
+    cfg = task_llm_config("tiny-llm", task.vocab_size, task.llm_seq_len)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        M.init_params(cfg, jr.PRNGKey(0), dtype=torch.float32)
 
 
 # --- LLM-QFL: Step 1 and the regulated, selected quantum rounds ---------------

@@ -245,7 +245,8 @@ def setup():
 
 
 def test_init_params_is_packed(setup):
-    tp = M.init_params(setup["tcfg"], jr.PRNGKey(3), dtype=torch.float32)
+    tp = M.init_params(setup["tcfg"], jr.PRNGKey(3), dtype=torch.float32,
+                       device="cpu")
     for layer in tp["layers"]:
         assert not set(TARGETS) & set(layer)
         for n in TARGETS:
@@ -270,7 +271,8 @@ def test_params_carried_across_bitwise(setup):
 def test_own_draw_packs_like_jax(setup, seed):
     """The port's own base draw (within 2 ulp of JAX's) quantizes to
     JAX's bytes on at least 99.9 % of packed bytes (1.0 measured)."""
-    got = M.init_params(setup["tcfg"], jr.PRNGKey(seed), dtype=torch.float32)
+    got = M.init_params(setup["tcfg"], jr.PRNGKey(seed), dtype=torch.float32,
+                        device="cpu")
     want = convert.params_from_jax(_tolist(JM.init_params(
         setup["jcfg"], jax.random.PRNGKey(seed), dtype=jnp.float32)))
     equal = total = 0
@@ -293,9 +295,11 @@ def test_quantize_per_layer_equals_quantize_after(setup):
     jbase = JM.init_params(dataclasses.replace(jpm.TINY_LLM, vocab_size=V),
                            jax.random.PRNGKey(3), dtype=jnp.float32)
     pairs = [
-        (M.init_params(setup["tcfg"], jr.PRNGKey(3), dtype=torch.float32),
+        (M.init_params(setup["tcfg"], jr.PRNGKey(3), dtype=torch.float32,
+                       device="cpu"),
          lora.quantize_stacked_groups(
-             M.init_params(cfg, jr.PRNGKey(3), dtype=torch.float32),
+             M.init_params(cfg, jr.PRNGKey(3), dtype=torch.float32,
+                           device="cpu"),
              TARGETS)),
         (convert.params_from_jax(_tolist(
             jlora.quantize_stacked_groups(jbase, TARGETS))),
@@ -311,8 +315,10 @@ def test_quantize_per_layer_equals_quantize_after(setup):
 
 def test_qlora_adapters_equal_lora_adapters(setup):
     cfg = dataclasses.replace(tpm.TINY_LLM, vocab_size=V)
-    base = M.init_params(cfg, jr.PRNGKey(5), dtype=torch.float32)
-    qbase = M.init_params(setup["tcfg"], jr.PRNGKey(5), dtype=torch.float32)
+    base = M.init_params(cfg, jr.PRNGKey(5), dtype=torch.float32,
+                         device="cpu")
+    qbase = M.init_params(setup["tcfg"], jr.PRNGKey(5), dtype=torch.float32,
+                          device="cpu")
     want = M.init_adapters(cfg, jr.PRNGKey(6), base)
     got = M.init_adapters(setup["tcfg"], jr.PRNGKey(6), qbase)
     assert [sorted(a) for a in got] == [sorted(a) for a in want]
