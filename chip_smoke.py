@@ -34,7 +34,8 @@ failure, and the script then exits non-zero with no result line.
    ``run_tape`` launches ``statevector_gate`` once a gate.
 4. LLM-QFL main path (the README quickstart, Algorithm 1): the same task
    with ``method="llm-qfl"``: Step 1 fine-tunes ``tiny-llm`` LoRA
-   adapters (30 steps) on the card, then 10 regulated quantum rounds.
+   adapters (30 steps) on the card, then 3 regulated quantum rounds
+   (the quickstart's 10 cut to 3 for the smoke's time).
    The card's Step 1 is held to the CPU's (plain path) within the
    batched-LLM tolerances, and the CPU's quantum rounds, run on the
    card's Step 1 outputs, to the card's rounds exactly on the integer
@@ -48,8 +49,9 @@ failure, and the script then exits non-zero with no result line.
    steps, ``tiny-llm``) on the card, held to the same stage on the CPU
    (plain path); then the stage at ``llama3.2-1b`` widths as in 5.
 7. The sequential engine and SPSA (after phase 4), at the quickstart's
-   width with the rounds cut to 3 (the sequential engine reads every
-   objective evaluation back to the host): QFL and LLM-QFL with
+   width with the rounds cut to 3 for QFL and 2 for LLM-QFL (the
+   sequential engine reads every objective evaluation back to the
+   host): QFL and LLM-QFL with
    Nelder–Mead on ``engine="sequential"``, each held to the batched
    engine on the card (the LLM-QFL rounds on one Step 1) and the QFL one
    to the CPU; the sequential Step 1 (one client a launch, three
@@ -59,10 +61,29 @@ failure, and the script then exits non-zero with no result line.
    sequential on the card and to batched on the CPU.  After phase 5,
    ``run_sequential_stage`` at ``llama3.2-1b`` widths against
    ``BatchedLLMEngine`` on one base, with each client's step time.
-8. Prints the phases' wall times, the card line, one
+8. Finite shots, the training CLI and the paper's LLMs (printed as
+   phase 9a–9c, after phase 6; phase 9b's CPU runs go to a worker
+   process started before phase 3, so they overlap the card's work): (a) ``backends.sample_counts`` on the
+   card bitwise the CPU's on the same probabilities and keys (the
+   quickstart's shapes, a batched ``(C, K, B, 2)`` stack, NaN, zero-mass
+   and negative rows, 1000 shots, bfloat16), and its time; (b)
+   ``repro_torch.launch.train.main(argv)`` with Experiment I's flags
+   (``aersim``, Dirichlet 0.5 shards, 5 clients) at 2 rounds: QFL,
+   LLM-QFL and LLM-QFL selecting 20 % on the batched engine, QFL on the
+   sequential engine, QFL batched on ``fake`` and ``real``, each held to
+   the same command on the CPU, with the smallest distance between a
+   draw and a CDF boundary printed; (c) GPT-2's Step 1 at full width
+   (``BatchedLLMEngine``, 5 clients, 2 steps; 1 step held to the CPU on
+   one base) and DeepSeek-LLM-7B's at full width
+   (``run_sequential_stage``, 2 clients × 2 steps, held to
+   ``BatchedLLMEngine`` on one base as the llama3.2-1b one is), with
+   their base draw times, step times and peak memory.
+9. Prints the phases' wall times, the card line, one
    ``{"kernels": [...]}`` line (``launches_sequential``: the launches of
    phase 7's sequential LLM-QFL Step 1, and for ``statevector_tape`` of
-   its batched SPSA QFL run), and last ``{"ok": true, "device": {...}}``.
+   its batched SPSA QFL run; ``launches_aersim``, ``launches_gpt2``,
+   ``launches_deepseek``: phase 9's), and last ``{"ok": true, "device":
+   {...}}``.
 
 Each path is driven with every launch counter set to 0 just before it
 and read just after, and the counts are held to the formulas stated in
@@ -71,7 +92,8 @@ a warm 3-round QFL run, a warm LLM-QFL run (Step 1 and 3 rounds), a
 warm QLoRA LLM stage, a warm 3-round batched SPSA QFL run and a warm
 sequential LLM-QFL run (Step 1 and 1 round) with ``torch.profiler``
 and prints the device's busy time, its idle share of the wall time, and
-the kernels that take the device time.
+the kernels that take the device time; and a warm 3-round batched QFL
+run on ``aersim`` with the device time of ``sample_counts``.
 """
 from __future__ import annotations
 
@@ -94,8 +116,10 @@ QUICKSTART = dict(task=dict(n_clients=5, train_size=250, test_size=100,
 WIDE = dict(task=dict(n_clients=8, train_size=400, test_size=100,
                       val_size=60, seed=0, n_features=10),
             run=dict(n_rounds=1, maxiter0=5, n_qubits=10))
+# the README quickstart's 10 rounds cut to 3 for the smoke's time: its
+# CPU rounds (budgets regulated up to 100 iterations) took 149 s at 5
 LLM_QUICKSTART = dict(task=QUICKSTART["task"],
-                      run=dict(n_rounds=10, llm_steps=30))
+                      run=dict(n_rounds=3, llm_steps=30))
 LLM_WIDE = dict(task=dict(n_clients=4, train_size=64, test_size=16,
                           val_size=16, seed=0),
                 steps=2, batch_size=16)
@@ -433,15 +457,24 @@ def projections(d, H, KH, D, ff):
 
 TINY_PROJ = projections(128, 4, 2, 32, 256)
 WIDE_PROJ = projections(2048, 32, 8, 64, 8192)
+# the paper's GPT-2 (phase 9: the batched Step 1 of the quickstart's 5
+# clients) and DeepSeek-LLM-7B (its sequential Step 1, one client a
+# launch)
+GPT2_PROJ = projections(768, 12, 12, 64, 3072)
+DEEPSEEK_PROJ = projections(4096, 32, 32, 128, 11008)
 LORA_SHAPES = (
     [("tiny-" + n, 5, 1024, K, N, 4) for n, (K, N) in TINY_PROJ.items()]
     + [("tiny-eval-w_in", 5, 3200, 128, 512, 4),
        ("seq-w_in", 1, 1024, 128, 512, 4),
        ("seq-eval-w_in", 1, 3200, 128, 512, 4)]
-    + [("llama-" + n, 4, 1024, K, N, 8) for n, (K, N) in WIDE_PROJ.items()])
+    + [("llama-" + n, 4, 1024, K, N, 8) for n, (K, N) in WIDE_PROJ.items()]
+    + [("gpt2-" + n, 5, 1024, K, N, 8) for n, (K, N) in GPT2_PROJ.items()]
+    + [("deepseek-" + n, 1, 1024, K, N, 8)
+       for n, (K, N) in DEEPSEEK_PROJ.items()])
 ATTN_SHAPES = (("tiny", 80, 64, 4, 2, 32), ("tiny-eval", 250, 64, 4, 2, 32),
                ("seq", 16, 64, 4, 2, 32), ("seq-eval", 50, 64, 4, 2, 32),
-               ("llama", 64, 64, 32, 8, 64))
+               ("llama", 64, 64, 32, 8, 64), ("gpt2", 80, 64, 12, 12, 64),
+               ("deepseek", 16, 64, 32, 32, 128))
 
 
 def lora_flops_bytes(C, M, K, N, r, elem=4):
@@ -940,13 +973,14 @@ def kl_phase(gen):
 # phases 3 and 4: the port's main path through its entry points
 # ---------------------------------------------------------------------------
 def run_main_path(device, cfg, method="qfl", llm_outputs=None,
-                  engine="batched", optimizer="nelder-mead"):
+                  engine="batched", optimizer="nelder-mead",
+                  backend="exact"):
     """One federated run; returns (task, result, orchestrator)."""
     from repro_torch.core.orchestrator import Orchestrator, RunConfig
     from repro_torch.data.tasks import build_task
     task = build_task("genomic", **cfg["task"])
     rc = RunConfig(method=method, optimizer=optimizer, engine=engine,
-                   backend="exact", **cfg["run"])
+                   backend=backend, **cfg["run"])
     orch = Orchestrator(task, rc, device=device, llm_outputs=llm_outputs)
     res = orch.run()
     return task, res, orch
@@ -1236,6 +1270,28 @@ def base_bytes(base) -> tuple:
     return stored, full
 
 
+def time_train_steps(cfg, base, eng, task, bs: int, what: str) -> list:
+    """Seconds of 3 further train steps of every client at once through
+    the public step function, from the engine's adapters."""
+    import torch
+    from repro_torch.models import model as M
+    step = M.make_train_step(cfg, lr=3e-3)
+    rows = torch.arange(bs)
+    batch = {k: torch.stack([torch.as_tensor(cl.llm_batch[k][rows])
+                             for cl in task.clients]).long().cuda()
+             for k in ("tokens", "labels")}
+    adapters, opt = eng.adapters, eng.opt_state
+    step_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        adapters, opt, metrics = step(base, adapters, opt, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    check(bool(torch.isfinite(metrics["loss"]).all()), f"{what}: step loss")
+    return step_s
+
+
 def llm_wide_phase(quantized: bool = False) -> dict:
     """The LLM stage alone at llama3.2-1b widths, float32 base (packed
     int4 for every adapted projection if ``quantized``)."""
@@ -1279,21 +1335,7 @@ def llm_wide_phase(quantized: bool = False) -> dict:
         rows = out.teacher[i, :cl.n].sum(-1)
         check(np.all(np.abs(rows - 1) <= 1e-5),
               f"{what}: teacher rows sum to {rows}")
-    # per-step time: further train steps through the public step function
-    step = M.make_train_step(cfg, lr=3e-3)
-    rows = torch.arange(bs)
-    batch = {k: torch.stack([torch.as_tensor(cl.llm_batch[k][rows])
-                             for cl in task.clients]).long().cuda()
-             for k in ("tokens", "labels")}
-    adapters, opt = eng.adapters, eng.opt_state
-    step_s = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        adapters, opt, metrics = step(base, adapters, opt, batch)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-    check(bool(torch.isfinite(metrics["loss"]).all()), f"{what}: step loss")
+    step_s = time_train_steps(cfg, base, eng, task, bs, what)
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"{what} phase (llama3.2-1b widths, {cfg.n_layers} layers, "
           f"{n_params / 1e9:.3f} B base values, "
@@ -1374,12 +1416,12 @@ def qlora_phase(device="cuda", cpu_device="cpu") -> dict:
 # ---------------------------------------------------------------------------
 # phase 7: the sequential engine and SPSA
 # ---------------------------------------------------------------------------
-# the quickstart task at full width, its rounds cut to 3: the sequential
-# engine reads every objective evaluation back to the host, and 10
-# regulated LLM-QFL rounds of it would take minutes
+# the quickstart task at full width, its rounds cut to 3 (QFL) and 2
+# (LLM-QFL): the sequential engine reads every objective evaluation back
+# to the host, and 10 regulated LLM-QFL rounds of it would take minutes
 SEQ_QFL = dict(task=QUICKSTART["task"], run=dict(n_rounds=3))
 SEQ_LLM = dict(task=QUICKSTART["task"],
-               run=dict(n_rounds=3, llm_steps=LLM_QUICKSTART["run"][
+               run=dict(n_rounds=2, llm_steps=LLM_QUICKSTART["run"][
                    "llm_steps"]))
 
 
@@ -1416,7 +1458,7 @@ def sequential_phase() -> dict:
     the other engine on the card and to a run on the CPU."""
     import numpy as np
     print("sequential and SPSA phase (genomic, 5 clients x 50 rows, 4-qubit "
-          "VQC, tiny-llm 30 Step-1 steps, 3 rounds):")
+          "VQC, tiny-llm 30 Step-1 steps, QFL 3 rounds, LLM-QFL 2):")
     wall, counts, gaps = {}, {}, {}
 
     def run(label, device, cfg, **kw):
@@ -1530,20 +1572,26 @@ def stage_gaps(losses, f1s, teachers, out, task) -> tuple:
                 i, :task.clients[i].n]))) for i, t in enumerate(teachers)))
 
 
-def llm_wide_sequential_phase() -> dict:
-    """``run_sequential_stage`` at llama3.2-1b widths (float32 base, one
-    client a launch) against ``BatchedLLMEngine`` on the same base.
+def llm_wide_sequential_phase(model: str = "llama3.2-1b",
+                              task_kw=LLM_WIDE["task"],
+                              what: str = "llm wide sequential") -> dict:
+    """``run_sequential_stage`` at ``model``'s widths (llama3.2-1b unless
+    stated; float32 base, one client a launch) against
+    ``BatchedLLMEngine`` on the same base.
 
-    After one step the two are held to the batched-LLM tolerances.  After
-    LLM_WIDE's two steps, AdamW's first update of each ``lora_a`` (its
-    gradient is zero at step 1, since ``lora_b`` starts at zero) maps
-    every noise-level gradient to ±lr, so any change of arithmetic order
-    moves L_LLM by more than 5e-4 at these widths: the batched engine
-    itself moves that much when one inert padding client changes its
-    stack (``pad_to``).  There the sequential stage is held to the larger
-    of the tolerance and twice that spread (its larger component: one
-    realisation of arithmetic-order noise bounding another), measured in
-    the same run."""
+    Before any step (the base forward and the evaluation alone) the two
+    are held to the batched-LLM tolerances.  A step of AdamW maps every
+    noise-level gradient element to ±lr (its first update of ``lora_b``
+    at step 1, of ``lora_a`` at step 2, whose step-1 gradient is zero),
+    so any change of arithmetic order can move L_LLM and the teacher by
+    more than 5e-4 at these widths.  The run measures two such spreads
+    of the batched engine itself: one inert padding client in its stack
+    (``pad_to``, which changes the order where it changes a launch's
+    grid), and its base's embedding moved by one float32 ulp (relative
+    1.2e-7, seeded), which perturbs every later sum.  After 1 and 2 steps
+    the sequential stage is held to the larger of the tolerance and
+    twice the larger spread at that step (its larger component: one
+    realisation of arithmetic-order noise bounding another)."""
     import numpy as np
     import torch
     from repro_torch import random as jr
@@ -1552,16 +1600,21 @@ def llm_wide_sequential_phase() -> dict:
                                              task_llm_config)
     from repro_torch.data.tasks import build_task
     from repro_torch.models import model as M
-    what = "llm wide sequential"
-    task = build_task("genomic", **LLM_WIDE["task"])
-    cfg = task_llm_config("llama3.2-1b", task.vocab_size, task.llm_seq_len)
+    task = build_task("genomic", **task_kw)
+    cfg = task_llm_config(model, task.vocab_size, task.llm_seq_len)
     steps, bs = LLM_WIDE["steps"], LLM_WIDE["batch_size"]
     C = task.n_clients
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     base = M.init_params(cfg, jr.PRNGKey(0), dtype=torch.float32,
                          device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 2**30
+    n_params = base_bytes(base)[1] // 4
     zero_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1580,35 +1633,53 @@ def llm_wide_sequential_phase() -> dict:
                            batch_size=bs).run()
     bat_s = time.perf_counter() - t0
     gap = stage_gaps(losses, f1s, teachers, out, task)
-    padded = BatchedLLMEngine(task, cfg, base, seed=0, steps=steps,
-                              batch_size=bs, pad_to=C + 1).run()
-    spread = stage_gaps(padded.losses, padded.f1,
-                        [padded.teacher[i, :cl.n]
-                         for i, cl in enumerate(task.clients)], out, task)
-    # one step: the batched-LLM tolerances themselves
-    _, l1, f1, t1 = run_sequential_stage(task, cfg, base, seed=0, steps=1,
-                                         batch_size=bs)
-    out1 = BatchedLLMEngine(task, cfg, base, seed=0, steps=1,
-                            batch_size=bs).run()
-    gap1 = stage_gaps(l1, f1, [t.cpu().numpy() for t in t1], out1, task)
-    print(f"{what}: after 1 step |Δ L_LLM| {gap1[0]:.3g}, |Δ F1| "
-          f"{gap1[1]:.3g}, |Δ teacher| {gap1[2]:.3g} against the batched "
-          f"engine; after {steps} steps {gap[0]:.3g}, {gap[1]:.3g}, "
-          f"{gap[2]:.3g}, where the batched engine with one inert padding "
-          f"client differs from itself by {spread[0]:.3g}, {spread[1]:.3g}, "
-          f"{spread[2]:.3g}; L_LLM sequential "
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ulp = dict(base, embed=base["embed"] * (1 + 2.0 ** -23 * torch.randn(
+        base["embed"].shape, generator=gen, device="cuda")))
+
+    def batched_gaps(n_steps, ref, params=base, pad_to=None):
+        o = BatchedLLMEngine(task, cfg, params, seed=0, steps=n_steps,
+                             batch_size=bs, pad_to=pad_to).run()
+        return stage_gaps(o.losses, o.f1, [o.teacher[i, :cl.n] for i, cl
+                                           in enumerate(task.clients)],
+                          ref, task)
+
+    spread = tuple(map(max, batched_gaps(steps, out, pad_to=C + 1),
+                       batched_gaps(steps, out, ulp)))
+    gaps = {}
+    for n_steps in (0, 1):
+        _, ls, fs, ts = run_sequential_stage(task, cfg, base, seed=0,
+                                             steps=n_steps, batch_size=bs)
+        ref = BatchedLLMEngine(task, cfg, base, seed=0, steps=n_steps,
+                               batch_size=bs).run()
+        gaps[n_steps] = stage_gaps(ls, fs, [t.cpu().numpy() for t in ts],
+                                   ref, task)
+        if n_steps:
+            spread1 = tuple(map(max, batched_gaps(1, ref, pad_to=C + 1),
+                                batched_gaps(1, ref, ulp)))
+    gap0, gap1 = gaps[0], gaps[1]
+    print(f"{what}: |Δ L_LLM|, |Δ F1|, |Δ teacher| against the batched "
+          f"engine before any step {gap0[0]:.3g}, {gap0[1]:.3g}, "
+          f"{gap0[2]:.3g}; after 1 step {gap1[0]:.3g}, {gap1[1]:.3g}, "
+          f"{gap1[2]:.3g}, the batched engine's own spread (padding client "
+          f"or embedding ulp) {spread1[0]:.3g}, {spread1[1]:.3g}, "
+          f"{spread1[2]:.3g}; after {steps} steps {gap[0]:.3g}, "
+          f"{gap[1]:.3g}, {gap[2]:.3g}, spread {spread[0]:.3g}, "
+          f"{spread[1]:.3g}, {spread[2]:.3g}; L_LLM sequential "
           f"{np.round(losses, 5).tolist()}, batched "
           f"{np.round(out.losses, 5).tolist()}")
-    check(gap1[0] <= LLM_LOSS_TOL and gap1[1] <= LLM_F1_TOL
-          and gap1[2] <= TEACHER_TOL,
-          f"{what} vs batched after 1 step: {gap1} (tolerances "
+    check(gap0[0] <= LLM_LOSS_TOL and gap0[1] <= LLM_F1_TOL
+          and gap0[2] <= TEACHER_TOL,
+          f"{what} vs batched before any step: {gap0} (tolerances "
           f"{LLM_LOSS_TOL}, {LLM_F1_TOL}, {TEACHER_TOL})")
-    noise = 2 * max(spread[0], spread[2])
-    check(gap[0] <= max(LLM_LOSS_TOL, noise) and gap[1] <= LLM_F1_TOL
-          and gap[2] <= max(TEACHER_TOL, noise),
-          f"{what} vs batched after {steps} steps: {gap}, beyond both the "
-          f"tolerances ({LLM_LOSS_TOL}, {LLM_F1_TOL}, {TEACHER_TOL}) and "
-          f"twice the batched engine's own spread {spread}")
+    for n_steps, g, sp in ((1, gap1, spread1), (steps, gap, spread)):
+        noise = 2 * max(sp[0], sp[2])
+        check(g[0] <= max(LLM_LOSS_TOL, noise) and g[1] <= LLM_F1_TOL
+              and g[2] <= max(TEACHER_TOL, noise),
+              f"{what} vs batched after {n_steps} steps: {g}, beyond both "
+              f"the tolerances ({LLM_LOSS_TOL}, {LLM_F1_TOL}, "
+              f"{TEACHER_TOL}) and twice the batched engine's own spread "
+              f"{sp}")
     # one more train step of each client alone (C = 1), timed
     step_s = []
     for i, cl in enumerate(clients):
@@ -1619,22 +1690,285 @@ def llm_wide_sequential_phase() -> dict:
         step_s.append(time.perf_counter() - t0)
         check(math.isfinite(last), f"{what}: client {i} step loss {last}")
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"{what} phase (llama3.2-1b widths, {cfg.n_layers} layers, "
-          f"C={C} one at a time, {bs} x 64 tokens, {steps} steps): stage "
-          f"{seq_s:.2f} s against the batched engine's {bat_s:.2f} s; "
-          f"per-client train steps {', '.join(f'{t:.3f}' for t in step_s)}"
-          f" s; launches {json.dumps({k: v for k, v in n.items() if v})}; "
-          f"peak memory {seq_peak:.2f} GiB in the sequential stage, "
-          f"{peak:.2f} GiB in all")
+    print(f"{what} phase ({model} widths, {cfg.n_layers} layers, "
+          f"{n_params / 1e9:.3f} B base values, C={C} one at a time, {bs} x "
+          f"64 tokens, {steps} steps): base draw {init_s:.2f} s (peak "
+          f"{init_peak:.2f} GiB); stage {seq_s:.2f} s against the batched "
+          f"engine's {bat_s:.2f} s; per-client train steps "
+          f"{', '.join(f'{t:.3f}' for t in step_s)} s; launches "
+          f"{json.dumps({k: v for k, v in n.items() if v})}; peak memory "
+          f"{seq_peak:.2f} GiB in the sequential stage, {peak:.2f} GiB in "
+          "all")
     return dict(counts=n, stage_s=seq_s, batched_s=bat_s, step_s=step_s,
                 peak_gib=peak, seq_peak_gib=seq_peak, gap=gap, gap1=gap1,
-                spread=spread)
+                spread=spread, spread1=spread1, gap0=gap0, init_s=init_s,
+                init_peak_gib=init_peak, n_params=n_params)
+
+
+# ---------------------------------------------------------------------------
+# phase 9: finite shots, the training CLI and the paper's LLMs
+# ---------------------------------------------------------------------------
+# Experiment I's flags (examples/federated_genomic.py), its rounds cut
+# from 6 to 2 for the smoke's time (the CPU's plain tape replays of an
+# LLM-QFL round take about a minute); the CLI's defaults give 5 clients
+# of 50 rows on average
+EXP1 = ("--task", "genomic", "--backend", "aersim", "--non-iid-alpha",
+        "0.5", "--no-early-stop", "--rounds", "2")
+CLI_RUNS = (("qfl batched", ("--method", "qfl", "--engine", "batched")),
+            ("llm-qfl batched", ("--method", "llm-qfl", "--engine",
+                                 "batched")),
+            ("llm-qfl select 0.2 batched", ("--method", "llm-qfl",
+                                            "--select-frac", "0.2",
+                                            "--engine", "batched")),
+            ("qfl sequential", ("--method", "qfl")),
+            ("qfl batched fake", ("--method", "qfl", "--engine", "batched",
+                                  "--backend", "fake")),
+            ("qfl batched real", ("--method", "qfl", "--engine", "batched",
+                                  "--backend", "real")))
+# DeepSeek-LLM-7B's Step 1: two clients of 16 rows, the sequential stage
+# against the batched engine (five clients at once would pass 80 GB)
+DEEPSEEK_TASK = dict(n_clients=2, train_size=32, test_size=16, val_size=16,
+                     seed=0)
+
+
+def value_bits(t):
+    """A float tensor's bits on the CPU, every NaN as one pattern."""
+    import torch
+    t = t.cpu()
+    bits = t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+    return torch.where(torch.isnan(t), -1, bits.to(torch.int32))
+
+
+def sample_keys(seed: int, lead: tuple):
+    """One key a (B, C) block of a ``lead``-shaped stack."""
+    import numpy as np
+    from repro_torch import random as jr
+    n = int(np.prod(lead)) if lead else 1
+    keys = jr.fold_in(jr.PRNGKey(seed), np.arange(n))
+    return keys.reshape(*lead, 2)
+
+
+def sample_phase() -> dict:
+    """(a) ``sample_counts`` on the card against the CPU, bitwise, on the
+    same probabilities and keys; then its time on the quickstart's
+    batched stack (one Nelder–Mead iteration: 5 clients × 19 candidates ×
+    50 rows, 100 shots)."""
+    import numpy as np
+    import torch
+    from repro_torch.quantum import backends
+    rng = np.random.default_rng(9)
+
+    def probs(lead, C):
+        return rng.dirichlet(np.ones(C), lead).astype(np.float32)
+
+    nasty = probs(50, 3)
+    nasty[1], nasty[2], nasty[3] = np.nan, 0.0, -0.5
+    cases = (("quickstart B=50 C=2", probs(50, 2), 100, torch.float32),
+             ("batched stack (5, 19, 50, 2)", probs((5, 19, 50), 2), 100,
+              torch.float32),
+             ("NaN, zero-mass and negative rows", nasty, 100, torch.float32),
+             ("1000 shots", probs(250, 2), 1000, torch.float32),
+             ("bfloat16", probs(50, 2), 100, torch.bfloat16))
+    for i, (name, p, shots, dt) in enumerate(cases):
+        keys = sample_keys(i, p.shape[:-2])
+        t = torch.from_numpy(p).to(dt)
+        got = backends.sample_counts(keys, t.cuda(), shots)
+        want = backends.sample_counts(keys, t, shots)
+        check(got.dtype == t.dtype and torch.equal(value_bits(got),
+                                                   value_bits(want)),
+              f"sample_counts {name}: the card's counts differ from the "
+              "CPU's")
+    p = torch.from_numpy(probs((5, 19, 50), 2)).cuda()
+    keys = sample_keys(0, (5, 19))
+    ms = cuda_ms(lambda: backends.sample_counts(keys, p, 100), iters=50)
+    plain_cpu = p.cpu()
+    t0 = time.perf_counter()
+    backends.sample_counts(keys, plain_cpu, 100)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    draws = 5 * 19 * 50 * 100
+    # each of (5, 19, 50, 2) probabilities read once and counts written once
+    b_ms = 2 * p.numel() * 4 / HBM_BYTES_PER_S * 1e3
+    print(f"phase 9a: sample_counts card == cpu bitwise on {len(cases)} "
+          f"cases ({', '.join(c[0] for c in cases)}); the quickstart's "
+          f"batched stack ({draws} draws) {ms * 1e3:.1f} us a call on the "
+          f"card (loop), {cpu_ms:.1f} ms on the CPU; bytes bound "
+          f"{b_ms * 1e3:.3f} us (the threefry hash of each draw is int32 "
+          "integer work in plain PyTorch, many launches)")
+    return dict(ms=ms, cpu_ms=cpu_ms, draws=draws, bytes_bound_ms=b_ms)
+
+
+def cli_run(label: str, argv, device: str):
+    """``repro_torch.launch.train.main(argv)`` on ``device`` with every
+    launch counter set to 0 just before it and read just after, the
+    draw margin tracked; returns (result, counts, wall seconds, margin)."""
+    import contextlib
+    import io
+    import tempfile
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.quantum import backends
+    zero_counters()
+    with tempfile.TemporaryDirectory() as out, \
+            backends.track_margin() as m:
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            res = train.main(list(argv) + ["--device", device, "--out", out])
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        hist = json.loads((Path(out) / "history.json").read_text())
+    n = read_counters()
+    check(sorted(hist) == ["config", "llm_f1", "llm_losses", "rounds",
+                           "terminated_early", "theta_g"]
+          and len(hist["rounds"]) == len(res.rounds)
+          and sum(ln.startswith("round") for ln in
+                  log.getvalue().splitlines()) == len(res.rounds),
+          f"{label}: history.json or the printed rounds are malformed")
+    margin = dict(value=m.value, near=m.near, draws=m.draws)
+    print(f"  {label} ({device}): {len(res.rounds)} rounds in {wall:.2f} s "
+          f"(fine-tune {res.llm_finetune_time_s:.2f} s); maxiters "
+          f"{res.series('maxiters')}; selected {res.series('selected')}; "
+          f"server loss {[round(x, 6) for x in res.series('server_loss')]};"
+          f" smallest draw-to-boundary distance {m.value:.3g} over "
+          f"{m.draws} draws, {m.near} within {m.NEAR}; launches "
+          f"{json.dumps({k: v for k, v in n.items() if v})}")
+    return res, n, wall, margin
+
+
+def cli_cpu_runs() -> dict:
+    """Phase 9b's commands on the CPU, run in a worker process started
+    before the LLM-QFL quickstart so that they overlap the card's phases
+    (4 of the host's threads).  Returns {label: (result, counts, wall
+    seconds, margin, printed line)}."""
+    import contextlib
+    import io
+    import torch
+    torch.set_num_threads(4)
+    out = {}
+    for label, extra in CLI_RUNS:
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            out[label] = (*cli_run(label, EXP1 + extra, "cpu"),
+                          log.getvalue())
+    return out
+
+
+def cli_phase(cpu_runs: dict) -> dict:
+    """(b) ``repro_torch.launch.train`` with Experiment I's flags on the
+    card, each run held to the same command on the CPU (``cpu_runs``,
+    from ``cli_cpu_runs``): QFL, LLM-QFL and LLM-QFL selecting 20 %,
+    batched; QFL sequential; QFL batched on ``fake`` and ``real``."""
+    import numpy as np
+    print("phase 9b: the training CLI, Experiment I's flags (aersim, 100 "
+          f"shots, Dirichlet 0.5 shards, 5 clients, {EXP1[-1]} rounds):")
+    out = {}
+    for label, extra in CLI_RUNS:
+        gpu, n, wall, margin = cli_run(label, EXP1 + extra, "cuda")
+        if "sequential" in label:
+            check_no_tape(n, label)
+        else:
+            check_tape_launches(n, label)
+        if label.startswith("llm-qfl"):
+            want = llm_launch_formula(30, 2)
+            for name, count in want.items():
+                check(n[name] == count, f"{label}: {n[name]} {name} "
+                      f"launches, the formula gives {count}")
+        cpu, _, cpu_wall, cpu_margin, log = cpu_runs[label]
+        print(log, end="")
+        loss_gap, theta_gap = compare_runs(gpu, cpu, what=f"cli {label}")
+        if label.startswith("llm-qfl"):
+            d_loss = float(np.max(np.abs(np.subtract(gpu.llm_losses,
+                                                     cpu.llm_losses))))
+            check(d_loss <= LLM_LOSS_TOL, f"{label}: Step 1 |Δ L_LLM| "
+                  f"{d_loss} > {LLM_LOSS_TOL}")
+        print(f"  {label}: card == cpu on maxiters/selected/cum_evals; max "
+              f"|Δ server loss| {loss_gap:.3g}, max |Δ θ_g| "
+              f"{theta_gap:.3g}")
+        out[label] = dict(wall_s=wall, cpu_wall_s=cpu_wall, counts=n,
+                          margin=margin, cpu_margin=cpu_margin,
+                          finetune_s=gpu.llm_finetune_time_s,
+                          loss_gap=loss_gap, theta_gap=theta_gap)
+    return out
+
+
+def gpt2_phase() -> dict:
+    """(c) GPT-2's Step 1 at full width: ``BatchedLLMEngine`` on the
+    quickstart task's 5 clients, 2 steps on the card, its launches held
+    to ``llm_launch_formula``; one step on the card held to one step on
+    the CPU on the same base (the batched-LLM tolerances)."""
+    import numpy as np
+    import torch
+    from repro_torch import random as jr
+    from repro_torch.core.batched_llm import BatchedLLMEngine
+    from repro_torch.core.llm_client import task_llm_config
+    from repro_torch.data.tasks import build_task
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_map
+    what = "gpt2"
+    task = build_task("genomic", **QUICKSTART["task"])
+    cfg = task_llm_config("gpt2", task.vocab_size, task.llm_seq_len)
+    steps, bs = LLM_WIDE["steps"], LLM_WIDE["batch_size"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    base = M.init_params(cfg, jr.PRNGKey(0), dtype=torch.float32,
+                         device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = base_bytes(base)[1] // 4
+    eng = BatchedLLMEngine(task, cfg, base, seed=0, steps=steps,
+                           batch_size=bs)
+    zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    n = read_counters()
+    check_llm_launches(n, llm_launch_formula(steps, cfg.n_layers), False,
+                       what)
+    step_s = time_train_steps(cfg, base, eng, task, bs, what)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    one = BatchedLLMEngine(task, cfg, base, seed=0, steps=1,
+                           batch_size=bs).run()
+    cpu_base = tree_map(lambda t: t.cpu(), base)
+    t0 = time.perf_counter()
+    cpu = BatchedLLMEngine(task, cfg, cpu_base, seed=0, steps=1,
+                           batch_size=bs).run()
+    cpu_s = time.perf_counter() - t0
+    gap = (float(np.max(np.abs(one.losses - cpu.losses))),
+           float(np.max(np.abs(one.f1 - cpu.f1))),
+           float(np.max(np.abs(one.teacher - cpu.teacher))))
+    check(gap[0] <= LLM_LOSS_TOL and gap[1] <= LLM_F1_TOL
+          and gap[2] <= TEACHER_TOL,
+          f"{what} Step 1, card vs cpu after 1 step: {gap} (tolerances "
+          f"{LLM_LOSS_TOL}, {LLM_F1_TOL}, {TEACHER_TOL})")
+    check(np.all(np.isfinite(out.losses)), f"{what}: L_LLM {out.losses}")
+    print(f"phase 9c: gpt2 (full width: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}, "
+          f"{n_params / 1e9:.3f} B base values) Step 1, C={task.n_clients}, "
+          f"{bs} x 64 tokens: base draw {init_s:.2f} s; run() of {steps} "
+          f"steps + distill + evaluation {run_s:.2f} s; train steps "
+          f"{', '.join(f'{t:.3f}' for t in step_s)} s; peak memory "
+          f"{peak:.2f} GiB; card vs cpu after 1 step |Δ L_LLM| "
+          f"{gap[0]:.3g}, |Δ F1| {gap[1]:.3g}, |Δ teacher| {gap[2]:.3g} "
+          f"(cpu {cpu_s:.1f} s); launches {json.dumps(n)}")
+    return dict(counts=n, init_s=init_s, run_s=run_s, step_s=step_s,
+                peak_gib=peak, gap=gap, n_params=n_params)
+
+
+# profiler ranges the smoke opens itself: on the device they span a
+# range's kernels and the gaps between them, so they are no kernels
+RANGES = ("sample_counts",)
 
 
 def print_profile(prof, label: str, wall: float, detail: str):
     import torch
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key not in RANGES]
     busy_us = sum(e.self_device_time_total for e in kernels)
     check(busy_us > 0, "the profiler saw no device time")
     print(f"profile ({label}): {wall:.3f} s under the profiler ({detail}); "
@@ -1643,6 +1977,43 @@ def print_profile(prof, label: str, wall: float, detail: str):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  "
               f"{e.count:7d}x  {e.key[:90]}")
+
+
+def profile_aersim(acts):
+    """A warm 3-round batched QFL run on ``aersim`` (the quickstart task,
+    100 shots) under the profiler; ``sample_counts`` is wrapped in a
+    profiler range so its device time shows beside the idle share."""
+    import torch
+    from torch.profiler import profile, record_function
+    from repro_torch.quantum import backends
+    cfg = dict(QUICKSTART, run=dict(n_rounds=3, early_stop=False))
+    plain = backends.sample_counts
+
+    def ranged(*args):
+        with record_function("sample_counts"):
+            return plain(*args)
+
+    backends.sample_counts = ranged
+    try:
+        run_main_path("cuda", dict(cfg, run=dict(n_rounds=1)),
+                      backend="aersim")
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            _, res, orch = run_main_path("cuda", cfg, backend="aersim")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        backends.sample_counts = plain
+    print_profile(prof, "qfl aersim batched", wall, "3 rounds, rounds "
+                  f"{', '.join(f'{s:.3f}' for s in orch.round_seconds)} s")
+    # the host-side range: its device time is its kernels' own
+    rows = [e for e in prof.key_averages() if e.key == "sample_counts"
+            and e.device_type == torch.autograd.DeviceType.CPU]
+    dev = sum(e.device_time_total for e in rows) / 1e3
+    note = ("not measured: the profiler gave the range no device time"
+            if dev == 0 else "the device time of the kernels it launched")
+    print(f"  sample_counts: {sum(e.count for e in rows)} calls, device time "
+          f"{dev:.3f} ms ({note})")
 
 
 def profile_phase():
@@ -1676,6 +2047,7 @@ def profile_phase():
         wall = time.perf_counter() - t0
     print_profile(prof, "qlora stage", wall, f"tiny-llm, int4 base, 5 "
                   f"clients, {steps} steps + distill + evaluation")
+    profile_aersim(acts)
     for label, cfg, kw in (
             ("qfl spsa batched", SEQ_QFL, dict(optimizer="spsa")),
             ("llm-qfl nm sequential",
@@ -1845,15 +2217,29 @@ def main(argv) -> int:
     i4_err, i4_t_err, i4_shapes, i4_t_shapes = int4_phase(gen)
     waves = wave_probe(gen)
     kl_err, kl_shapes = kl_phase(gen)
-    qfl = main_phase()
-    size_rule = size_rule_phase()
-    llm = llm_phase()
-    seq = sequential_phase()
-    nwq = wide_phase()
-    llm_wide = llm_wide_phase()
-    seq_wide = llm_wide_sequential_phase()
-    ql = qlora_phase()
-    ql_wide = llm_wide_phase(quantized=True)
+    # phase 9b's CPU runs go to a worker process now, to overlap the
+    # card's phases; the pool is shut down whatever happens
+    import multiprocessing
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    try:
+        cpu_cli = pool.apply_async(cli_cpu_runs)
+        qfl = main_phase()
+        size_rule = size_rule_phase()
+        llm = llm_phase()
+        seq = sequential_phase()
+        nwq = wide_phase()
+        llm_wide = llm_wide_phase()
+        seq_wide = llm_wide_sequential_phase()
+        ql = qlora_phase()
+        ql_wide = llm_wide_phase(quantized=True)
+        shots = sample_phase()
+        cli = cli_phase(cpu_cli.get(timeout=900))
+    finally:
+        pool.terminate()
+        pool.join()
+    gpt2 = gpt2_phase()
+    deepseek = llm_wide_sequential_phase("deepseek-llm-7b-base",
+                                         DEEPSEEK_TASK, "deepseek sequential")
     gib = 2 ** 30
     print(f"qlora wide against llm wide: base "
           f"{ql_wide['base_bytes'] / gib:.3f} GiB against "
@@ -1889,6 +2275,10 @@ def main(argv) -> int:
              launches_sequential=seq["tape_launches"],
              launches_sequential_llm_qfl=seq["tape_launches_llm"],
              launches_wide=nwq["statevector_tape"],
+             launches_aersim=cli["qfl batched"]["counts"]["statevector_tape"],
+             replays_aersim=cli["qfl batched"]["counts"]["replays"],
+             launches_aersim_llm_qfl=cli["llm-qfl batched"]["counts"][
+                 "statevector_tape"],
              bitwise_share_vs_gate_chain=tape_share,
              size_rule=f"n_qubits <= {svt.MAX_QUBITS}; above, run_tape "
                        "launches statevector_gate once a gate",
@@ -1901,6 +2291,10 @@ def main(argv) -> int:
              launches_sequential=ns["lora_matmul"],
              sequential=headline(lm_shapes, "seq-w_in"),
              launches_sequential_wide=seq_wide["counts"]["lora_matmul"],
+             launches_gpt2=gpt2["counts"]["lora_matmul"],
+             gpt2=headline(lm_shapes, "gpt2-w_in"),
+             launches_deepseek=deepseek["counts"]["lora_matmul"],
+             deepseek=headline(lm_shapes, "deepseek-w_in"),
              shapes=lm_shapes,
              waves=[{k: w[k] for k in ("tiles", "lora_graph_ms")}
                     for w in waves],
@@ -1912,6 +2306,10 @@ def main(argv) -> int:
              launches_sequential=ns["flash_attention"],
              sequential=headline(fa_shapes, "seq"),
              launches_sequential_wide=seq_wide["counts"]["flash_attention"],
+             launches_gpt2=gpt2["counts"]["flash_attention"],
+             gpt2=headline(fa_shapes, "gpt2"),
+             launches_deepseek=deepseek["counts"]["flash_attention"],
+             deepseek=headline(fa_shapes, "deepseek"),
              shapes=fa_shapes,
              probe=fa_probe, **build_summary(builds["flash_attention"])),
         dict(name=fa.NAME + "_bwd", route="cuda", source=fa.SOURCE,
@@ -1922,6 +2320,10 @@ def main(argv) -> int:
              sequential=headline(fa_bwd_shapes, "seq"),
              launches_sequential_wide=seq_wide["counts"][
                  "flash_attention_bwd"],
+             launches_gpt2=gpt2["counts"]["flash_attention_bwd"],
+             gpt2=headline(fa_bwd_shapes, "gpt2"),
+             launches_deepseek=deepseek["counts"]["flash_attention_bwd"],
+             deepseek=headline(fa_bwd_shapes, "deepseek"),
              shapes=fa_bwd_shapes,
              **build_summary(builds["flash_attention"])),
         dict(name=i4.NAME, route="cuda", source=i4.SOURCE,
@@ -1953,11 +2355,25 @@ def main(argv) -> int:
                           "init_s", "base_bytes")},
                       "llm_wide_sequential": {k: seq_wide[k] for k in (
                           "stage_s", "batched_s", "step_s", "peak_gib",
-                          "seq_peak_gib", "gap", "gap1", "spread")},
+                          "seq_peak_gib", "gap", "gap0", "gap1", "spread",
+                          "spread1")},
                       "qlora": {k: ql[k] for k in ("wall_s", "cpu_wall_s")},
                       "qlora_wide": {k: ql_wide[k] for k in (
                           "step_s", "run_s", "peak_gib", "n_params",
-                          "init_s", "base_bytes", "base_f32_bytes")}}))
+                          "init_s", "base_bytes", "base_f32_bytes")},
+                      "sample_counts": shots,
+                      "cli": {k: {f: v[f] for f in (
+                          "wall_s", "cpu_wall_s", "finetune_s", "margin",
+                          "cpu_margin", "loss_gap", "theta_gap")}
+                          for k, v in cli.items()},
+                      "gpt2": {k: gpt2[k] for k in (
+                          "init_s", "run_s", "step_s", "peak_gib", "gap",
+                          "n_params")},
+                      "deepseek": {k: deepseek[k] for k in (
+                          "init_s", "init_peak_gib", "stage_s", "batched_s",
+                          "step_s", "peak_gib", "seq_peak_gib", "gap",
+                          "gap0", "gap1", "spread", "spread1",
+                          "n_params")}}))
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -30,8 +30,21 @@ stays finite; for real clients (Σ mask ≥ 1) the clamp is inert.
 
 Per-client ``maxiter`` budgets are iteration masks.  Every evaluation
 call of either optimizer is one tape replay of every client's every
-candidate row.  Finite-shot backends are a later slice of the port and
-raise here.
+candidate row.
+
+Shot-noise key contract
+-----------------------
+Finite-shot backends (``backend.shots > 0``) sample every evaluation
+under the ``backends.py`` derivation
+``eval_key(PRNGKey(seed), round, client, slot)``: ``run_round`` takes the
+orchestrator's 1-based round index and folds it with each client id into
+a ``(C, 2)`` stack of round keys; the batched optimizers name each
+candidate's structural slot, and one evaluation call draws the shots of
+all its ``(C, K)`` (client, candidate) blocks in one pass, each block's
+``(shots, Bmax)`` uniforms under ``fold_in(ckey_c, slot_k)``: the JAX
+engine's draws over the padded shard.  Only F_i is sampled; the KL term
+reads the raw probabilities.  The keys are derived on the host from host
+integers and copied to the device without a synchronisation.
 """
 from __future__ import annotations
 
@@ -40,9 +53,9 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import random as jr
 from repro_torch.optim.batched_nm import batched_nm, best_point
 from repro_torch.optim.batched_spsa import batched_spsa, make_deltas
-from repro_torch.quantum import backends as backend_mod
 from repro_torch.quantum import tape as tape_mod
 
 EPS = 1e-9
@@ -57,21 +70,24 @@ def build_local_phase(spec, backend, *, lam: float, mu: float,
                       max_iter: int = 100):
     """The round's local-training phase as a function of its inputs.
 
-    Returns ``local_phase(qX, qy, mask, teacher, theta_g, iters,
+    Returns ``local_phase(qX, qy, mask, teacher, theta_g, iters, ckeys,
     deltas=None) → (x (C, P) float32, n_evals (C,) int32)``; every tensor
-    lies on one device, and the phase runs there.  ``deltas`` (the
-    perturbation signs, ``(C, M, P)``) is required for SPSA and ignored
-    by Nelder–Mead.
+    lies on one device, and the phase runs there.  ``ckeys`` is the
+    ``(C, 2)`` numpy stack of the clients' round keys (inert when the
+    backend does not sample); ``deltas`` (the perturbation signs,
+    ``(C, M, P)``) is required for SPSA and ignored by Nelder–Mead.
     """
-    if backend.shots:
-        raise NotImplementedError(backend_mod.SHOTS_NOT_PORTED)
     cq = tape_mod.compile_qnn(spec)
+    sampling = backend.shots > 0
 
-    def client_objectives(xs, qX, qy, mask, teacher, theta_g):
+    def client_objectives(xs, qX, qy, mask, teacher, theta_g, keys):
         """F_i + λ·KL + µ·prox for every client c and candidate k:
-        xs (C, K, P) → (C, K)."""
+        xs (C, K, P) → (C, K); ``keys`` (C, K, 2) when sampling."""
         probs = tape_mod.tape_probs(cq, xs, qX[:, None])  # (C, K, B, cls)
-        noisy = backend.apply_channel(probs)
+        if sampling:
+            noisy = backend.transform_probs(probs, keys)
+        else:
+            noisy = backend.apply_channel(probs)
         m = mask[:, None, :]                               # (C, 1, B)
         m_sum = torch.clamp(mask.sum(-1), min=1.0)[:, None]
         labels = qy.long()[:, None, :, None].expand(*noisy.shape[:-1], 1)
@@ -89,16 +105,22 @@ def build_local_phase(spec, backend, *, lam: float, mu: float,
     if optimizer not in ("nelder-mead", "spsa"):
         raise ValueError(f"unknown batched optimizer {optimizer!r}")
 
-    def local_phase(qX, qy, mask, teacher, theta_g, iters, deltas=None):
+    def local_phase(qX, qy, mask, teacher, theta_g, iters, ckeys,
+                    deltas=None):
         x0 = theta_g[None, :].expand(qX.shape[0], -1)
 
-        def f(xs):
-            return client_objectives(xs, qX, qy, mask, teacher, theta_g)
+        def f(xs, slots):
+            # the (client, candidate) keys fold_in(ckey_c, slot_k)
+            keys = (jr.fold_in(ckeys[:, None, :], slots[None, :])
+                    if sampling else None)
+            return client_objectives(xs, qX, qy, mask, teacher, theta_g,
+                                     keys)
 
         if optimizer == "spsa":
-            x, _, n_evals = batched_spsa(f, x0, iters, deltas)
+            x, _, n_evals = batched_spsa(f, x0, iters, deltas, keyed=True)
             return x, n_evals
-        simplex, fvals, n_evals, _ = batched_nm(f, x0, iters, int(max_iter))
+        simplex, fvals, n_evals, _ = batched_nm(f, x0, iters, int(max_iter),
+                                                keyed=True)
         x, _ = best_point(simplex, fvals)
         return x, n_evals
 
@@ -108,11 +130,10 @@ def build_local_phase(spec, backend, *, lam: float, mu: float,
 class BatchedRoundEngine:
     """Stacks client data once; runs each round's local phase on device.
 
-    ``seeds`` are the clients' SPSA seeds (``make_deltas``); ``seed``,
-    the root of the JAX package's shot-noise key chain, is taken for its
-    signature and unused until finite shots are ported.  The optimizer
-    defaults to Nelder–Mead, the port's first (the JAX engine's default
-    is SPSA; the orchestrator always names one).
+    ``seeds`` are the clients' SPSA seeds (``make_deltas``); ``seed`` is
+    the root of the shot-noise key chain.  The optimizer defaults to
+    Nelder–Mead, the port's first (the JAX engine's default is SPSA; the
+    orchestrator always names one).
     """
 
     def __init__(self, task, spec, backend, *, lam: float, mu: float,
@@ -146,15 +167,21 @@ class BatchedRoundEngine:
         # sequential-path evals spent before the metered run: spsa_init
         # does 1, nm_init does n+1 (the initial simplex)
         self.init_evals = 1 if optimizer == "spsa" else spec.n_params + 1
+        # shot-noise key chain root: fold_in(round)/fold_in(client) happen
+        # per run_round, fold_in(slot) a candidate in the optimizers
+        self._base_key = jr.PRNGKey(seed)
+        self._n_clients = C
         self._local = build_local_phase(spec, backend, lam=lam, mu=mu,
                                         use_llm=use_llm, optimizer=optimizer,
                                         max_iter=max_iter)
 
-    def run_round(self, theta_g: np.ndarray, maxiters: Sequence[int]
-                  ) -> Tuple[np.ndarray, np.ndarray]:
+    def run_round(self, theta_g: np.ndarray, maxiters: Sequence[int],
+                  round_idx: int = 0) -> Tuple[np.ndarray, np.ndarray]:
         """One local-training phase for all clients.
 
-        Returns (thetas (C, P) float64, n_evals (C,) int64): the trained
+        ``round_idx`` is the orchestrator's 1-based round counter, the
+        ``round`` stage of the key-derivation contract.  Returns
+        (thetas (C, P) float64, n_evals (C,) int64): the trained
         per-client parameters and the sequential-equivalent evaluation
         counts (``init_evals`` + the branch-dependent spend).
         """
@@ -162,8 +189,10 @@ class BatchedRoundEngine:
                                   device=self.device)
         iters = torch.as_tensor(np.asarray(maxiters, np.int32),
                                 device=self.device)
+        ckeys = jr.fold_in(jr.fold_in(self._base_key, round_idx),
+                           np.arange(self._n_clients))
         x, n_evals = self._local(self._qX, self._qy, self._mask,
-                                 self._teacher, theta_g, iters,
+                                 self._teacher, theta_g, iters, ckeys,
                                  deltas=self._deltas)
         return (_numpy(x).astype(np.float64),
                 _numpy(n_evals).astype(np.int64))

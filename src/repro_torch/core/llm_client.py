@@ -46,7 +46,9 @@ LLM_DOMAIN = 0x4C4C4D            # "LLM"
 LLM_INIT_STEP = 0x7FFFFFFF
 
 _BASES = {"tiny-llm": paper_models.TINY_LLM,
-          "llama3.2-1b": paper_models.LLAMA32_1B}
+          "llama3.2-1b": paper_models.LLAMA32_1B,
+          "gpt2": paper_models.GPT2,
+          "deepseek-llm-7b-base": paper_models.DEEPSEEK_7B}
 
 
 def llm_root(seed: int) -> np.ndarray:
@@ -68,11 +70,8 @@ def sample_minibatch_idx(key: np.ndarray, n: int, batch_size: int
 
 
 def task_llm_config(base_name: str, vocab_size: int, seq_len: int):
-    """A paper LLM config with the task vocabulary."""
-    if base_name not in _BASES:
-        raise NotImplementedError(
-            f"LLM {base_name!r} is not ported yet (ROADMAP §1, 'the other "
-            f"model families'); the port runs {sorted(_BASES)}")
+    """A paper LLM config with the task vocabulary; an unknown name
+    raises ``KeyError``, as the JAX package's lookup does."""
     return dataclasses.replace(_BASES[base_name], vocab_size=vocab_size)
 
 

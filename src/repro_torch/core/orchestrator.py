@@ -26,6 +26,16 @@ the JAX package: θ_g and the aggregation are float64 numpy, cast to
 float32 at the device boundary.  The other options raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 
+On finite-shot backends (``fake``, ``aersim``, ``real``) every
+evaluation (optimizer objectives, the per-round client-loss reports,
+the server's loss and accuracies) draws its shots under the
+``backends.py`` contract ``eval_key(PRNGKey(seed), round, client,
+slot)``: optimizer evaluations use client ids ``0..C-1`` with the slot
+schedule of ``gradfree`` (sequential) or the batched optimizers,
+reports ``REPORT_EVAL_SLOT`` on the client's stream, and the server the
+reserved ``SERVER_CLIENT``.  Both engines share the derivation, as in
+the JAX package.
+
 The device is ``"cuda"`` unless the caller asks for another; there is
 no silent fallback to the CPU.
 """
@@ -169,8 +179,6 @@ class Orchestrator:
             raise ValueError(f"unknown method {rc.method!r}")
         if rc.optimizer not in ("nelder-mead", "spsa"):
             raise ValueError(f"unknown optimizer {rc.optimizer!r}")
-        if rc.uses_llm:       # an unported LLM raises before any work
-            task_llm_config(rc.llm_name, task.vocab_size, task.llm_seq_len)
         if rc.rounds == "fused":
             raise _not_ported("rounds='fused'", "the fused round loop")
         if rc.n_devices is not None and rc.n_devices > 1:
@@ -189,8 +197,9 @@ class Orchestrator:
                 raise ValueError("shots_override must be >= 0")
             self.backend = dc_replace(self.backend,
                                       shots=int(rc.shots_override))
-        if self.backend.shots:
-            raise NotImplementedError(backend_mod.SHOTS_NOT_PORTED)
+        # root of the shot-noise key chain (fold_in round/client/slot);
+        # distinct from the split-based init-param stream below
+        self._noise_base = jr.PRNGKey(rc.seed)
         self.device = resolve_device(device)
         if rc.engine == "batched":
             # the compiled tape: the same math as the eager circuit (≤1e-6)
@@ -209,29 +218,53 @@ class Orchestrator:
             self._on_device[key] = (a, torch.as_tensor(a).to(self.device))
         return self._on_device[key][1]
 
-    def _measure_probs(self, theta: np.ndarray, X) -> torch.Tensor:
+    def _measure_probs(self, theta: np.ndarray, X, key) -> torch.Tensor:
+        """Forward + the backend's full measurement (channel, keyed
+        sampling)."""
         theta = torch.as_tensor(np.asarray(theta, np.float32))
-        return self.backend.transform_probs(self.fwd(theta, self._put(X)))
+        return self.backend.transform_probs(self.fwd(theta, self._put(X)),
+                                            key)
 
-    def _nll(self, theta: np.ndarray, X, y) -> float:
-        return float(qnn.nll_loss(self._measure_probs(theta, X),
+    def _nll(self, theta: np.ndarray, X, y, key=None) -> float:
+        return float(qnn.nll_loss(self._measure_probs(theta, X, key),
                                   self._put(y)))
 
-    def _acc(self, theta: np.ndarray, X, y) -> float:
-        return float(qnn.accuracy(self._measure_probs(theta, X),
+    def _acc(self, theta: np.ndarray, X, y, key=None) -> float:
+        # measured through the backend like the loss: the noisy-against-
+        # exact accuracy ordering of Table I is observed, not assumed
+        return float(qnn.accuracy(self._measure_probs(theta, X, key),
                                   self._put(y)))
+
+    def _mkey(self, t: int, client: int, slot: int):
+        """Measurement key of a report or server evaluation; None when
+        the backend does not sample."""
+        if not self.backend.shots:
+            return None
+        return backend_mod.eval_key(self._noise_base, t, client, slot)
+
+    def _eval_stream(self, t: int, client: int):
+        """slot → key for client ``client``'s optimizer in round ``t``
+        (the sequential form of the contract); None when exact."""
+        if not self.backend.shots:
+            return None
+        base = jr.fold_in(jr.fold_in(self._noise_base, t), client)
+        return lambda slot: jr.fold_in(base, slot)
 
     def _client_loss_fn(self, i: int):
         """Client i's objective for the sequential engine: θ (numpy) →
-        float, F_i alone for QFL, F_i + λ·KL + µ·prox for LLM-QFL."""
+        float, F_i alone for QFL, F_i + λ·KL + µ·prox for LLM-QFL; keyed,
+        ``fn(θ, key)``, when the backend samples."""
         c = self.task.clients[i]
         X, y = self._put(c.qX), self._put(c.qy)
+        keyed = self.backend.shots > 0
         base = qnn.make_loss_fn(self.spec, X, y, backend=self.backend)
         if not self.rc.uses_llm:
+            if keyed:
+                return lambda th, key: float(base(th, key))
             return lambda th: float(base(th))
         return distill.make_client_objective(
             base, self.fwd, X, self._put(self._teacher_probs[i]),
-            self._theta_g, lam=self.rc.lam, mu=self.rc.mu)
+            self._theta_g, lam=self.rc.lam, mu=self.rc.mu, keyed=keyed)
 
     # -- Step 1: LLM fine-tuning (round 1 only) -------------------------------
     def _llm_round(self) -> float:
@@ -324,12 +357,14 @@ class Orchestrator:
             thetas, losses, comm_t = [], [], 0.0
             if self._engine is not None:
                 th_stack, n_evals = self._engine.run_round(self._theta_g,
-                                                           maxiters)
+                                                           maxiters, t)
                 for i in range(task.n_clients):
                     cl = task.clients[i]
                     thetas.append(th_stack[i])
                     # report pure F_i (no penalty) as the device loss
-                    losses.append(self._nll(th_stack[i], cl.qX, cl.qy))
+                    losses.append(self._nll(
+                        th_stack[i], cl.qX, cl.qy,
+                        key=self._mkey(t, i, backend_mod.REPORT_EVAL_SLOT)))
                     cum_evals[i] += int(n_evals[i])
                     # metered-run evals only — init is not comm-billed
                     comm_t = max(comm_t, self.backend.eval_time(cl.n)
@@ -341,20 +376,26 @@ class Orchestrator:
                     opt = GradFreeOptimizer(self._client_loss_fn(i),
                                             self._theta_g,
                                             method=rc.optimizer,
-                                            seed=rc.seed * 997 + i)
+                                            seed=rc.seed * 997 + i,
+                                            key_stream=self._eval_stream(
+                                                t, i))
                     n0 = opt.n_evals
                     th, _ = opt.run(maxiters[i])
                     thetas.append(np.asarray(th, np.float64))
                     # report pure F_i (no penalty) as the device loss
-                    losses.append(self._nll(th, cl.qX, cl.qy))
+                    losses.append(self._nll(
+                        th, cl.qX, cl.qy,
+                        key=self._mkey(t, i, backend_mod.REPORT_EVAL_SLOT)))
                     cum_evals[i] += opt.n_evals
                     comm_t = max(comm_t, self.backend.eval_time(cl.n)
                                  * (opt.n_evals - n0))
             last_losses = list(losses)
 
             # server loss of the current global model (pre-aggregation)
-            server_loss_pre = self._nll(self._theta_g, task.val_qX,
-                                        task.val_qy)
+            server_loss_pre = self._nll(
+                self._theta_g, task.val_qX, task.val_qy,
+                key=self._mkey(t, backend_mod.SERVER_CLIENT,
+                               backend_mod.SERVER_SLOT_LOSS_PRE))
 
             # client selection (Sec. III-B)
             if rc.uses_llm and rc.select_frac < 1.0:
@@ -369,15 +410,22 @@ class Orchestrator:
             w = w / w.sum()
             self._theta_g = sum(wi * thetas[i] for wi, i in zip(w, sel))
 
-            server_loss = self._nll(self._theta_g, task.val_qX, task.val_qy)
+            server_loss = self._nll(
+                self._theta_g, task.val_qX, task.val_qy,
+                key=self._mkey(t, backend_mod.SERVER_CLIENT,
+                               backend_mod.SERVER_SLOT_LOSS_POST))
             rec = RoundRecord(
                 t=t, maxiters=list(maxiters), ratios=ratios,
                 client_losses=losses, selected=sel,
                 server_loss=server_loss,
-                server_val_acc=self._acc(self._theta_g, task.val_qX,
-                                         task.val_qy),
-                server_test_acc=self._acc(self._theta_g, task.test_qX,
-                                          task.test_qy),
+                server_val_acc=self._acc(
+                    self._theta_g, task.val_qX, task.val_qy,
+                    key=self._mkey(t, backend_mod.SERVER_CLIENT,
+                                   backend_mod.SERVER_SLOT_VAL_ACC)),
+                server_test_acc=self._acc(
+                    self._theta_g, task.test_qX, task.test_qy,
+                    key=self._mkey(t, backend_mod.SERVER_CLIENT,
+                                   backend_mod.SERVER_SLOT_TEST_ACC)),
                 comm_time_s=comm_t, cum_evals=list(cum_evals),
                 var_all=var["var_all"], var_selected=var["var_selected"])
             res.rounds.append(rec)

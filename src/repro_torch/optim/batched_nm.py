@@ -14,11 +14,21 @@ contract 2, shrink 2+n) so ``n_evals`` matches the sequential method
 eval for eval, and the branch of every iteration is recorded in a
 ``(C, max_iter)`` code array (``BRANCH_*``).  Sorting is stable, as
 ``jnp.argsort`` is: ties in ``fvals`` do occur.
+
+Finite-shot objectives (``keyed=True``) are called as ``f(xs, slots)``
+with the ``(K,)`` contract slots of the candidates (``backends.py``):
+init row ``r`` → slot ``r``; iteration ``i``'s candidates ``[xr, xe,
+xc, shrink 1..n]`` → ``base..base+n+2`` with ``base = (n+1) + i·(n+3)``.
+A candidate owns its slot whether its branch is taken or not, so the
+draws of every candidate the sequential ``gradfree.nm_run`` evaluates
+lazily are the ones evaluated here.  The slots are host integers: the
+keyed objective derives its keys without reading the device.
 """
 from __future__ import annotations
 
 from typing import Callable, Tuple
 
+import numpy as np
 import torch
 
 # branch codes, aligned with the JAX package's gradfree.nm_run(trace=...)
@@ -41,12 +51,14 @@ def init_simplexes(x0: torch.Tensor, *, step: float = 0.25) -> torch.Tensor:
 
 
 def batched_nm(f: Callable, x0: torch.Tensor, iters, max_iter: int, *,
-               alpha=1.0, gamma=2.0, rho=0.5, sigma=0.5, step: float = 0.25
-               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+               alpha=1.0, gamma=2.0, rho=0.5, sigma=0.5, step: float = 0.25,
+               keyed: bool = False) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                           torch.Tensor]:
     """Masked batched Nelder–Mead.
 
-    f        : (C, K, P) → (C, K), the objective over a candidate stack
+    f        : (C, K, P) → (C, K), the objective over a candidate stack;
+               with ``keyed=True`` it is called as ``f(xs, slots)``,
+               ``slots`` the ``(K,)`` int64 contract slots
     x0       : (C, P) start (typically θ_g broadcast to all clients)
     iters    : (C,)   per-client iteration budgets (mask, not trip count)
     max_iter : upper bound on any budget (branch-record width)
@@ -59,9 +71,10 @@ def batched_nm(f: Callable, x0: torch.Tensor, iters, max_iter: int, *,
     dev = x0.device
     C, n = x0.shape
     iters = torch.as_tensor(iters, dtype=torch.int32, device=dev)
+    fstack = f if keyed else (lambda xs, slots: f(xs))
 
     simplex = init_simplexes(x0, step=step)
-    fvals = f(simplex)                                       # (C, n+1)
+    fvals = fstack(simplex, np.arange(n + 1))                # (C, n+1)
     evals = torch.full((C,), n + 1, dtype=torch.int32, device=dev)
     branches = torch.full((C, int(max_iter)), BRANCH_INACTIVE,
                           dtype=torch.int32, device=dev)
@@ -80,7 +93,8 @@ def batched_nm(f: Callable, x0: torch.Tensor, iters, max_iter: int, *,
         xc = centroid + rho * (worst - centroid)
         shrink_x = best[:, None, :] + sigma * (sx[:, 1:, :] - best[:, None, :])
         cand = torch.cat([torch.stack([xr, xe, xc], dim=1), shrink_x], 1)
-        fcand = f(cand)                                      # (C, n+3)
+        slots = (n + 1) + i * (n + 3) + np.arange(n + 3)
+        fcand = fstack(cand, slots)                          # (C, n+3)
         fr, fe, fc = fcand[:, 0], fcand[:, 1], fcand[:, 2]
         f_shrink = fcand[:, 3:]
 

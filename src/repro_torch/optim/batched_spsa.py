@@ -23,7 +23,11 @@ Perturbation signs are drawn on the host by ``make_deltas`` with the
 exact ``np.random.default_rng`` call sequence of ``gradfree.spsa_run``,
 so a batched round sees the same Rademacher directions as C sequential
 runs with seeds ``seeds[c]``.  Finite-shot objectives (``keyed=True``)
-are not ported and raise.
+are called as ``f(xs, slots)`` with the ``(K,)`` contract slots of
+``backends.py``: the start → 0, iteration ``k``'s pair → ``1+3k``,
+``2+3k`` and its candidate → ``3+3k``, the final polish →
+``FINAL_EVAL_SLOT``: the slots ``gradfree.spsa_run`` hands its
+``key_stream``.
 """
 from __future__ import annotations
 
@@ -33,7 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.optim.gradfree import spsa_rng
-from repro_torch.quantum import backends as backend_mod
+from repro_torch.quantum.backends import FINAL_EVAL_SLOT
 
 
 def make_deltas(seeds: Sequence[int], max_iter: int, dim: int) -> np.ndarray:
@@ -63,7 +67,9 @@ def batched_spsa(f: Callable, x0: torch.Tensor, iters, deltas: torch.Tensor,
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Masked batched SPSA.
 
-    f      : (C, K, P) → (C, K), the objective over a candidate stack
+    f      : (C, K, P) → (C, K), the objective over a candidate stack;
+             with ``keyed=True`` it is called as ``f(xs, slots)``,
+             ``slots`` the ``(K,)`` int64 contract slots
     x0     : (C, P) start (typically θ_g broadcast to all clients)
     iters  : (C,)   per-client iteration budgets (mask, not trip count)
     deltas : (C, M, P) perturbation signs, M ≥ max(iters)
@@ -75,8 +81,6 @@ def batched_spsa(f: Callable, x0: torch.Tensor, iters, deltas: torch.Tensor,
     counting what the sequential path would have spent: 1 init + 3 an
     iteration + 1 final.
     """
-    if keyed:
-        raise NotImplementedError(backend_mod.SHOTS_NOT_PORTED)
     x = x0.float()
     dev = x.device
     iters = torch.as_tensor(iters, dtype=torch.int32, device=dev)
@@ -85,21 +89,25 @@ def batched_spsa(f: Callable, x0: torch.Tensor, iters, deltas: torch.Tensor,
         active = torch.as_tensor(active, dtype=torch.bool, device=dev)
         iters = torch.where(active, iters, 0)
 
-    def call(xs):
-        return f(xs[:, None])[:, 0]
+    fstack = f if keyed else (lambda xs, slots: f(xs))
 
-    fbest = call(x)
+    def call(xs, slot: int):
+        return fstack(xs[:, None], np.array([slot]))[:, 0]
+
+    fbest = call(x, 0)
     n_steps = int(iters.max()) if x.shape[0] else 0
     for i in range(n_steps):
         ak, ck = _gains(i, a, c, A, alpha, gamma)
         d = deltas[:, i, :]                                  # (C, P)
-        fpm = f(torch.stack([x + ck * d, x - ck * d], dim=1))   # (C, 2)
+        base = 1 + 3 * i
+        fpm = fstack(torch.stack([x + ck * d, x - ck * d], dim=1),
+                     np.array([base, base + 1]))                # (C, 2)
         ghat = (fpm[:, 0] - fpm[:, 1])[:, None] / (2.0 * ck) * (1.0 / d)
         if clip:
             gn = torch.sqrt(torch.sum(ghat * ghat, dim=-1, keepdim=True))
             ghat = torch.where(gn > clip, ghat * (clip / gn), ghat)
         cand = x - ak * ghat
-        fc = call(cand)
+        fc = call(cand, base + 2)
         accept = fc <= fbest + torch.abs(fbest) * 0.1 + 1e-3  # blocking step
         upd = accept & (i < iters)
         x = torch.where(upd[:, None], cand, x)
@@ -107,4 +115,4 @@ def batched_spsa(f: Callable, x0: torch.Tensor, iters, deltas: torch.Tensor,
     n_evals = (2 + 3 * iters).int()
     if active is not None:
         n_evals = torch.where(active, n_evals, 0).int()
-    return x, call(x), n_evals
+    return x, call(x, FINAL_EVAL_SLOT), n_evals

@@ -8,20 +8,43 @@ The port of ``repro/quantum/backends.py``:
  - real:     aersim's noise plus queue/latency emulation for the
              communication-time accounting of Table I
 
-Each backend transforms *class probabilities* by a deterministic noise
-channel (``apply_channel``) and reports a wall-time estimate per
-evaluation batch (``eval_time``).  Finite-shot sampling (``shots > 0``)
-is not ported yet: ``transform_probs`` raises for it rather than run
-the channel alone (ROADMAP §1, "finite-shot sampling").
+Each backend transforms *class probabilities* in two stages, a
+deterministic noise channel (``apply_channel``) and keyed finite-shot
+sampling (``sample``), and reports a wall-time estimate per evaluation
+batch (``eval_time``).
 
-The reserved slot and client ids below are those of the JAX package's
-key contract ``eval_key(PRNGKey(seed), round, client, slot)``.
+Key-derivation contract (the JAX package's, draw for draw)
+----------------------------------------------------------
+Every finite-shot evaluation draws its shots from
+
+    ``eval_key(PRNGKey(seed), round, client, slot)``
+    = ``fold_in(fold_in(fold_in(PRNGKey(seed), round), client), slot)``
+
+where ``slot`` is the evaluation's structural position in the round's
+schedule (Nelder–Mead: init row ``r`` → ``r``, iteration ``i``'s
+reflect/expand/contract/shrink ``j`` → ``(n+1) + i·(n+3) + {0, 1, 2,
+2+j}``; SPSA: 0, ``1+3k``, ``2+3k``, ``3+3k``, ``FINAL_EVAL_SLOT``), so
+the batched engine's speculative candidates and the sequential engine's
+lazy evaluations share keys.  The orchestrator's reports use
+``REPORT_EVAL_SLOT`` on the client's stream and the server's evaluations
+the reserved ``SERVER_CLIENT`` with slots ``SERVER_SLOT_*``.
+
+Keys are numpy ``(2,)`` arrays (``repro_torch.random``), or stacks
+``(..., 2)``: ``sample_counts`` takes one key a ``(B, C)`` block and
+draws every block of a stack in one pass on the device.
+``transform_probs`` raises ``ValueError`` when ``shots > 0`` and no key
+is given: channel-only evaluation is an explicit ``apply_channel``.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
+from typing import Optional
 
+import numpy as np
 import torch
+
+from repro_torch import random as jr
 
 FINAL_EVAL_SLOT = 0x7FFFFFFF      # SPSA's post-loop polish evaluation
 REPORT_EVAL_SLOT = 0x7FFFFFFE     # orchestrator per-client loss report
@@ -34,9 +57,14 @@ SERVER_SLOT_LOSS_POST = 1         # server loss after aggregation
 SERVER_SLOT_VAL_ACC = 2
 SERVER_SLOT_TEST_ACC = 3
 
-SHOTS_NOT_PORTED = ("finite-shot sampling (shots > 0) is not ported yet "
-                    "(ROADMAP §1, 'finite-shot sampling'); use the exact "
-                    "backend or shots_override=0")
+
+
+def eval_key(base_key: np.ndarray, round_idx, client, slot) -> np.ndarray:
+    """The contract's key chain; each integer may be a numpy array, and
+    the keys then broadcast (``random.fold_in``)."""
+    k = jr.fold_in(base_key, round_idx)
+    k = jr.fold_in(k, client)
+    return jr.fold_in(k, slot)
 
 
 @dataclass(frozen=True)
@@ -53,26 +81,160 @@ class Backend:
     def apply_channel(self, probs: torch.Tensor) -> torch.Tensor:
         """Deterministic noise channel on (..., C) class probabilities."""
         C = probs.shape[-1]
+        # scalars rounded to the probabilities' dtype first, as JAX
+        # rounds its weakly typed Python floats (bfloat16 included)
+        cast = lambda v: torch.tensor(v, dtype=probs.dtype)  # noqa: E731
         if self.depolarizing:
-            probs = (1 - self.depolarizing) * probs + self.depolarizing / C
+            probs = cast(1 - self.depolarizing) * probs \
+                + cast(self.depolarizing / C)
         if self.readout_flip:
             # symmetric confusion: stay w.p. 1-f, uniform flip otherwise
             f = self.readout_flip
             eye = torch.eye(C, device=probs.device)
-            conf = (1 - f) * eye + f / (C - 1) * (1 - eye)
-            probs = probs @ conf.to(probs.dtype)
+            conf = ((1 - f) * eye + f / (C - 1) * (1 - eye)).to(probs.dtype)
+            if probs.dtype in (torch.float32, torch.float64):
+                probs = probs @ conf
+            else:   # a low-precision dot summed in float32, rounded once
+                probs = (probs.float() @ conf.float()).to(probs.dtype)
         return probs
 
-    def transform_probs(self, probs: torch.Tensor) -> torch.Tensor:
-        """Channel + finite-shot sampling; the sampling is not ported."""
+    def sample(self, probs: torch.Tensor, key) -> torch.Tensor:
+        """Finite-shot readout: empirical frequencies of ``shots`` draws
+        a row.  Identity when ``shots == 0``."""
+        if not self.shots:
+            return probs
+        counts = sample_counts(key, probs, self.shots)
+        # the reciprocal rounded to the counts' dtype, then one multiply,
+        # as the JAX package's weakly typed ``counts * (1.0 / shots)``
+        # (a 0-d host tensor: a scalar operand, no copy to the card)
+        return counts * torch.tensor(1.0 / self.shots, dtype=counts.dtype)
+
+    def transform_probs(self, probs: torch.Tensor,
+                        key: Optional[np.ndarray] = None) -> torch.Tensor:
+        """Channel + finite-shot sampling on ``(B, C)`` class
+        probabilities under one key, or on ``(..., B, C)`` under a key
+        stack ``(..., 2)``.
+
+        Raises when ``shots > 0`` and no key is given: a finite-shot
+        backend must never fall back to the deterministic channel."""
+        probs = self.apply_channel(probs)
         if self.shots:
-            raise NotImplementedError(SHOTS_NOT_PORTED)
-        return self.apply_channel(probs)
+            if key is None:
+                raise ValueError(
+                    f"backend {self.name!r} has shots={self.shots} but "
+                    "transform_probs was called without a PRNG key; pass "
+                    "an eval_key(...) or use apply_channel() for "
+                    "channel-only evaluation")
+            probs = self.sample(probs, key)
+        return probs
 
     def eval_time(self, n_circuits: int) -> float:
         """Estimated wall-time for one optimizer evaluation over a batch."""
         return (self.t_queue + self.t_per_job
                 + self.t_per_shot * max(self.shots, 1) * n_circuits)
+
+
+class DrawMargin:
+    """The smallest distance between a finite-shot draw and an interior
+    CDF boundary over every ``sample_counts`` call while tracking is on,
+    and the number of draws within ``NEAR`` of one.
+
+    A draw closer to a boundary than two implementations' CDFs differ
+    (float noise, about 2e-7) may land in another class in each, so
+    whole-run parity at a pinned seed rests on the draws that decide
+    the run lying farther than that.  The minimum is kept on the
+    device of the draws and read once, so tracking adds no host
+    synchronisation to an evaluation."""
+
+    NEAR = 1e-6
+
+    def __init__(self):
+        self.on = False
+        self._min, self._near, self.draws = None, 0, 0
+
+    def update(self, u: torch.Tensor, cdf: torch.Tensor,
+               skip: torch.Tensor):
+        """u ``(N, shots, B)``, cdf ``(N, B, C)``, skip ``(N, B)``."""
+        C = cdf.shape[-1]
+        if C < 2:
+            return
+        # float32: near a boundary the difference is exact (Sterbenz)
+        d = (u[..., None].float()
+             - cdf[:, None, :, :C - 1].float()).abs().amin(-1)
+        d = torch.where(skip[:, None, :], torch.inf, d)
+        low = d.amin()
+        self._min = low if self._min is None else torch.minimum(self._min,
+                                                                low)
+        self._near = self._near + (d <= self.NEAR).sum()
+        self.draws += d.numel()
+
+    @property
+    def value(self) -> float:
+        """The smallest distance seen (``inf`` before any draw)."""
+        return float("inf") if self._min is None else float(self._min)
+
+    @property
+    def near(self) -> int:
+        return int(self._near)
+
+
+margin = DrawMargin()
+
+
+@contextlib.contextmanager
+def track_margin():
+    """Track ``margin`` afresh for the duration of the block."""
+    margin.__init__()
+    margin.on = True
+    try:
+        yield margin
+    finally:
+        margin.on = False
+
+
+def sample_counts(key, probs: torch.Tensor, shots: int) -> torch.Tensor:
+    """Multinomial shot counts of every row of ``(B, C)`` probabilities
+    under one key, or of every ``(B, C)`` block of ``(..., B, C)`` under a
+    key stack ``(..., 2)``: bitwise the JAX package's ``sample_counts``
+    (its draws for each key are ``uniform(key, (shots, B))``).
+
+    Inverse-CDF sampling: each row's cumulative probabilities, a
+    ``searchsorted(side="right")`` of each draw, capped at ``C-1``, and a
+    per-class count of the draws.  Rows of zero mass (every entry clipped
+    to 0) fall back to the uniform distribution; a row holding a NaN is
+    drawn as uniform (so every other row keeps its draws) and comes back
+    all NaN.  Counts accumulate in float32, exact to 2**24 in any order,
+    and are returned in ``probs.dtype``.
+    """
+    *lead, B, C = probs.shape
+    keys = np.asarray(key, np.uint32)
+    if keys.shape[:-1] != tuple(lead) or keys.shape[-1] != 2:
+        raise ValueError(f"sample_counts: a key stack {keys.shape} for "
+                         f"probabilities {tuple(probs.shape)}; it needs "
+                         f"{(*lead, 2)}")
+    p = probs.reshape(-1, B, C)
+    nan_row = torch.isnan(p).any(-1, keepdim=True)                # (N, B, 1)
+    flat = torch.ones_like(p) / C
+    p = torch.where(nan_row, flat, torch.clamp(p, 0.0, 1.0))
+    p = torch.where(p.sum(-1, keepdim=True) > 1e-12, p, flat)
+    # the cumulative sum as sequential adds over the classes, then
+    # renormalised: the JAX package's scan for C <= 3
+    parts = [p[..., 0]]
+    for j in range(1, C):
+        parts.append(parts[-1] + p[..., j])
+    cdf = torch.stack(parts, -1)
+    cdf = cdf / cdf[..., -1:]                                     # (N, B, C)
+    u = jr.uniform_stack(keys.reshape(-1, 2), (shots, B), p.dtype,
+                         p.device)                                # (N, S, B)
+    draws = torch.searchsorted(cdf, u.transpose(1, 2).contiguous(),
+                               right=True)                        # (N, B, S)
+    draws = torch.clamp(draws, max=C - 1)   # cumsum rounding below 1.0
+    if margin.on:
+        margin.update(u, cdf, nan_row[..., 0])
+    cls = torch.arange(C, device=p.device)
+    counts = (draws[..., None] == cls).sum(-2, dtype=torch.float32)
+    counts = torch.where(nan_row, torch.nan, counts)  # divergence surfaces
+    return counts.to(probs.dtype).reshape(probs.shape)
 
 
 # Calibrated instances.  Latencies reproduce Table-I orderings.

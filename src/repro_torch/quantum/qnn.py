@@ -21,7 +21,6 @@ from typing import Callable
 import torch
 
 from repro_torch import random as jr
-from repro_torch.quantum import backends as backend_mod
 from repro_torch.quantum import circuits as C
 from repro_torch.quantum import statevector as sv
 from repro_torch.quantum.circuits import (  # noqa: F401  (re-export)
@@ -119,13 +118,21 @@ def accuracy(probs: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 def make_loss_fn(spec: QNNSpec, X: torch.Tensor, y: torch.Tensor,
                  backend=None) -> Callable:
-    """theta → scalar NLL on (X, y), optionally through a backend's noise
-    channel, on the device of ``X``.  A finite-shot backend
-    (``backend.shots > 0``) would make the loss keyed, ``loss(theta,
-    key)``; shot sampling is not ported, and that raises."""
-    if backend is not None and backend.shots:
-        raise NotImplementedError(backend_mod.SHOTS_NOT_PORTED)
+    """theta → scalar NLL on (X, y), optionally through a noisy backend,
+    on the device of ``X``.
+
+    With a finite-shot backend (``backend.shots > 0``) the loss is
+    **keyed**, called as ``loss(theta, key)`` with a per-evaluation
+    ``backends.eval_key``, so shot sampling is live and deterministic by
+    seed; otherwise the channel-only one-argument form is returned."""
     fwd = make_forward(spec, X.device)
+
+    if backend is not None and backend.shots:
+        def loss_sampled(theta, key):
+            probs = backend.transform_probs(fwd(theta, X), key)
+            return nll_loss(probs, y)
+
+        return loss_sampled
 
     def loss(theta):
         probs = fwd(theta, X)

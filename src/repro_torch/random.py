@@ -13,9 +13,13 @@ host values, so everything here is numpy ``uint32`` arithmetic, whose
 wrap-around is the hash's own; ``uniform`` returns a numpy float32 array
 that the caller moves to its device.
 
+``uniform_stack`` draws the finite-shot uniforms of a whole batch of
+evaluations at once, one key a row, in torch on the caller's device:
+row ``i`` is bitwise ``uniform(keys[i], shape, dtype)``.
+
 ``normal`` and ``truncated_normal`` draw weights, up to tens of millions
 of values at a time, so they run in torch on the caller's device: the
-same hash in int64 arithmetic masked to 32 bits, then XLA's float32
+same hash on int32 words (uint32 arithmetic's bits), then XLA's float32
 ``erf_inv`` (Giles' polynomial) over XLA's CPU ``log1p`` and ``log``
 (Cephes' forms), every multiply-add fused as XLA fuses it.  Each step is
 an IEEE operation that rounds the same on any device, so a draw is the
@@ -42,8 +46,10 @@ def _rotl(v: np.ndarray, r: int) -> np.ndarray:
 
 def threefry2x32(key: np.ndarray, x0: np.ndarray, x1: np.ndarray
                  ) -> Tuple[np.ndarray, np.ndarray]:
-    """The Threefry-2x32 block cipher (20 rounds) on counter pairs."""
-    k0, k1 = np.asarray(key, _U32)[:2]
+    """The Threefry-2x32 block cipher (20 rounds) on counter pairs.  A
+    stack of keys ``(..., 2)`` broadcasts against the counters."""
+    key = np.asarray(key, _U32)
+    k0, k1 = key[..., 0], key[..., 1]
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
     with np.errstate(over="ignore"):
         x0 = np.asarray(x0, _U32) + ks[0]
@@ -83,12 +89,16 @@ def split(key: np.ndarray, num: Union[int, Sequence[int]] = 2
     return np.stack([b0, b1], axis=-1)
 
 
-def fold_in(key: np.ndarray, data: int) -> np.ndarray:
-    """Key mixed with a 32-bit integer (negative values wrap)."""
-    d = int(data) & 0xFFFFFFFF
+def fold_in(key: np.ndarray, data) -> np.ndarray:
+    """Key mixed with a 32-bit integer (negative values wrap).
+
+    ``data`` may be an integer array and ``key`` a stack ``(..., 2)``:
+    they broadcast, and the result is ``(*broadcast shape, 2)``, each
+    entry ``jax.random.fold_in`` of its key and integer."""
+    d = (np.asarray(data, np.int64) & 0xFFFFFFFF).astype(_U32)
     # threefry_2x32(key, seed(data)): the count [0, d] is split in halves
-    b0, b1 = threefry2x32(key, np.array([0], _U32), np.array([d], _U32))
-    return np.array([b0[0], b1[0]], _U32)
+    b0, b1 = threefry2x32(key, np.zeros_like(d), d)
+    return np.stack([b0, b1], axis=-1)
 
 
 def random_bits(key: np.ndarray, shape: Tuple[int, ...]) -> np.ndarray:
@@ -156,33 +166,83 @@ _ERFINV_BIG = (-0.000200214257, 0.000100950558, 0.00134934322,
                0.00943887047, 1.00167406, 2.83297682)
 
 
-def _threefry_torch(key: np.ndarray, x0: torch.Tensor, x1: torch.Tensor
+def _i32(v: int) -> int:
+    """A 32-bit word (any Python int) as the int32 holding its bits."""
+    v &= _M32
+    return v - (1 << 32) if v >> 31 else v
+
+
+def _threefry_torch(key, x0: torch.Tensor, x1: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``threefry2x32`` on int64 tensors holding uint32 values."""
-    k0, k1 = (int(v) for v in np.asarray(key, _U32)[:2])
-    ks = (k0, k1, k0 ^ k1 ^ int(_PARITY))
-    x0 = (x0 + ks[0]) & _M32
-    x1 = (x1 + ks[1]) & _M32
-    for i in range(5):
+    """``threefry2x32`` on int32 tensors holding the uint32 words' bits:
+    adds wrap as uint32 adds do, and a logical right shift is an
+    arithmetic one masked (half the bytes of int64 words, a third of the
+    time on the CPU).  ``key`` is one numpy key, or a pair ``(k0, k1)``
+    of int32 tensors that broadcast against the counters."""
+    if isinstance(key, np.ndarray):
+        k0, k1 = (_i32(int(v)) for v in np.asarray(key, _U32)[:2])
+    else:
+        k0, k1 = key
+    ks = (k0, k1, k0 ^ k1 ^ _i32(int(_PARITY)))
+    x0, x1 = torch.broadcast_tensors(x0 + ks[0], x1 + ks[1])
+    x0, x1 = x0.contiguous(), x1.contiguous()
+    for i in range(5):          # in place: a third of the passes' time
         for r in _ROTATIONS[i % 2]:
-            x0 = (x0 + x1) & _M32
-            x1 = (((x1 << r) & _M32) | (x1 >> (32 - r))) ^ x0
-        x0 = (x0 + ks[(i + 1) % 3]) & _M32
-        x1 = (x1 + (ks[(i + 2) % 3] + i + 1)) & _M32
+            x0.add_(x1)
+            hi = (x1 >> (32 - r)) & ((1 << r) - 1)
+            x1.bitwise_left_shift_(r).bitwise_or_(hi).bitwise_xor_(x0)
+        x0.add_(ks[(i + 1) % 3])
+        inc = ks[(i + 2) % 3]
+        x1.add_(_i32(inc + i + 1) if isinstance(inc, int) else inc + i + 1)
     return x0, x1
+
+
+def _counters(n: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (high, low) words of a uint64 iota of ``n``, as int32."""
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    return (idx >> 32).to(torch.int32), (idx & _M32).to(torch.int32)
 
 
 def _uniform_torch(key: np.ndarray, shape: Tuple[int, ...], lo: np.float32,
                    hi: np.float32, device) -> torch.Tensor:
     """``uniform`` computed on ``device``: float32 ``[lo, hi)``."""
-    n = math.prod(shape)
-    idx = torch.arange(n, dtype=torch.int64, device=device)
-    b0, b1 = _threefry_torch(key, idx >> 32, idx & _M32)
-    bits = ((b0 ^ b1) >> 9) | 0x3F800000
-    floats = bits.to(torch.int32).view(torch.float32) - 1.0
+    b0, b1 = _threefry_torch(key, *_counters(math.prod(shape), device))
+    bits = (((b0 ^ b1) >> 9) & 0x7FFFFF) | 0x3F800000
+    floats = bits.view(torch.float32) - 1.0
     span = torch.full_like(floats, float(np.float32(hi) - np.float32(lo)))
     out = _fma_torch(floats, span, torch.full_like(floats, float(lo)))
     return torch.clamp(out, min=float(lo)).reshape(shape)
+
+
+# (random bits, mantissa bits, integer type, the bits of 1.0) of a draw,
+# as ``jax.random.uniform`` picks them: 8 bits for bfloat16
+_UNIFORM_BITS = {torch.float32: (32, 23, torch.int32, 0x3F800000),
+                 torch.bfloat16: (8, 7, torch.int16, 0x3F80)}
+
+
+def uniform_stack(keys: np.ndarray, shape: Tuple[int, ...],
+                  dtype=torch.float32, device="cpu") -> torch.Tensor:
+    """``(N, *shape)`` draws in ``[0, 1)``: row ``i`` is bitwise
+    ``jax.random.uniform(keys[i], shape, dtype)``, float32 or bfloat16.
+    The ``(N, 2)`` numpy keys go to ``device`` without a host
+    synchronisation (pinned, non-blocking to a card), and the draws are
+    made there in one pass over every row."""
+    if dtype not in _UNIFORM_BITS:
+        raise ValueError(f"uniform_stack draws float32 or bfloat16, not "
+                         f"{dtype}")
+    keys = torch.from_numpy(np.ascontiguousarray(keys, _U32).view(np.int32))
+    device = torch.device(device)
+    keys = (keys.pin_memory().to(device, non_blocking=True)
+            if device.type == "cuda" else keys).reshape(-1, 2)
+    b0, b1 = _threefry_torch((keys[:, :1], keys[:, 1:]),
+                             *_counters(math.prod(shape), keys.device))
+    nbits, nmant, itype, one = _UNIFORM_BITS[dtype]
+    bits = b0 ^ b1
+    if nbits < 32:                       # the low bits, as JAX narrows them
+        bits = bits & ((1 << nbits) - 1)
+    mant = (bits >> (nbits - nmant)) & ((1 << nmant) - 1)
+    floats = (mant | one).to(itype).view(dtype) - 1.0
+    return floats.reshape(keys.shape[0], *shape)
 
 
 def _fma_torch(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor

@@ -159,11 +159,6 @@ def test_loss_fn_matches_jax(kind, n, n_cls, backend):
     assert abs(float(got) - float(want)) <= TOL
 
 
-def test_loss_fn_with_shots_is_not_ported():
-    spec, _, _, X, y = _inputs("vqc", 4, 2)
-    with pytest.raises(NotImplementedError, match="finite-shot"):
-        qnn.make_loss_fn(spec, torch.from_numpy(X), torch.from_numpy(y),
-                         backend=backends.get("fake"))
 
 
 def test_parameter_counts_have_one_copy():

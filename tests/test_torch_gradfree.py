@@ -162,8 +162,6 @@ def test_batched_spsa_active_mask_and_keyed():
         np.testing.assert_array_equal(part[0][c].numpy(),
                                       full[0][c].numpy())
     np.testing.assert_allclose(part[0].numpy(), np.asarray(jx), atol=2e-5)
-    with pytest.raises(NotImplementedError, match="finite-shot"):
-        batched_spsa.batched_spsa(_tf, x0, [1, 1, 1], deltas, keyed=True)
 
 
 def _quad_host32(center):

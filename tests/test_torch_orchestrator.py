@@ -74,15 +74,12 @@ def test_run_config_defaults_and_fields_match():
 
 
 @pytest.mark.parametrize("override,exc,item", [
-    (dict(method="llm-qfl", llm_name="gpt2"), NotImplementedError,
-     "other model families"),
     (dict(engine="sequential", rounds="fused"), ValueError,
      "rounds='fused'.*engine='batched'"),
     (dict(engine="sequential", n_devices=2), ValueError,
      "n_devices > 1.*engine='batched'"),
     (dict(rounds="fused"), NotImplementedError, "fused round loop"),
     (dict(n_devices=2), NotImplementedError, "multi-GPU"),
-    (dict(backend="fake"), NotImplementedError, "finite-shot"),
 ])
 def test_unported_options_raise(override, exc, item):
     """Options the port does not run raise ``NotImplementedError`` naming

@@ -151,9 +151,11 @@ def test_backends_match(name):
             rtol=0)
     for n in (1, 50, 400):
         assert tb.eval_time(n) == jb.eval_time(n)
-    if tb.shots:
-        with pytest.raises(NotImplementedError, match="finite-shot"):
+    if tb.shots:        # a finite-shot backend needs a key, as in JAX
+        with pytest.raises(ValueError, match="shots"):
             tb.transform_probs(torch.from_numpy(probs))
+        with pytest.raises(ValueError, match="shots"):
+            jb.transform_probs(jnp.asarray(probs))
 
 
 def test_reserved_ids_match():
