@@ -12,8 +12,12 @@ has no backward kernel; here the gradient is a ``torch.autograd.Function``:
   - ``dx = dy@Wᵀ + s·(dy@Bᵀ)@Aᵀ`` is the same kernel on transposed
     views (the kernel reads every operand through its strides),
     skipped when ``x`` needs no gradient,
-  - ``dA = s·xᵀ(dy@Bᵀ)`` and ``dB = s·(x@A)ᵀdy`` are batched matmuls, as
-    ``jax.grad`` leaves them to XLA outside any Pallas kernel,
+  - ``dA = s·xᵀ(dy@Bᵀ)`` and ``dB = s·(x@A)ᵀdy`` are library matmuls, as
+    ``jax.grad`` leaves them to XLA outside any Pallas kernel, one
+    product a client: a batched product lets the library pick its
+    kernel and reduction split by the client count, and AdamW's first
+    step turns each element's rounding into ±lr, so a client's step
+    would depend on the clients beside it,
   - W is frozen: asking for its gradient raises.
 
 Where the kernel splits a small grid's reduction, the wrapper allocates
@@ -113,11 +117,13 @@ class _LoRAMatmul(torch.autograd.Function):
         dx = da = db = None
         if ctx.needs_input_grad[0]:
             dx = _launch(dy, w.t(), b.transpose(1, 2), a.transpose(1, 2), s)
+        C = x.shape[0]
         if ctx.needs_input_grad[2]:
-            da = s * torch.bmm(x.transpose(1, 2),
-                               torch.bmm(dy, b.transpose(1, 2)))
+            da = s * torch.stack([x[c].t() @ (dy[c] @ b[c].t())
+                                  for c in range(C)])
         if ctx.needs_input_grad[3]:
-            db = s * torch.bmm(torch.bmm(x, a).transpose(1, 2), dy)
+            db = s * torch.stack([(x[c] @ a[c]).t() @ dy[c]
+                                  for c in range(C)])
         return dx, None, da, db, None
 
 

@@ -107,7 +107,12 @@ def _head(cfg, params):
 def chunked_ce(cfg, params, hidden, labels, *, chunk: int = 512):
     """Per-client mean next-token CE ``(C,)`` over sequence chunks, so
     ``(C, B, chunk, V)`` logits are the only vocab-sized tensor.  labels
-    < 0 are masked; the count is clamped to 1."""
+    < 0 are masked; the count is clamped to 1.
+
+    Each client's logits are a product of their own, forward and
+    backward: one product over all C clients' rows lets the library
+    choose its kernel and reduction split by C, so a client's gradient
+    would depend on how many clients share the step."""
     C, B, S, _ = hidden.shape
     head = _head(cfg, params)
     chunk = min(chunk, S)
@@ -116,7 +121,8 @@ def chunked_ce(cfg, params, hidden, labels, *, chunk: int = 512):
     cnt = torch.zeros(C, dtype=torch.float32, device=hidden.device)
     for i in range(0, S, chunk):
         h, y = hidden[:, :, i:i + chunk], labels[:, :, i:i + chunk]
-        logits = (h @ head.to(h.dtype)).float()
+        logits = torch.stack([h[c] @ head.to(h.dtype)
+                              for c in range(C)]).float()
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, y.clamp(min=0)[..., None])[..., 0]
         mask = (y >= 0).float()

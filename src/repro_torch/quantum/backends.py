@@ -39,7 +39,7 @@ from __future__ import annotations
 
 import contextlib
 from dataclasses import dataclass
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -134,6 +134,16 @@ class Backend:
                 + self.t_per_shot * max(self.shots, 1) * n_circuits)
 
 
+class NearDraws(NamedTuple):
+    """Two recorded runs of the same draws compared near the boundaries
+    (``DrawMargin.near_disagreements``)."""
+    checked: int       # draws within NEAR of a boundary in either run
+    flipped: int       # of them, in another class in each run
+    unexplained: int   # missing from one run, boundaries more than NEAR
+                       # apart, or a flip the boundaries do not straddle
+    shift: float       # the largest boundary shift between the runs
+
+
 class DrawMargin:
     """The smallest distance between a finite-shot draw and an interior
     CDF boundary over every ``sample_counts`` call while tracking is on,
@@ -142,31 +152,51 @@ class DrawMargin:
     A draw closer to a boundary than two implementations' CDFs differ
     (float noise, about 2e-7) may land in another class in each, so
     whole-run parity at a pinned seed rests on the draws that decide
-    the run lying farther than that.  The minimum is kept on the
-    device of the draws and read once, so tracking adds no host
-    synchronisation to an evaluation."""
+    the run lying farther than that.  Over a whole run, millions of
+    uniform draws put a few within ``NEAR`` by chance (at most 2·NEAR of
+    the draw-boundary pairs), so two checks stand in for a margin held
+    above ``NEAR``: the near count stays within its chance rate
+    (``chance_bound``), and with ``record`` two runs of the same draws
+    are compared draw by draw near the boundaries
+    (``near_disagreements``).  The minimum and the count stay on the
+    device of the draws until they are read; ``record`` reads the size
+    of each call's near set, one host synchronisation a call."""
 
     NEAR = 1e-6
 
-    def __init__(self):
+    def __init__(self, record: bool = False):
         self.on = False
-        self._min, self._near, self.draws = None, 0, 0
+        self.record = record
+        self._min, self._near, self.draws, self.pairs = None, 0, 0, 0
+        self.calls = 0
+        self.records = []
 
     def update(self, u: torch.Tensor, cdf: torch.Tensor,
-               skip: torch.Tensor):
-        """u ``(N, shots, B)``, cdf ``(N, B, C)``, skip ``(N, B)``."""
+               skip: torch.Tensor, draws: torch.Tensor):
+        """u ``(N, shots, B)``, cdf ``(N, B, C)``, skip ``(N, B)``, the
+        classes drawn ``(N, B, shots)``."""
         C = cdf.shape[-1]
         if C < 2:
             return
         # float32: near a boundary the difference is exact (Sterbenz)
-        d = (u[..., None].float()
-             - cdf[:, None, :, :C - 1].float()).abs().amin(-1)
+        sd = u[..., None].float() - cdf[:, None, :, :C - 1].float()
+        d, nearest = sd.abs().min(-1)
         d = torch.where(skip[:, None, :], torch.inf, d)
         low = d.amin()
         self._min = low if self._min is None else torch.minimum(self._min,
                                                                 low)
         self._near = self._near + (d <= self.NEAR).sum()
         self.draws += d.numel()
+        self.pairs += d.numel() * (C - 1)
+        if self.record:
+            # within 2·NEAR: each draw's position, class and signed
+            # distance to its nearest boundary (>= 0: the class above)
+            idx = (d <= 2 * self.NEAR).flatten().nonzero()[:, 0]
+            signed = torch.gather(sd, -1, nearest[..., None])[..., 0]
+            self.records.append((self.calls, idx,
+                                 draws.transpose(1, 2).flatten()[idx],
+                                 signed.flatten()[idx]))
+        self.calls += 1
 
     @property
     def value(self) -> float:
@@ -177,19 +207,64 @@ class DrawMargin:
     def near(self) -> int:
         return int(self._near)
 
+    def chance_bound(self) -> float:
+        """The most near draws that chance explains: a uniform draw lies
+        within NEAR of a given boundary with probability at most 2·NEAR,
+        so the count is at most Poisson of mean 2·NEAR·pairs; its mean
+        plus six standard deviations, plus 6."""
+        lam = 2 * self.NEAR * self.pairs
+        return lam + 6 * lam ** 0.5 + 6
+
+    def _table(self):
+        """(positions, classes, signed distances) of the recorded draws,
+        on the host, in draw order."""
+        if not self.records:
+            return (np.zeros(0, np.int64), np.zeros(0, np.int64),
+                    np.zeros(0, np.float32))
+        pos, cls, sd = zip(*[((call << 40) + idx.cpu().numpy(),
+                              c.cpu().numpy(), s.cpu().numpy())
+                             for call, idx, c, s in self.records])
+        return np.concatenate(pos), np.concatenate(cls), np.concatenate(sd)
+
+    def near_disagreements(self, other: "DrawMargin") -> NearDraws:
+        """Compare two recorded runs of the same draws (the same calls of
+        the same shapes) at every draw within NEAR of a boundary in
+        either.  A draw may fall in another class in each only where the
+        two runs' boundaries straddle it, no more than NEAR apart: its
+        signed distances differ in sign, and by at most NEAR."""
+        (pa, ca, sa), (pb, cb, sb) = self._table(), other._table()
+        near = np.union1d(pa[np.abs(sa) <= self.NEAR],
+                          pb[np.abs(sb) <= self.NEAR])
+        ia = np.minimum(np.searchsorted(pa, near), max(len(pa) - 1, 0))
+        ib = np.minimum(np.searchsorted(pb, near), max(len(pb) - 1, 0))
+        both = ((pa[ia] == near) & (pb[ib] == near) if len(pa) and len(pb)
+                else np.zeros(len(near), bool))
+        ia, ib = ia[both], ib[both]
+        shift = np.abs(sa[ia].astype(np.float64) - sb[ib])
+        flip = ca[ia] != cb[ib]
+        straddled = (sa[ia] >= 0) != (sb[ib] >= 0)
+        bad = (shift > self.NEAR) | (flip & ~straddled)
+        return NearDraws(checked=len(near), flipped=int(flip.sum()),
+                         unexplained=int((~both).sum() + bad.sum()),
+                         shift=float(shift.max()) if len(shift) else 0.0)
+
 
 margin = DrawMargin()
 
 
 @contextlib.contextmanager
-def track_margin():
-    """Track ``margin`` afresh for the duration of the block."""
-    margin.__init__()
+def track_margin(record: bool = False):
+    """Track the draws of the block in a new ``DrawMargin``, which it
+    yields and which keeps its readings after the block; with ``record``
+    each draw's class near a boundary is kept too."""
+    global margin
+    margin = DrawMargin(record)
     margin.on = True
     try:
         yield margin
     finally:
         margin.on = False
+        margin = DrawMargin()
 
 
 def sample_counts(key, probs: torch.Tensor, shots: int) -> torch.Tensor:
@@ -230,7 +305,7 @@ def sample_counts(key, probs: torch.Tensor, shots: int) -> torch.Tensor:
                                right=True)                        # (N, B, S)
     draws = torch.clamp(draws, max=C - 1)   # cumsum rounding below 1.0
     if margin.on:
-        margin.update(u, cdf, nan_row[..., 0])
+        margin.update(u, cdf, nan_row[..., 0], draws)
     cls = torch.arange(C, device=p.device)
     counts = (draws[..., None] == cls).sum(-2, dtype=torch.float32)
     counts = torch.where(nan_row, torch.nan, counts)  # divergence surfaces

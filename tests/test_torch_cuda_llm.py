@@ -306,3 +306,36 @@ def test_lora_matmul_split_reduction_is_deterministic(cuda, C, M, K, N, r):
     assert lm.lora_matmul.launches == before + 2
     assert torch.equal(y1, y2)
     assert _rel_err(y1, ref.lora_matmul(x, w, a, b, 2.0)) <= 2e-5
+
+
+def test_a_clients_step_does_not_depend_on_the_clients_beside_it(cuda):
+    """A client's projection, its gradients and its CE loss and hidden
+    gradient in a step of three clients are bitwise the same client's
+    step alone, at a grid the kernel does not split at C = 1 (the
+    sequential stage against the batched engine)."""
+    from types import SimpleNamespace
+    from repro_torch.models import model as M
+    C, Mr, K, N, r, V = 3, 1024, 2048, 2048, 8, 4102
+    rng = np.random.default_rng(7)
+    x, w, a, b = _lora_operands(rng, C, Mr, K, N, r, cuda)
+    g = _randn(rng, (C, Mr, N), cuda)
+    cfg = SimpleNamespace(tie_embeddings=False)
+    params = {"lm_head": _randn(rng, (N, V), cuda, scale=0.02)}
+    labels = torch.from_numpy(rng.integers(-1, V, (C, 16, Mr // 16))).to(
+        cuda)
+
+    def step(sl):
+        xs, as_, bs = (t[sl].detach().clone().requires_grad_()
+                       for t in (x, a, b))
+        y = ops.lora_matmul(xs, w, as_, bs, 2.0)
+        hidden = y.reshape(-1, 16, Mr // 16, N)
+        loss = M.chunked_ce(cfg, params, hidden, labels[sl])
+        dx, da, db = torch.autograd.grad(
+            (y * g[sl]).sum() + loss.sum(), (xs, as_, bs))
+        return y, loss, dx, da, db
+
+    together = step(slice(0, C))
+    for c in range(C):
+        alone = step(slice(c, c + 1))
+        for t, u in zip(together, alone):
+            assert torch.equal(t[c:c + 1], u)

@@ -77,17 +77,20 @@ def test_noisy_batched_run_card_equals_cpu(cuda):
               n_rounds=2, maxiter0=5, early_stop=False, backend="aersim")
     svt.statevector_tape.launches = svg.statevector_gate.launches = 0
     tape.run_tape.replays = 0
-    with backends.track_margin() as m:
+    with backends.track_margin(record=True) as m:
         got = run_experiment(task, **kw)
     assert svt.statevector_tape.launches == tape.run_tape.replays > 0
     assert svg.statevector_gate.launches == 0
-    want = run_experiment(task, device="cpu", **kw)
+    with backends.track_margin(record=True) as m_cpu:
+        want = run_experiment(task, device="cpu", **kw)
     for attr in ("maxiters", "selected", "cum_evals"):
         assert got.series(attr) == want.series(attr)
     np.testing.assert_allclose(got.series("server_loss"),
                                want.series("server_loss"), atol=1e-5)
     np.testing.assert_allclose(got.theta_g, want.theta_g, atol=1e-4)
-    assert m.draws > 0 and m.value > 0
+    assert m.draws == m_cpu.draws > 0 and m.near <= m.chance_bound()
+    near = m.near_disagreements(m_cpu)
+    assert near.unexplained == 0, near
 
 
 def _rel_err(got, want):

@@ -193,9 +193,39 @@ def test_keyed_loss_and_objective_match_jax(name):
     print(f"{name}: smallest draw-to-boundary distance {m.value:.3g} over "
           f"{m.draws} draws, {m.near} within {m.NEAR}")
     assert m.draws == 6 * 40 * 100 and m.value > 0
+    assert m.near <= m.chance_bound()
     # a different key draws differently
     a = float(loss(torch.from_numpy(theta), tb.eval_key(jr.PRNGKey(5), 1, 2,
                                                         0)))
     b = float(loss(torch.from_numpy(theta), tb.eval_key(jr.PRNGKey(6), 1, 2,
                                                         0)))
     assert a != b
+
+
+def test_near_draws_are_compared_draw_for_draw():
+    """Two recorded runs near a boundary: a class flip is allowed only
+    where the runs' boundaries straddle the draw no more than NEAR
+    apart; a larger shift or a draw missing from one run is found."""
+    key = jr.PRNGKey(3)
+    u0 = float(jr.uniform_stack(np.asarray(key)[None], (100, 1),
+                                torch.float32)[0, 0, 0])
+
+    def run(p0):
+        probs = torch.tensor([[p0, 1.0 - p0]], dtype=torch.float32)
+        with tb.track_margin(record=True) as m:
+            tb.sample_counts(key, probs, 100)
+        return m
+
+    below = run(u0 - 3e-7)
+    assert below.near >= 1 and below.value <= 1e-6
+    same = below.near_disagreements(run(u0 - 3e-7))
+    assert same == (below.near, 0, 0, 0.0)
+    # the draw above the boundary in one run, below it in the other
+    flip = below.near_disagreements(run(u0 + 3e-7))
+    assert flip.flipped == 1 and flip.unexplained == 0
+    assert flip.shift == pytest.approx(6e-7, rel=0.1)
+    # boundaries 1.8e-6 apart, and a draw 5e-6 away in the other run
+    assert below.near_disagreements(run(u0 + 1.5e-6)).unexplained == 1
+    assert below.near_disagreements(run(u0 + 5e-6)).unexplained == 1
+    assert below.chance_bound() == pytest.approx(
+        2e-6 * 100 + 6 * (2e-6 * 100) ** 0.5 + 6)

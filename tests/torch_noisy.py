@@ -10,10 +10,10 @@ smallest distance between a draw and a CDF boundary over the port's run
 (``backends.track_margin``) is printed with the number of draws within
 1e-6 of one.  Over a whole run, millions of draws on the 2**-23 grid
 put a few within 1e-6 of a boundary by chance alone (about 2e-6 of
-them), so the margin cannot be held above 1e-6 here; it is asserted
-positive (no draw on a boundary, where ``side="right"`` alone decides)
-and the equal results show that the forwards agree closer than it at
-every such draw.
+them), so the margin cannot be held above 1e-6 here.  The number of
+near draws is held to its chance rate instead (``chance_bound``): a
+count above it means the draws cluster at the boundaries, where the
+pinned seed no longer makes the run safe.
 """
 import json
 
@@ -78,8 +78,9 @@ def assert_runs_match(got, want, m, what: str):
     np.testing.assert_allclose(got.theta_g, want.theta_g, atol=1e-4,
                                rtol=0, err_msg=what)
     print(f"{what}: smallest draw-to-boundary distance {m.value:.3g} over "
-          f"{m.draws} draws, {m.near} within {m.NEAR}")
-    assert m.draws > 0 and m.value > 0, what
+          f"{m.draws} draws, {m.near} within {m.NEAR} (chance allows "
+          f"{m.chance_bound():.1f})")
+    assert m.draws > 0 and m.near <= m.chance_bound(), what
 
 
 # the training CLIs: Experiment I's flags on a small task
