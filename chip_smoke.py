@@ -79,12 +79,26 @@ failure, and the script then exits non-zero with no result line.
    (``run_sequential_stage``, 2 clients × 2 steps, held to
    ``BatchedLLMEngine`` on one base as the llama3.2-1b one is), with
    their base draw times, step times and peak memory.
-9. Prints the phases' wall times, the card line, one
+9. The fused round loop (``rounds="fused"``, printed as phase 10,
+   after phase 4): the QFL quickstart (10 rounds), the LLM-QFL
+   quickstart's rounds on phase 4's card Step 1, QFL on ``aersim`` at
+   3 rounds (Nelder–Mead and SPSA) and a large-ε early termination,
+   each through the entry point with its round captured anew as a CUDA
+   graph, held to the card's host-loop run (integers exactly, losses
+   within 1e-5, θ_g within 2e-6; the QFL quickstart also to phase 3's
+   CPU run), with no host synchronisation from its first launch to its
+   one read-back (``torch.cuda.set_sync_debug_mode("error")``) and a
+   second replay bitwise equal; then population mode (3 of 5 clients a
+   round, dropout 0.25, ``aersim``) held to ``run_host_reference`` on
+   the card.  The fused path's ``statevector_tape`` launches are one
+   eager round before the capture plus the graph's nodes times its
+   replays.
+10. Prints the phases' wall times, the card line, one
    ``{"kernels": [...]}`` line (``launches_sequential``: the launches of
    phase 7's sequential LLM-QFL Step 1, and for ``statevector_tape`` of
    its batched SPSA QFL run; ``launches_aersim``, ``launches_gpt2``,
-   ``launches_deepseek``: phase 9's), and last ``{"ok": true, "device":
-   {...}}``.
+   ``launches_deepseek``: phase 9's; ``launches_fused*``: phase 10's),
+   and last ``{"ok": true, "device": {...}}``.
 
 Each path is driven with every launch counter set to 0 just before it
 and read just after, and the counts are held to the formulas stated in
@@ -93,11 +107,14 @@ a warm 3-round QFL run, a warm LLM-QFL run (Step 1 and 3 rounds), a
 warm QLoRA LLM stage, a warm 3-round batched SPSA QFL run and a warm
 sequential LLM-QFL run (Step 1 and 1 round) with ``torch.profiler``
 and prints the device's busy time, its idle share of the wall time, and
-the kernels that take the device time; and a warm 3-round batched QFL
-run on ``aersim`` with the device time of ``sample_counts``.
+the kernels that take the device time; a warm 3-round batched QFL
+run on ``aersim`` with the device time of ``sample_counts``; and warm
+3-round runs of the host and the fused loop side by side (QFL, QFL on
+``aersim``, the LLM-QFL rounds on one Step 1).
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -973,13 +990,13 @@ def kl_phase(gen):
 # ---------------------------------------------------------------------------
 def run_main_path(device, cfg, method="qfl", llm_outputs=None,
                   engine="batched", optimizer="nelder-mead",
-                  backend="exact"):
+                  backend="exact", **extra):
     """One federated run; returns (task, result, orchestrator)."""
     from repro_torch.core.orchestrator import Orchestrator, RunConfig
     from repro_torch.data.tasks import build_task
     task = build_task("genomic", **cfg["task"])
     rc = RunConfig(method=method, optimizer=optimizer, engine=engine,
-                   backend=backend, **cfg["run"])
+                   backend=backend, **dict(cfg["run"], **extra))
     orch = Orchestrator(task, rc, device=device, llm_outputs=llm_outputs)
     res = orch.run()
     return task, res, orch
@@ -1095,7 +1112,8 @@ def main_phase():
     print(f"main path (cpu, plain) in {time.perf_counter() - t0:.2f} s: "
           f"equal maxiters/selected/cum_evals; max |Δ server loss| "
           f"{loss_gap:.3g}, max |Δ θ_g| {theta_gap:.3g}")
-    return dict(counts=n, wall_s=wall, round_s=orch.round_seconds)
+    return dict(counts=n, wall_s=wall, round_s=orch.round_seconds, gpu=gpu,
+                cpu=cpu)
 
 
 def llm_phase() -> dict:
@@ -1152,7 +1170,8 @@ def llm_phase() -> dict:
           f"cum_evals; max |Δ server loss| {loss_gap:.3g}, max |Δ θ_g| "
           f"{theta_gap:.3g}")
     return dict(counts=n, wall_s=wall, finetune_s=gpu.llm_finetune_time_s,
-                round_s=orch.round_seconds)
+                round_s=orch.round_seconds, gpu=gpu,
+                llm_outputs=orch.llm_outputs)
 
 
 def wide_phase():
@@ -1989,6 +2008,190 @@ def gpt2_phase() -> dict:
                 peak_gib=peak, gap=gap, n_params=n_params)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the fused round loop (rounds="fused")
+# ---------------------------------------------------------------------------
+# the card's fused runs against its host loop: integers exactly, losses
+# within 1e-5, θ_g within 2e-6 (tests/test_fused_rounds.py's bounds)
+FUSED_LOSS_TOL, FUSED_THETA_TOL = 1e-5, 2e-6
+# the quickstart's equal 5 × 50 shards at 3 rounds, on aersim
+FUSED_AERSIM = dict(task=QUICKSTART["task"], run=dict(n_rounds=3))
+# population mode: cohorts of 3 of the quickstart's 5 clients, dropout
+FUSED_POP = dict(c_round=3, dropout=0.25, n_rounds=5, seed=0)
+
+
+@contextlib.contextmanager
+def strict_fused():
+    """Every fused run's launches, from its first to the copy of its
+    results, under ``torch.cuda.set_sync_debug_mode("error")``: a host
+    synchronisation there raises.  The one read-back (``finish``) is
+    outside."""
+    import torch
+    from repro_torch.core import fused_rounds
+    plain = fused_rounds.FusedRoundDriver.start
+
+    def start(self, theta_g, graph=True):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return plain(self, theta_g, graph)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    fused_rounds.FusedRoundDriver.start = start
+    try:
+        yield
+    finally:
+        fused_rounds.FusedRoundDriver.start = plain
+
+
+def fused_launches(n: dict, driver, label: str) -> dict:
+    """Device launches of a fused run that captured its program: one
+    eager round before the capture, then ``replays`` replays of the
+    graph, whose kernel nodes the capture counted.  (The wrappers count
+    Python calls, so the capture's own count is no launch.)"""
+    prog = driver.program
+    gc = prog.graph_counts
+    check(gc["statevector_tape"] == gc["replays"] > 0
+          and gc["statevector_gate"] == 0,
+          f"fused {label}: the graph holds {gc['statevector_tape']} "
+          f"statevector_tape nodes for {gc['replays']} tape replays")
+    eager = {k: n[k] - gc[k] for k in ("statevector_tape", "replays")}
+    return dict(statevector_tape=eager["statevector_tape"]
+                + prog.replays * gc["statevector_tape"],
+                replays=eager["replays"] + prog.replays * gc["replays"],
+                graph_nodes=gc["statevector_tape"], graph_replays=prog.replays)
+
+
+def same_output(a, b, what: str):
+    """Two FusedRunOutputs bit for bit (NaN where NaN)."""
+    import dataclasses
+    import numpy as np
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        check(x.dtype == y.dtype and np.array_equal(
+            x, y, equal_nan=x.dtype.kind == "f"),
+            f"{what}: {f.name} differs between two replays of one graph")
+
+
+def fused_drive(label: str, cfg, host, **kw) -> dict:
+    """A fused run through ``run_experiment``'s path on the card, its
+    program captured anew, held to the card's host-loop run ``host``;
+    then the run replayed again, bitwise the same."""
+    import numpy as np
+    from repro_torch.core import fused_rounds
+    fused_rounds._FUSED_CACHE.clear()
+    zero_counters()
+    t0 = time.perf_counter()
+    with strict_fused():
+        _, res, orch = run_main_path("cuda", cfg, rounds="fused", **kw)
+    wall = time.perf_counter() - t0
+    driver = orch.fused_driver
+    n = fused_launches(read_counters(), driver, label)
+    check(res.terminated_early == host.terminated_early,
+          f"fused {label}: terminated_early differs from the host loop")
+    loss_gap, theta_gap = compare_runs(
+        res, host, loss_tol=FUSED_LOSS_TOL, theta_tol=FUSED_THETA_TOL,
+        what=f"fused {label} against the card's host loop")
+    with strict_fused():
+        again = driver.run(driver.theta0)
+    same_output(orch.fused_output, again, f"fused {label}")
+    print(f"phase 10 fused {label}: {len(res.rounds)} rounds, "
+          f"{wall:.3f} s with the capture, the run {orch.fused_seconds:.4f} "
+          f"s; statevector_tape {n['statevector_tape']} launches "
+          f"({n['graph_nodes']} a graph × {n['graph_replays']} replays + "
+          f"one eager round); against the host loop: equal maxiters/"
+          f"selected/cum_evals, max |Δ loss| {loss_gap:.3g}, |Δ θ_g| "
+          f"{theta_gap:.3g}; no sync; a second replay bitwise equal")
+    return dict(res=res, orch=orch, wall_s=wall, run_s=orch.fused_seconds,
+                loss_gap=loss_gap, theta_gap=theta_gap, **n)
+
+
+def fused_phase(qfl: dict, llm: dict) -> dict:
+    """The fused round loop on the card: the QFL quickstart (held to
+    phase 3's card and CPU runs), the LLM-QFL quickstart's rounds on
+    phase 4's card Step 1, QFL on aersim (NM and SPSA), a large-ε early
+    termination, and population mode held to ``run_host_reference``."""
+    import numpy as np
+    from repro_torch import random as jr
+    from repro_torch.core import fused_rounds
+    from repro_torch.data.tasks import build_task
+    from repro_torch.quantum import backends, qnn
+    t_phase = time.perf_counter()
+    out = {}
+    out["qfl"] = fused_drive("qfl quickstart", QUICKSTART, qfl["gpu"])
+    gap = compare_runs(out["qfl"]["res"], qfl["cpu"],
+                       what="fused qfl quickstart against phase 3's cpu run")
+    print(f"  fused qfl quickstart against phase 3's cpu host run: max "
+          f"|Δ server loss| {gap[0]:.3g}, |Δ θ_g| {gap[1]:.3g}")
+    out["llm-qfl"] = fused_drive("llm-qfl quickstart rounds",
+                                 LLM_QUICKSTART, llm["gpu"],
+                                 method="llm-qfl",
+                                 llm_outputs=llm["llm_outputs"])
+    check(out["llm-qfl"]["res"].rounds[-1].maxiters
+          != [QUICKSTART["run"].get("maxiter0", 10)] * 5,
+          "fused llm-qfl: regulation left every budget at maxiter0")
+    for opt in ("nelder-mead", "spsa"):
+        t0 = time.perf_counter()
+        _, host, _ = run_main_path("cuda", FUSED_AERSIM, backend="aersim",
+                                   optimizer=opt)
+        host_s = time.perf_counter() - t0
+        out[f"aersim {opt}"] = d = fused_drive(
+            f"qfl aersim {opt}", FUSED_AERSIM, host, backend="aersim",
+            optimizer=opt)
+        d["host_s"] = host_s
+    early = dict(task=QUICKSTART["task"], run=dict(epsilon=10.0))
+    _, host, _ = run_main_path("cuda", early)
+    check(host.terminated_early and len(host.rounds) == 2,
+          f"host loop with ε = 10: {len(host.rounds)} rounds")
+    out["early"] = fused_drive("qfl early termination (ε = 10)", early,
+                               host)
+
+    # population mode on aersim against the host reference on the card
+    task = build_task("genomic", **QUICKSTART["task"])
+    spec = qnn.QNNSpec("vqc", n_qubits=4, n_classes=task.n_classes)
+    fused_rounds._FUSED_CACHE.clear()
+    driver = fused_rounds.FusedRoundDriver(
+        task, spec, backends.get("aersim"), maxiter0=10, early_stop=False,
+        **FUSED_POP)
+    theta0 = spec.init_params(jr.split(jr.PRNGKey(0))[1]).numpy()
+    with strict_fused():
+        t0 = time.perf_counter()
+        got = driver.run(theta0)
+        run_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = driver.run_host_reference(theta0)
+    ref_s = time.perf_counter() - t0
+    for f in ("active", "stop", "cohort", "dropped", "selected", "n_evals",
+              "budgets", "cum_evals", "budgets_final", "cum_evals_final"):
+        check(np.array_equal(getattr(got, f), getattr(ref, f)),
+              f"fused population: {f} differs from run_host_reference")
+    check(np.array_equal(np.isnan(got.losses), np.isnan(ref.losses))
+          and got.dropped.any(), "fused population: the reports or the "
+          "dropout differ")
+    loss_gap = float(np.nanmax(np.abs(got.losses - ref.losses)))
+    theta_gap = float(np.max(np.abs(got.theta_g - ref.theta_g)))
+    server_gap = float(np.max(np.abs(got.server_loss - ref.server_loss)))
+    check(loss_gap <= FUSED_LOSS_TOL and server_gap <= FUSED_LOSS_TOL
+          and theta_gap <= FUSED_THETA_TOL,
+          f"fused population against run_host_reference: |Δ loss| "
+          f"{loss_gap}, |Δ server loss| {server_gap}, |Δ θ_g| {theta_gap}")
+    with strict_fused():
+        same_output(got, driver.run(theta0), "fused population")
+    print(f"phase 10 fused population (c_round {FUSED_POP['c_round']} of 5, "
+          f"dropout {FUSED_POP['dropout']}, aersim, {FUSED_POP['n_rounds']} "
+          f"rounds, {int(got.dropped.sum())} dropped): run {run_s:.4f} s, "
+          f"host reference {ref_s:.3f} s; cohorts, coins and integers equal;"
+          f" max |Δ loss| {loss_gap:.3g}, |Δ server loss| {server_gap:.3g}, "
+          f"|Δ θ_g| {theta_gap:.3g}; no sync; a second replay bitwise equal")
+    out["population"] = dict(run_s=run_s, host_s=ref_s, loss_gap=loss_gap,
+                             theta_gap=theta_gap)
+    wall = time.perf_counter() - t_phase
+    fused_rounds._FUSED_CACHE.clear()        # the graphs' memory back
+    print(f"phase 10 (fused round loop) in {wall:.1f} s")
+    out["wall_s"] = wall
+    return out
+
+
 # profiler ranges the smoke opens itself: on the device they span a
 # range's kernels and the gaps between them, so they are no kernels
 RANGES = ("sample_counts",)
@@ -2046,6 +2249,39 @@ def profile_aersim(acts):
           f"{dev:.3f} ms ({note})")
 
 
+def profile_fused(acts):
+    """Warm runs of the host loop and the fused loop side by side (each
+    loop run once first: kernels built, the fused graph captured and
+    cached): the QFL quickstart at 3 rounds, the same on aersim, and the
+    LLM-QFL quickstart's rounds (3) on one card Step 1."""
+    import torch
+    from torch.profiler import profile
+    qfl3 = dict(QUICKSTART, run=dict(n_rounds=3, early_stop=False))
+    llm3 = dict(LLM_QUICKSTART, run=dict(LLM_QUICKSTART["run"], n_rounds=3,
+                                         early_stop=False))
+    _, _, orch = run_main_path("cuda", dict(llm3, run=dict(llm3["run"],
+                                                           n_rounds=1)),
+                               method="llm-qfl")
+    step1 = orch.llm_outputs
+    for label, cfg, kw in (
+            ("qfl", qfl3, {}), ("qfl aersim", qfl3, dict(backend="aersim")),
+            ("llm-qfl rounds", llm3, dict(method="llm-qfl",
+                                          llm_outputs=step1))):
+        for rounds in ("host", "fused"):
+            run_main_path("cuda", cfg, rounds=rounds, **kw)
+            with profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                _, res, orch = run_main_path("cuda", cfg, rounds=rounds,
+                                             **kw)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            detail = (f"the run {orch.fused_seconds:.4f} s"
+                      if rounds == "fused" else "rounds " + ", ".join(
+                          f"{s:.3f}" for s in orch.round_seconds) + " s")
+            print_profile(prof, f"{label} {rounds} loop", wall,
+                          f"3 rounds; {detail}")
+
+
 def profile_phase():
     """Device busy time and idle share of warm QFL and LLM-QFL runs, and
     of the QLoRA LLM stage."""
@@ -2078,6 +2314,7 @@ def profile_phase():
     print_profile(prof, "qlora stage", wall, f"tiny-llm, int4 base, 5 "
                   f"clients, {steps} steps + distill + evaluation")
     profile_aersim(acts)
+    profile_fused(acts)
     for label, cfg, kw in (
             ("qfl spsa batched", SEQ_QFL, dict(optimizer="spsa")),
             ("llm-qfl nm sequential",
@@ -2250,6 +2487,7 @@ def main(argv) -> int:
     qfl = main_phase()
     size_rule = size_rule_phase()
     llm = llm_phase()
+    fused = fused_phase(qfl, llm)
     seq = sequential_phase()
     nwq = wide_phase()
     llm_wide = llm_wide_phase()
@@ -2300,6 +2538,15 @@ def main(argv) -> int:
              replays_aersim=cli["qfl batched"]["counts"]["replays"],
              launches_aersim_llm_qfl=cli["llm-qfl batched"]["counts"][
                  "statevector_tape"],
+             launches_fused=fused["qfl"]["statevector_tape"],
+             launches_fused_llm_qfl=fused["llm-qfl"]["statevector_tape"],
+             launches_fused_aersim_nm=fused["aersim nelder-mead"][
+                 "statevector_tape"],
+             launches_fused_aersim_spsa=fused["aersim spsa"][
+                 "statevector_tape"],
+             fused_graph_nodes={k: fused[k]["graph_nodes"] for k in (
+                 "qfl", "llm-qfl", "aersim nelder-mead", "aersim spsa",
+                 "early")},
              bitwise_share_vs_gate_chain=tape_share,
              size_rule=f"n_qubits <= {svt.MAX_QUBITS}; above, run_tape "
                        "launches statevector_gate once a gate",
@@ -2383,6 +2630,10 @@ def main(argv) -> int:
                           "step_s", "run_s", "peak_gib", "n_params",
                           "init_s", "base_bytes", "base_f32_bytes")},
                       "sample_counts": shots,
+                      "fused": {k: ({f: v[f] for f in (
+                          "wall_s", "run_s", "loss_gap", "theta_gap")
+                          if f in v} if isinstance(v, dict) else v)
+                          for k, v in fused.items()},
                       "cli": {k: {f: v[f] for f in (
                           "wall_s", "cpu_wall_s", "finetune_s", "margin",
                           "near", "loss_gap", "theta_gap")}

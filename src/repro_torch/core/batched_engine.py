@@ -44,7 +44,9 @@ all its ``(C, K)`` (client, candidate) blocks in one pass, each block's
 ``(shots, Bmax)`` uniforms under ``fold_in(ckey_c, slot_k)``: the JAX
 engine's draws over the padded shard.  Only F_i is sampled; the KL term
 reads the raw probabilities.  The keys are derived on the host from host
-integers and copied to the device without a synchronisation.
+integers and copied to the device without a synchronisation; or, in the
+fused round loop, every slot's key of the round is already on the device
+(``eval_slots`` names the columns) and each call takes a slice of them.
 """
 from __future__ import annotations
 
@@ -57,6 +59,7 @@ from repro_torch import random as jr
 from repro_torch.optim.batched_nm import batched_nm, best_point
 from repro_torch.optim.batched_spsa import batched_spsa, make_deltas
 from repro_torch.quantum import tape as tape_mod
+from repro_torch.quantum.backends import FINAL_EVAL_SLOT
 
 EPS = 1e-9
 
@@ -65,20 +68,47 @@ def _numpy(a) -> np.ndarray:
     return a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
 
 
+def eval_slots(optimizer: str, n_params: int, max_iter: int) -> np.ndarray:
+    """Every contract slot one client's local phase can evaluate, in
+    ascending order: Nelder–Mead's init rows and ``max_iter`` iterations'
+    ``n+3`` candidates, or SPSA's start, ``max_iter`` iterations' three
+    evaluations and the final polish."""
+    if optimizer == "spsa":
+        return np.append(np.arange(1 + 3 * max_iter), FINAL_EVAL_SLOT)
+    return np.arange((n_params + 1) + max_iter * (n_params + 3))
+
+
 def build_local_phase(spec, backend, *, lam: float, mu: float,
                       use_llm: bool, optimizer: str = "nelder-mead",
                       max_iter: int = 100):
     """The round's local-training phase as a function of its inputs.
 
     Returns ``local_phase(qX, qy, mask, teacher, theta_g, iters, ckeys,
-    deltas=None) → (x (C, P) float32, n_evals (C,) int32)``; every tensor
-    lies on one device, and the phase runs there.  ``ckeys`` is the
-    ``(C, 2)`` numpy stack of the clients' round keys (inert when the
-    backend does not sample); ``deltas`` (the perturbation signs,
+    deltas=None, active=None, n_steps=None) → (x (C, P) float32, n_evals
+    (C,) int32)``; every tensor lies on one device, and the phase runs
+    there.  ``ckeys`` is the ``(C, 2)`` numpy stack of the clients' round
+    keys, or a ``(C, S, 2)`` stack on the device of every slot's key
+    (column ``j`` the key of slot ``eval_slots(...)[j]``); inert when the
+    backend does not sample.  ``deltas`` (the perturbation signs,
     ``(C, M, P)``) is required for SPSA and ignored by Nelder–Mead.
+    ``active`` is the optional ``(C,)`` participation mask (an inactive
+    client keeps ``theta_g`` and spends 0 evaluations) and ``n_steps``
+    the optimizer's optional static trip count.
     """
     cq = tape_mod.compile_qnn(spec)
     sampling = backend.shots > 0
+    slot_cols = eval_slots(optimizer, spec.n_params, int(max_iter))
+
+    def slot_keys(ckeys, slots):
+        """The (client, candidate) keys ``fold_in(ckey_c, slot_k)``: a
+        slice of a device stack, or folded on the host."""
+        if not torch.is_tensor(ckeys):
+            return jr.fold_in(ckeys[:, None, :], slots[None, :])
+        lo, hi = np.searchsorted(slot_cols, slots[[0, -1]])
+        if not np.array_equal(slot_cols[lo:hi + 1], slots):
+            raise ValueError(f"slots {slots} are no run of the staged "
+                             "slot keys")
+        return ckeys[:, lo:hi + 1]
 
     def client_objectives(xs, qX, qy, mask, teacher, theta_g, keys):
         """F_i + λ·KL + µ·prox for every client c and candidate k:
@@ -106,22 +136,29 @@ def build_local_phase(spec, backend, *, lam: float, mu: float,
         raise ValueError(f"unknown batched optimizer {optimizer!r}")
 
     def local_phase(qX, qy, mask, teacher, theta_g, iters, ckeys,
-                    deltas=None):
+                    deltas=None, active=None, n_steps=None):
         x0 = theta_g[None, :].expand(qX.shape[0], -1)
+        if active is not None:
+            active = torch.as_tensor(active, dtype=torch.bool,
+                                     device=qX.device)
 
         def f(xs, slots):
-            # the (client, candidate) keys fold_in(ckey_c, slot_k)
-            keys = (jr.fold_in(ckeys[:, None, :], slots[None, :])
-                    if sampling else None)
+            keys = slot_keys(ckeys, slots) if sampling else None
             return client_objectives(xs, qX, qy, mask, teacher, theta_g,
                                      keys)
 
         if optimizer == "spsa":
-            x, _, n_evals = batched_spsa(f, x0, iters, deltas, keyed=True)
-            return x, n_evals
-        simplex, fvals, n_evals, _ = batched_nm(f, x0, iters, int(max_iter),
-                                                keyed=True)
-        x, _ = best_point(simplex, fvals)
+            x, _, n_evals = batched_spsa(f, x0, iters, deltas, keyed=True,
+                                         active=active, n_steps=n_steps)
+        else:
+            simplex, fvals, n_evals, _ = batched_nm(
+                f, x0, iters, int(max_iter), keyed=True, active=active,
+                n_steps=n_steps)
+            x, _ = best_point(simplex, fvals)
+        if active is not None:
+            # an untouched init simplex's best vertex is an offset row,
+            # not x0: an inactive client returns its start
+            x = torch.where(active[:, None], x, x0)
         return x, n_evals
 
     return local_phase

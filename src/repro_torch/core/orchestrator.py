@@ -7,9 +7,13 @@ aggregation → server eval → termination check.  Communication time is
 accounted through the quantum backend's latency model (Table I).
 
 The port runs ``method="qfl"`` and ``method="llm-qfl"`` with
-``rounds="host"``, ``engine="sequential"`` (the default) or
-``"batched"``, and ``optimizer="nelder-mead"`` (the default) or
-``"spsa"``.  For ``llm-qfl``, Step 1 fine-tunes every client's LoRA
+``engine="sequential"`` (the default) or ``"batched"``,
+``optimizer="nelder-mead"`` (the default) or ``"spsa"``, and
+``rounds="host"`` (the default) or, on the batched engine,
+``rounds="fused"``: every round on the device with no host read until
+the run ends (``core/fused_rounds.py``; on the card a captured CUDA
+graph a round), with the population options ``c_round`` and
+``dropout``.  For ``llm-qfl``, Step 1 fine-tunes every client's LoRA
 adapters on a frozen float32 base in round 1 — one client at a time
 (``core/llm_client.run_sequential_stage``) or all at once
 (``core/batched_llm.py``); its teacher soft labels feed the quantum
@@ -52,6 +56,7 @@ from repro_torch import random as jr
 from repro_torch.core import distill, regulation, selection
 from repro_torch.core.batched_engine import BatchedRoundEngine
 from repro_torch.core.batched_llm import BatchedLLMEngine
+from repro_torch.core.fused_rounds import FusedRoundDriver
 from repro_torch.core.llm_client import run_sequential_stage, task_llm_config
 from repro_torch.core.termination import TerminationCriterion
 from repro_torch.data.tasks import FederatedTask
@@ -130,7 +135,8 @@ def _not_ported(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP §1, {item!r}); the port "
         "runs method='qfl' or 'llm-qfl', engine='sequential' or "
-        "'batched', rounds='host', optimizer='nelder-mead' or 'spsa'")
+        "'batched', rounds='host' or 'fused', optimizer='nelder-mead' or "
+        "'spsa', on one device")
 
 
 @dataclass
@@ -179,8 +185,6 @@ class Orchestrator:
             raise ValueError(f"unknown method {rc.method!r}")
         if rc.optimizer not in ("nelder-mead", "spsa"):
             raise ValueError(f"unknown optimizer {rc.optimizer!r}")
-        if rc.rounds == "fused":
-            raise _not_ported("rounds='fused'", "the fused round loop")
         if rc.n_devices is not None and rc.n_devices > 1:
             raise _not_ported("n_devices > 1", "multi-GPU clients axis")
         kind = rc.qnn_kind or ("vqc" if task.n_classes == 2 else "qcnn")
@@ -325,6 +329,9 @@ class Orchestrator:
         else:
             self._teacher_probs = None
 
+        if rc.rounds == "fused":
+            return self._run_fused(res)
+
         if rc.engine == "batched":
             self._engine = BatchedRoundEngine(
                 task, self.spec, self.backend, lam=rc.lam, mu=rc.mu,
@@ -436,6 +443,59 @@ class Orchestrator:
                 res.terminated_early = t < rc.n_rounds
                 break
 
+        res.theta_g = self._theta_g
+        return res
+
+    def _run_fused(self, res: RunResult) -> RunResult:
+        """Run the rounds with ``core/fused_rounds.FusedRoundDriver`` and
+        unpack its outputs into the ``RoundRecord`` stream of the host
+        loop.  Per-client fields are population-sized: in a round a
+        client sat out, its loss is NaN and its ratio 1.0, and its budget
+        and evaluation count carry forward.  ``self.fused_driver`` keeps
+        the driver, ``self.fused_output`` its ``FusedRunOutput`` and
+        ``self.fused_seconds`` the run's host wall time (its one
+        read-back synchronises with the device)."""
+        rc, task = self.rc, self.task
+        driver = FusedRoundDriver(
+            task, self.spec, self.backend, optimizer=rc.optimizer,
+            seed=rc.seed, lam=rc.lam, mu=rc.mu, use_llm=rc.uses_llm,
+            teacher_probs=self._teacher_probs if rc.uses_llm else None,
+            llm_losses=self._llm_losses if rc.uses_llm else None,
+            maxiter0=rc.maxiter0, maxiter_cap=rc.maxiter_cap,
+            regulation=rc.regulation, select_frac=rc.select_frac,
+            epsilon=rc.epsilon, n_rounds=rc.n_rounds,
+            early_stop=rc.early_stop, c_round=rc.c_round,
+            dropout=rc.dropout, n_devices=rc.n_devices, device=self.device)
+        self.fused_driver = driver
+        t0 = time.perf_counter()
+        self.fused_output = out = driver.run(self._theta_g)
+        self.fused_seconds = time.perf_counter() - t0
+        C = task.n_clients
+        for r in range(rc.n_rounds):
+            if not out.active[r]:
+                break
+            t = r + 1
+            cohort = out.cohort[r]
+            losses = np.full(C, np.nan)
+            losses[cohort] = out.losses[r]
+            ratios = np.ones(C)
+            ratios[cohort] = out.ratios[r]
+            sel = sorted(int(c) for c in cohort[out.selected[r]])
+            var = selection.selection_variance(
+                losses.tolist(), float(out.server_loss_pre[r]), sel)
+            res.rounds.append(RoundRecord(
+                t=t, maxiters=out.budgets[r].tolist(),
+                ratios=ratios.tolist(), client_losses=losses.tolist(),
+                selected=sel, server_loss=float(out.server_loss[r]),
+                server_val_acc=float(out.val_acc[r]),
+                server_test_acc=float(out.test_acc[r]),
+                comm_time_s=float(out.comm_time_s[r]),
+                cum_evals=out.cum_evals[r].tolist(),
+                var_all=var["var_all"], var_selected=var["var_selected"]))
+            if out.stop[r] and rc.early_stop:
+                res.terminated_early = t < rc.n_rounds
+                break
+        self._theta_g = out.theta_g
         res.theta_g = self._theta_g
         return res
 

@@ -6,8 +6,11 @@ expand, contract and the ``n`` shrink points are evaluated
 **speculatively** as one dense ``(C, n+3, P)`` batch, and the branch the
 sequential method would have taken is selected per client with masks.
 Per-client ``maxiter`` budgets are an iteration mask: the loop runs
-``min(max(iters), max_iter)`` times (read on the host once per call) and
-a client past its budget keeps its simplex.
+``min(max(iters), max_iter)`` times (read on the host once per call), or
+a static trip count ``n_steps`` the caller gives (no host read: the
+fused round loop passes ``max_iter``), and a client past its budget
+keeps its simplex, so any trip count from ``max(iters)`` up gives the
+same bits.  An ``active`` mask forces a client's budget to 0.
 
 Eval accounting follows the branch actually taken (expand 2, reflect 1,
 contract 2, shrink 2+n) so ``n_evals`` matches the sequential method
@@ -52,7 +55,8 @@ def init_simplexes(x0: torch.Tensor, *, step: float = 0.25) -> torch.Tensor:
 
 def batched_nm(f: Callable, x0: torch.Tensor, iters, max_iter: int, *,
                alpha=1.0, gamma=2.0, rho=0.5, sigma=0.5, step: float = 0.25,
-               keyed: bool = False) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+               keyed: bool = False, active=None, n_steps=None
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                           torch.Tensor]:
     """Masked batched Nelder–Mead.
 
@@ -62,6 +66,14 @@ def batched_nm(f: Callable, x0: torch.Tensor, iters, max_iter: int, *,
     x0       : (C, P) start (typically θ_g broadcast to all clients)
     iters    : (C,)   per-client iteration budgets (mask, not trip count)
     max_iter : upper bound on any budget (branch-record width)
+    active   : optional (C,) bool participation mask: an inactive
+               client's budget is forced to 0 (its simplex stays the init
+               simplex, its branch row ``BRANCH_INACTIVE``) and its
+               ``n_evals``, init included, is 0.  ``None`` is the
+               all-active behaviour.
+    n_steps  : optional static trip count in ``[0, max_iter]``, at least
+               every client's budget, in place of the host read of
+               ``max(iters)``
 
     Returns ``(simplex (C, n+1, P), fvals (C, n+1), n_evals (C,) int32,
     branches (C, max_iter) int32)``.  The best point is
@@ -71,15 +83,23 @@ def batched_nm(f: Callable, x0: torch.Tensor, iters, max_iter: int, *,
     dev = x0.device
     C, n = x0.shape
     iters = torch.as_tensor(iters, dtype=torch.int32, device=dev)
+    if active is not None:
+        active = torch.as_tensor(active, dtype=torch.bool, device=dev)
+        iters = torch.where(active, iters, 0)
     fstack = f if keyed else (lambda xs, slots: f(xs))
 
     simplex = init_simplexes(x0, step=step)
     fvals = fstack(simplex, np.arange(n + 1))                # (C, n+1)
     evals = torch.full((C,), n + 1, dtype=torch.int32, device=dev)
+    if active is not None:
+        evals = torch.where(active, evals, 0)
     branches = torch.full((C, int(max_iter)), BRANCH_INACTIVE,
                           dtype=torch.int32, device=dev)
 
-    n_steps = min(int(iters.max()) if C else 0, int(max_iter))
+    if n_steps is None:
+        n_steps = min(int(iters.max()) if C else 0, int(max_iter))
+    elif not 0 <= n_steps <= max_iter:
+        raise ValueError(f"n_steps={n_steps} is outside [0, {max_iter}]")
     for i in range(n_steps):
         order = torch.argsort(fvals, dim=1, stable=True)
         sx = torch.gather(simplex, 1, order[:, :, None].expand(-1, -1, n))

@@ -8,7 +8,8 @@ batched Nelder–Mead's interface): the start and the final polish are
 its candidate another ``K = 1`` call.
 
 Per-client ``maxiter`` budgets are iteration masks: the loop runs
-``max(iters)`` times (read on the host once per call) and client ``c``
+``max(iters)`` times (read on the host once per call), or a static trip
+count ``n_steps`` the caller gives (no host read), and client ``c``
 stops updating once ``i >= iters[c]``.  Masked iterations still evaluate
 ``f`` for the whole stack and leave the masked clients bitwise as they
 were.
@@ -63,7 +64,8 @@ def _gains(i: int, a, c, A, alpha, gamma) -> Tuple[float, float]:
 
 def batched_spsa(f: Callable, x0: torch.Tensor, iters, deltas: torch.Tensor,
                  *, a=0.2, c=0.15, A=10.0, alpha=0.602, gamma=0.101,
-                 clip: float = 1.0, keyed: bool = False, active=None
+                 clip: float = 1.0, keyed: bool = False, active=None,
+                 n_steps=None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Masked batched SPSA.
 
@@ -76,6 +78,8 @@ def batched_spsa(f: Callable, x0: torch.Tensor, iters, deltas: torch.Tensor,
     active : optional (C,) bool participation mask: an inactive client's
              budget is forced to 0 (``x`` returns its start row) and its
              ``n_evals`` is 0.  ``None`` is the all-active behaviour.
+    n_steps: optional static trip count in ``[0, M]``, at least every
+             client's budget, in place of the host read of ``max(iters)``
 
     Returns (x (C, P), f_final (C,), n_evals (C,) int32), ``n_evals``
     counting what the sequential path would have spent: 1 init + 3 an
@@ -95,7 +99,11 @@ def batched_spsa(f: Callable, x0: torch.Tensor, iters, deltas: torch.Tensor,
         return fstack(xs[:, None], np.array([slot]))[:, 0]
 
     fbest = call(x, 0)
-    n_steps = int(iters.max()) if x.shape[0] else 0
+    if n_steps is None:
+        n_steps = int(iters.max()) if x.shape[0] else 0
+    elif not 0 <= n_steps <= deltas.shape[1]:
+        raise ValueError(f"n_steps={n_steps} is outside [0, "
+                         f"{deltas.shape[1]}]")
     for i in range(n_steps):
         ak, ck = _gains(i, a, c, A, alpha, gamma)
         d = deltas[:, i, :]                                  # (C, P)

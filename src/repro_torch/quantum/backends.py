@@ -31,7 +31,9 @@ the reserved ``SERVER_CLIENT`` with slots ``SERVER_SLOT_*``.
 
 Keys are numpy ``(2,)`` arrays (``repro_torch.random``), or stacks
 ``(..., 2)``: ``sample_counts`` takes one key a ``(B, C)`` block and
-draws every block of a stack in one pass on the device.
+draws every block of a stack in one pass on the device.  A stack may
+also be a tensor on the device already (int32 words holding the keys'
+bits), as the fused round loop stages its whole run's keys once.
 ``transform_probs`` raises ``ValueError`` when ``shots > 0`` and no key
 is given: channel-only evaluation is an explicit ``apply_channel``.
 """
@@ -270,7 +272,8 @@ def track_margin(record: bool = False):
 def sample_counts(key, probs: torch.Tensor, shots: int) -> torch.Tensor:
     """Multinomial shot counts of every row of ``(B, C)`` probabilities
     under one key, or of every ``(B, C)`` block of ``(..., B, C)`` under a
-    key stack ``(..., 2)``: bitwise the JAX package's ``sample_counts``
+    key stack ``(..., 2)``, numpy or a device tensor of int32 words:
+    bitwise the JAX package's ``sample_counts``
     (its draws for each key are ``uniform(key, (shots, B))``).
 
     Inverse-CDF sampling: each row's cumulative probabilities, a
@@ -282,8 +285,8 @@ def sample_counts(key, probs: torch.Tensor, shots: int) -> torch.Tensor:
     and are returned in ``probs.dtype``.
     """
     *lead, B, C = probs.shape
-    keys = np.asarray(key, np.uint32)
-    if keys.shape[:-1] != tuple(lead) or keys.shape[-1] != 2:
+    keys = key if torch.is_tensor(key) else np.asarray(key, np.uint32)
+    if tuple(keys.shape[:-1]) != tuple(lead) or keys.shape[-1] != 2:
         raise ValueError(f"sample_counts: a key stack {keys.shape} for "
                          f"probabilities {tuple(probs.shape)}; it needs "
                          f"{(*lead, 2)}")

@@ -1,5 +1,5 @@
 """Threefry-2x32 keys: ``PRNGKey``, ``split``, ``fold_in``, ``uniform``,
-``normal`` and ``truncated_normal``.
+``permutation``, ``choice``, ``normal`` and ``truncated_normal``.
 
 Bit-for-bit the draws of ``jax.random`` with the default threefry
 implementation and ``jax_threefry_partitionable=True`` (the default from
@@ -15,7 +15,10 @@ that the caller moves to its device.
 
 ``uniform_stack`` draws the finite-shot uniforms of a whole batch of
 evaluations at once, one key a row, in torch on the caller's device:
-row ``i`` is bitwise ``uniform(keys[i], shape, dtype)``.
+row ``i`` is bitwise ``uniform(keys[i], shape, dtype)``.  Its keys, and
+``fold_in``'s, may also be a tensor already on the device (int32 words
+holding the uint32 bits), so a run whose keys were staged once draws
+with no copy from the host.
 
 ``normal`` and ``truncated_normal`` draw weights, up to tens of millions
 of values at a time, so they run in torch on the caller's device: the
@@ -89,12 +92,22 @@ def split(key: np.ndarray, num: Union[int, Sequence[int]] = 2
     return np.stack([b0, b1], axis=-1)
 
 
-def fold_in(key: np.ndarray, data) -> np.ndarray:
+def fold_in(key, data):
     """Key mixed with a 32-bit integer (negative values wrap).
 
     ``data`` may be an integer array and ``key`` a stack ``(..., 2)``:
     they broadcast, and the result is ``(*broadcast shape, 2)``, each
-    entry ``jax.random.fold_in`` of its key and integer."""
+    entry ``jax.random.fold_in`` of its key and integer.  A key stack
+    that is a tensor (int32 words holding the uint32 bits) gives one on
+    its device, of the same bits."""
+    if torch.is_tensor(key):
+        d = torch.as_tensor(data if torch.is_tensor(data)
+                            else np.asarray(data, np.int64),
+                            device=key.device)
+        d = (d.long() & _M32).to(torch.int32)       # the low word's bits
+        b0, b1 = _threefry_torch((key[..., 0], key[..., 1]),
+                                 torch.zeros_like(d), d)
+        return torch.stack([b0, b1], -1)
     d = (np.asarray(data, np.int64) & 0xFFFFFFFF).astype(_U32)
     # threefry_2x32(key, seed(data)): the count [0, d] is split in halves
     b0, b1 = threefry2x32(key, np.zeros_like(d), d)
@@ -119,6 +132,33 @@ def uniform(key: np.ndarray, shape: Tuple[int, ...] = (),
     lo, hi = np.float32(minval), np.float32(maxval)
     # XLA contracts the affine map into one fused multiply-add
     return np.maximum(lo, _fma_f32(floats, hi - lo, lo)).reshape(shape)
+
+
+def permutation(key: np.ndarray, n: int) -> np.ndarray:
+    """``jax.random.permutation(key, n)``: ``arange(n)`` (int32) sorted
+    stably on 32 fresh random bits an element, in ``ceil(3·ln n /
+    ln(2**32 - 1))`` rounds (one for any n > 1, none for n = 1), each
+    round's bits from the second key of a ``split``."""
+    x = np.arange(int(n), dtype=np.int32)
+    rounds = int(np.ceil(3 * np.log(max(1, int(n)))
+                         / np.log(np.iinfo(np.uint32).max)))
+    for _ in range(rounds):
+        key, sub = split(key)
+        x = x[np.argsort(random_bits(sub, x.shape), kind="stable")]
+    return x
+
+
+def choice(key: np.ndarray, n: int, shape: Tuple[int, ...] = (),
+           replace: bool = False) -> np.ndarray:
+    """``jax.random.choice(key, n, shape, replace=False)`` (no ``p``): the
+    first ``prod(shape)`` entries of ``permutation(key, n)``."""
+    if replace:
+        raise NotImplementedError("choice draws without replacement only")
+    shape = tuple(shape)
+    k = math.prod(shape)
+    if k > n:
+        raise ValueError(f"cannot take {k} of {n} without replacement")
+    return permutation(key, n)[:k].reshape(shape)
 
 
 def _fma_f32(a: np.ndarray, b: np.float32, c: np.float32) -> np.ndarray:
@@ -226,14 +266,19 @@ def uniform_stack(keys: np.ndarray, shape: Tuple[int, ...],
     ``jax.random.uniform(keys[i], shape, dtype)``, float32 or bfloat16.
     The ``(N, 2)`` numpy keys go to ``device`` without a host
     synchronisation (pinned, non-blocking to a card), and the draws are
-    made there in one pass over every row."""
+    made there in one pass over every row; keys that are already a
+    tensor (int32 words) are drawn on its device, with no copy."""
     if dtype not in _UNIFORM_BITS:
         raise ValueError(f"uniform_stack draws float32 or bfloat16, not "
                          f"{dtype}")
-    keys = torch.from_numpy(np.ascontiguousarray(keys, _U32).view(np.int32))
-    device = torch.device(device)
-    keys = (keys.pin_memory().to(device, non_blocking=True)
-            if device.type == "cuda" else keys).reshape(-1, 2)
+    if torch.is_tensor(keys):
+        keys = keys.reshape(-1, 2)
+    else:
+        keys = torch.from_numpy(np.ascontiguousarray(keys, _U32)
+                                .view(np.int32))
+        device = torch.device(device)
+        keys = (keys.pin_memory().to(device, non_blocking=True)
+                if device.type == "cuda" else keys).reshape(-1, 2)
     b0, b1 = _threefry_torch((keys[:, :1], keys[:, 1:]),
                              *_counters(math.prod(shape), keys.device))
     nbits, nmant, itype, one = _UNIFORM_BITS[dtype]

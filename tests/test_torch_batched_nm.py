@@ -156,3 +156,50 @@ def test_from_jax_keeps_structure_and_values():
     assert out["theta"].dtype == torch.float64
     assert out["stacks"][1] is None
     np.testing.assert_array_equal(out["stacks"][0].numpy(), tree["stacks"][0])
+
+
+def _quadratic(C=4, dim=3):
+    centers = (np.linspace(-1, 1, dim)[None, :]
+               * (np.arange(C) + 1)[:, None]).astype(np.float32)
+    jc, tc = jnp.asarray(centers), torch.from_numpy(centers)
+    jf = lambda xs: jnp.sum((xs - jc) ** 2, axis=-1)            # noqa: E731
+    tf = lambda xs: torch.sum((xs - tc[:, None]) ** 2, dim=-1)  # noqa: E731
+    return jf, tf, np.full((C, dim), 0.5, np.float32)
+
+
+def test_active_mask_matches_jax():
+    """``active=``: an inactive client spends nothing, init included, and
+    keeps the init simplex and an all-inactive branch row, as the JAX
+    package's ``batched_nm(active=...)``."""
+    jf, tf, x0 = _quadratic()
+    iters = np.array([7, 3, 5, 12], np.int32)
+    active = np.array([True, False, True, False])
+    js, jfv, jev, jbr = jax_nm.batched_nm(jf, jnp.asarray(x0),
+                                          jnp.asarray(iters), 12,
+                                          active=jnp.asarray(active))
+    ts, tfv, tev, tbr = batched_nm.batched_nm(
+        tf, torch.from_numpy(x0), iters, 12, active=torch.from_numpy(active))
+    np.testing.assert_array_equal(tev.numpy(), np.asarray(jev))
+    np.testing.assert_array_equal(tbr.numpy(), np.asarray(jbr))
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), atol=TOL, rtol=0)
+    assert (tev.numpy()[~active] == 0).all()
+    assert (tbr.numpy()[~active] == batched_nm.BRANCH_INACTIVE).all()
+    np.testing.assert_array_equal(
+        ts.numpy()[~active],
+        batched_nm.init_simplexes(torch.from_numpy(x0)).numpy()[~active])
+
+
+@pytest.mark.parametrize("n_steps", [12, 20])
+def test_static_trip_count_is_bitwise_the_host_read(n_steps):
+    """A static trip count at or above every budget (the fused loop's
+    ``max_iter``) gives the bits of the host-read ``max(iters)`` loop."""
+    _, tf, x0 = _quadratic()
+    iters = np.array([7, 3, 0, 12], np.int32)
+    want = batched_nm.batched_nm(tf, torch.from_numpy(x0), iters, 20)
+    got = batched_nm.batched_nm(tf, torch.from_numpy(x0), iters, 20,
+                                n_steps=n_steps)
+    for w, g in zip(want, got):
+        assert torch.equal(w, g)
+    with pytest.raises(ValueError, match="n_steps"):
+        batched_nm.batched_nm(tf, torch.from_numpy(x0), iters, 20,
+                              n_steps=21)

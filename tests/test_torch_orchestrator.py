@@ -78,7 +78,7 @@ def test_run_config_defaults_and_fields_match():
      "rounds='fused'.*engine='batched'"),
     (dict(engine="sequential", n_devices=2), ValueError,
      "n_devices > 1.*engine='batched'"),
-    (dict(rounds="fused"), NotImplementedError, "fused round loop"),
+    (dict(rounds="fused", n_devices=2), NotImplementedError, "multi-GPU"),
     (dict(n_devices=2), NotImplementedError, "multi-GPU"),
 ])
 def test_unported_options_raise(override, exc, item):

@@ -138,3 +138,45 @@ def test_truncation_bounds_are_xla_erf():
         v = np.float32(lo) / s2
         assert np.float32(math.erf(float(v))) == np.asarray(
             jax.lax.erf(jnp.float32(v)))
+
+
+# --- permutation and choice(replace=False): the fused loop's cohorts ---------
+@pytest.mark.parametrize("seed", [0, 4, 997, -7])
+def test_permutation_and_choice_bitwise(seed):
+    """Every n in 1..64 under several keys: ``jax.random.permutation`` and
+    ``jax.random.choice(..., replace=False)``, bit for bit."""
+    base = jr.PRNGKey(seed)
+    for n in range(1, 65):
+        for slot in (0, 0x7FFFFFFD):
+            key = jr.fold_in(jr.fold_in(base, n), slot)
+            kj = jnp.asarray(key)
+            got = jr.permutation(key, n)
+            np.testing.assert_array_equal(
+                got, np.asarray(jax.random.permutation(kj, n)))
+            assert got.dtype == np.int32
+            k = max(1, (n * 3) // 7)
+            np.testing.assert_array_equal(
+                jr.choice(key, n, (k,)),
+                np.asarray(jax.random.choice(kj, n, (k,), replace=False)))
+
+
+def test_choice_rejects_what_it_does_not_draw():
+    with pytest.raises(ValueError, match="without replacement"):
+        jr.choice(jr.PRNGKey(0), 3, (4,))
+    with pytest.raises(NotImplementedError):
+        jr.choice(jr.PRNGKey(0), 3, (2,), replace=True)
+
+
+def test_device_key_stacks_draw_the_same_bits():
+    """A key stack staged as a tensor of int32 words: ``fold_in`` and
+    ``uniform_stack`` give the bits of the numpy path."""
+    ck = jr.fold_in(jr.PRNGKey(3), np.arange(5))
+    slots = np.array([0, 17, 0x7FFFFFFE, 0x7FFFFFFF, -3])
+    want = jr.fold_in(ck[:, None, :], slots)
+    got = jr.fold_in(torch.from_numpy(ck[:, None, :].view(np.int32)), slots)
+    assert got.dtype == torch.int32 and got.shape == (5, 5, 2)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+    np.testing.assert_array_equal(
+        jr.uniform_stack(got, (7, 11)).numpy(),
+        jr.uniform_stack(want.reshape(-1, 2), (7, 11)).numpy().reshape(
+            5, 5, 7, 11).reshape(25, 7, 11))

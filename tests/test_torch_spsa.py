@@ -102,3 +102,55 @@ def test_batched_engine_spsa_init_evals_and_deltas():
     x, n = eng.run_round(np.zeros(spec.n_params), [2, 0, 1])
     assert n.tolist() == [8, 2, 5]
     np.testing.assert_array_equal(x[1], 0.0)
+
+
+def _spsa_quadratic(C=4, dim=3, M=8):
+    from repro.optim.batched_spsa import make_deltas
+    centers = (np.linspace(-1, 1, dim)[None, :]
+               * (np.arange(C) + 1)[:, None]).astype(np.float32)
+    deltas = make_deltas([11 + c for c in range(C)], M, dim).astype(
+        np.float32)
+    tc = torch.from_numpy(centers)
+    tf = lambda xs: torch.sum((xs - tc[:, None]) ** 2, dim=-1)  # noqa: E731
+    return centers, deltas, tf, np.full((C, dim), 0.5, np.float32)
+
+
+def test_batched_spsa_active_mask_matches_jax():
+    """``active=``: an inactive client keeps its start and spends 0
+    evaluations, as the JAX package's ``batched_spsa(active=...)``."""
+    import jax.numpy as jnp
+    from repro.optim.batched_spsa import batched_spsa as jax_spsa
+    from repro_torch.optim.batched_spsa import batched_spsa
+    centers, deltas, tf, x0 = _spsa_quadratic()
+    jc = jnp.asarray(centers)
+    iters = np.array([6, 2, 8, 4], np.int32)
+    active = np.array([True, False, True, False])
+    jx, jfv, jn = jax_spsa(lambda xs: jnp.sum((xs - jc) ** 2, -1),
+                           jnp.asarray(x0), jnp.asarray(iters),
+                           jnp.asarray(deltas), active=jnp.asarray(active))
+    tx, tfv, tn = batched_spsa(tf, torch.from_numpy(x0), iters,
+                               torch.from_numpy(deltas),
+                               active=torch.from_numpy(active))
+    np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
+    assert (tn.numpy()[~active] == 0).all()
+    np.testing.assert_allclose(tx.numpy(), np.asarray(jx), atol=1e-5,
+                               rtol=0)
+    np.testing.assert_array_equal(tx.numpy()[~active], x0[~active])
+
+
+@pytest.mark.parametrize("n_steps", [8, 6])
+def test_batched_spsa_static_trip_count_is_bitwise(n_steps):
+    """A static trip count from ``max(iters)`` up to the deltas' depth
+    gives the bits of the host-read loop."""
+    from repro_torch.optim.batched_spsa import batched_spsa
+    _, deltas, tf, x0 = _spsa_quadratic()
+    iters = np.array([6, 2, 0, 4], np.int32)
+    want = batched_spsa(tf, torch.from_numpy(x0), iters,
+                        torch.from_numpy(deltas))
+    got = batched_spsa(tf, torch.from_numpy(x0), iters,
+                       torch.from_numpy(deltas), n_steps=n_steps)
+    for w, g in zip(want, got):
+        assert torch.equal(w, g)
+    with pytest.raises(ValueError, match="n_steps"):
+        batched_spsa(tf, torch.from_numpy(x0), iters,
+                     torch.from_numpy(deltas), n_steps=9)

@@ -47,7 +47,8 @@ step smoke python3 chip_smoke.py
 step pytest env PYTHONPATH=src python3 -m pytest -q -m cuda \
     -p no:cacheprovider tests/test_torch_cuda.py \
     tests/test_torch_cuda_tape.py tests/test_torch_cuda_llm.py \
-    tests/test_torch_cuda_qlora.py tests/test_torch_cuda_sequential.py
+    tests/test_torch_cuda_qlora.py tests/test_torch_cuda_sequential.py \
+    tests/test_torch_cuda_shots.py tests/test_torch_cuda_fused.py
 step profile python3 chip_smoke.py --profile
 step variants python3 tools/attn_variants.py
 step pairs probe
