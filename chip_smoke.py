@@ -5,6 +5,8 @@
     python3 chip_smoke.py --profile    # device busy/idle of the main paths
     python3 chip_smoke.py --attn       # attention kernels only: checks,
                                        # times and the lone-CTA probe
+    python3 chip_smoke.py --sharded    # phase 11 only, on card-only
+                                       # one-shard references
 
 Run from the root of a checkout, on a machine with a CUDA card and
 ``nvcc``.  It imports nothing of JAX and nothing of the JAX package
@@ -93,12 +95,28 @@ failure, and the script then exits non-zero with no result line.
    the card.  The fused path's ``statevector_tape`` launches are one
    eager round before the capture plus the graph's nodes times its
    replays.
-10. Prints the phases' wall times, the card line, one
+10. The clients axis (``n_devices=2``, printed as phase 11, after phase
+   10), with the two shards sharing the card (``share_devices=True``;
+   without it, on one card, ``n_devices=2`` must raise): the QFL
+   quickstart's host loop (5 clients, c_pad 6, one inert), QFL on
+   ``aersim`` (Nelder–Mead, 3 rounds), the fused QFL quickstart (no host
+   synchronisation before its read-back), each bitwise its one-shard
+   run of phases 3 and 10, and the fused one the sharded host loop;
+   population mode (4 of 5 clients, dropout 0.25, ``aersim``, 5 rounds)
+   held to ``run_host_reference``; the LLM-QFL quickstart's Step 1
+   within 1e-4 (F1 0.05) of one device padded to 6 (``lora_matmul``
+   plans a small grid's split from all the launch's clients, so shards
+   split it otherwise) and of phase 4's.  Each shard replays its own
+   local phase, so the launches are
+   the one-shard formulas with the local phase counted once a shard.
+   Where two or more cards are visible the same runs go across cards.
+11. Prints the phases' wall times, the card line, one
    ``{"kernels": [...]}`` line (``launches_sequential``: the launches of
    phase 7's sequential LLM-QFL Step 1, and for ``statevector_tape`` of
    its batched SPSA QFL run; ``launches_aersim``, ``launches_gpt2``,
-   ``launches_deepseek``: phase 9's; ``launches_fused*``: phase 10's),
-   and last ``{"ok": true, "device": {...}}``.
+   ``launches_deepseek``: phase 9's; ``launches_fused*``: phase 10's;
+   ``launches_sharded*``: phase 11's, on one card), and last
+   ``{"ok": true, "device": {...}}``.
 
 Each path is driven with every launch counter set to 0 just before it
 and read just after, and the counts are held to the formulas stated in
@@ -990,14 +1008,15 @@ def kl_phase(gen):
 # ---------------------------------------------------------------------------
 def run_main_path(device, cfg, method="qfl", llm_outputs=None,
                   engine="batched", optimizer="nelder-mead",
-                  backend="exact", **extra):
+                  backend="exact", share_devices=False, **extra):
     """One federated run; returns (task, result, orchestrator)."""
     from repro_torch.core.orchestrator import Orchestrator, RunConfig
     from repro_torch.data.tasks import build_task
     task = build_task("genomic", **cfg["task"])
     rc = RunConfig(method=method, optimizer=optimizer, engine=engine,
                    backend=backend, **dict(cfg["run"], **extra))
-    orch = Orchestrator(task, rc, device=device, llm_outputs=llm_outputs)
+    orch = Orchestrator(task, rc, device=device, llm_outputs=llm_outputs,
+                        share_devices=share_devices)
     res = orch.run()
     return task, res, orch
 
@@ -2138,7 +2157,7 @@ def fused_phase(qfl: dict, llm: dict) -> dict:
         out[f"aersim {opt}"] = d = fused_drive(
             f"qfl aersim {opt}", FUSED_AERSIM, host, backend="aersim",
             optimizer=opt)
-        d["host_s"] = host_s
+        d.update(host_s=host_s, host=host)
     early = dict(task=QUICKSTART["task"], run=dict(epsilon=10.0))
     _, host, _ = run_main_path("cuda", early)
     check(host.terminated_early and len(host.rounds) == 2,
@@ -2190,6 +2209,248 @@ def fused_phase(qfl: dict, llm: dict) -> dict:
     print(f"phase 10 (fused round loop) in {wall:.1f} s")
     out["wall_s"] = wall
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the clients axis (n_devices > 1)
+# ---------------------------------------------------------------------------
+SHARDS = 2
+# the quickstart's 5 clients over 2 shards: c_pad 6, one inert client
+SHARD_PAD = 6
+SHARD_POP = dict(c_round=4, dropout=0.25, n_rounds=5, seed=0)
+
+
+def same_runs(a, b, what: str, reports: bool = True):
+    """Two RunResults bit for bit: every series, θ_g, Step 1.  With
+    ``reports=False`` the clients' reported losses are held within
+    ``FUSED_LOSS_TOL`` instead: a fused round reports every client in
+    one masked evaluation over the padded rows, the host loop one
+    evaluation a client (phase 10 holds them so)."""
+    import numpy as np
+    check(len(a.rounds) == len(b.rounds)
+          and a.terminated_early == b.terminated_early,
+          f"{what}: {len(a.rounds)} against {len(b.rounds)} rounds")
+    if not reports:
+        gap = float(np.max(np.abs(np.subtract(a.series("client_losses"),
+                                              b.series("client_losses")))))
+        check(gap <= FUSED_LOSS_TOL, f"{what}: client losses {gap} apart")
+    for attr in ("maxiters", "cum_evals", "selected", "server_loss",
+                 "client_losses", "server_val_acc", "server_test_acc",
+                 "comm_time_s", "ratios"):
+        if attr == "client_losses" and not reports:
+            continue
+        check(a.series(attr) == b.series(attr),
+              f"{what}: {attr} differs: {a.series(attr)} against "
+              f"{b.series(attr)}")
+    check(np.array_equal(a.theta_g, b.theta_g)
+          and a.llm_losses == b.llm_losses and a.llm_f1 == b.llm_f1,
+          f"{what}: θ_g or Step 1 differs, max |Δ θ_g| "
+          f"{float(np.max(np.abs(a.theta_g - b.theta_g)))}")
+
+
+def host_replays(res, shards: int, clients: int) -> int:
+    """Tape replays of a Nelder–Mead QFL host-loop run whose budgets all
+    stay at ``maxiter0``: a round is each shard's init simplex and one
+    call an iteration, one report a client and 4 server evaluations."""
+    per_shard = 1 + res.rounds[0].maxiters[0]
+    return len(res.rounds) * (shards * per_shard + clients + 4)
+
+
+def sharded_refs():
+    """Phase 11's one-shard references from card runs alone, for
+    ``--sharded``: phase 3's QFL quickstart and its launches, phase 4's
+    Step 1, phase 10's fused QFL quickstart and its aersim host run."""
+    from repro_torch.core import fused_rounds
+    zero_counters()
+    _, gpu, orch = run_main_path("cuda", QUICKSTART)
+    qfl = dict(gpu=gpu, counts=read_counters(), round_s=orch.round_seconds)
+    step1 = dict(LLM_QUICKSTART, run=dict(LLM_QUICKSTART["run"], n_rounds=1))
+    _, lgpu, lorch = run_main_path("cuda", step1, method="llm-qfl")
+    llm = dict(gpu=lgpu, llm_outputs=lorch.llm_outputs)
+    fused_rounds._FUSED_CACHE.clear()
+    _, _, forch = run_main_path("cuda", QUICKSTART, rounds="fused")
+    _, host, _ = run_main_path("cuda", FUSED_AERSIM, backend="aersim")
+    return qfl, llm, {"qfl": dict(orch=forch),
+                      "aersim nelder-mead": dict(host=host)}
+
+
+def sharded_phase(qfl: dict, llm: dict, fused: dict) -> dict:
+    """The clients axis on the card: each run over 2 shards held bit for
+    bit to its one-shard run, its launches to the one-shard formulas
+    with each shard's local phase counted, the fused run with no host
+    synchronisation before its read-back.  The shards share the card
+    (``share_devices=True``); where two or more cards are visible the
+    runs go across the cards too."""
+    import numpy as np
+    import torch
+    from repro_torch.core import fused_rounds
+    from repro_torch.core.batched_llm import BatchedLLMEngine
+    from repro_torch.core.llm_client import task_llm_config
+    from repro_torch.data.tasks import build_task
+    from repro_torch.quantum import backends, qnn
+    from repro_torch import random as jr
+    t_phase = time.perf_counter()
+    visible = torch.cuda.device_count()
+    C = QUICKSTART["task"]["n_clients"]
+    if visible < 2:
+        try:
+            run_main_path("cuda", QUICKSTART, n_devices=SHARDS)
+        except ValueError as e:
+            check(f"{visible} is visible" in str(e), f"phase 11: {e}")
+        else:
+            raise AssertionError("n_devices=2 on one card ran without "
+                                 "share_devices=True")
+        modes = {"one card": True}
+        print(f"phase 11: {visible} card visible, so the runs across cards "
+              f"are skipped; n_devices={SHARDS} without share_devices "
+              f"raises ValueError, and the shards share the card")
+    else:
+        modes = {"one card": True, f"{SHARDS} cards": False}
+    out = {}
+    for mode, share in modes.items():
+        kw = dict(n_devices=SHARDS, share_devices=share)
+        got = out[mode] = {}
+
+        # the QFL quickstart's host loop, 10 rounds, against phase 3's
+        zero_counters()
+        t0 = time.perf_counter()
+        _, res, orch = run_main_path("cuda", QUICKSTART, **kw)
+        wall = time.perf_counter() - t0
+        n = read_counters()
+        rounds = (float(np.median(orch.round_seconds)),
+                  float(np.median(qfl["round_s"])))
+        check_tape_launches(n, f"sharded qfl ({mode})")
+        want = host_replays(res, SHARDS, C)
+        check(n["replays"] == want and host_replays(qfl["gpu"], 1, C)
+              == qfl["counts"]["replays"],
+              f"sharded qfl ({mode}): {n['replays']} tape replays, the "
+              f"formula gives {want}")
+        same_runs(res, qfl["gpu"], f"sharded qfl quickstart ({mode}) "
+                  "against phase 3")
+        got["qfl"] = dict(wall_s=wall, res=res, round_s=rounds, **n)
+
+        # QFL on aersim, Nelder–Mead, 3 rounds, against phase 10's host run
+        zero_counters()
+        _, res_a, _ = run_main_path("cuda", FUSED_AERSIM, backend="aersim",
+                                    **kw)
+        n = read_counters()
+        check_tape_launches(n, f"sharded aersim ({mode})")
+        check(n["replays"] == host_replays(res_a, SHARDS, C),
+              f"sharded aersim ({mode}): {n['replays']} tape replays")
+        same_runs(res_a, fused["aersim nelder-mead"]["host"],
+                  f"sharded qfl aersim ({mode}) against one shard")
+        got["aersim"] = n
+
+        # the fused QFL quickstart, against the sharded host loop and
+        # phase 10's one-shard fused run
+        fused_rounds._FUSED_CACHE.clear()
+        zero_counters()
+        with strict_fused():
+            _, res_f, orch = run_main_path("cuda", QUICKSTART,
+                                           rounds="fused", **kw)
+        driver = orch.fused_driver
+        n = fused_launches(read_counters(), driver, f"sharded ({mode})")
+        graphs = len(driver.program.graphs)
+        want = SHARDS * (2 + driver.max_iter) + 4
+        check(n["graph_nodes"] == want,
+              f"sharded fused ({mode}): {n['graph_nodes']} tape replays a "
+              f"round's graphs, the formula gives {want}")
+        same_runs(res_f, res, f"sharded fused ({mode}) against the sharded "
+                  "host loop", reports=False)
+        same_output(orch.fused_output, fused["qfl"]["orch"].fused_output,
+                    f"sharded fused ({mode}) against phase 10")
+        with strict_fused():
+            same_output(orch.fused_output, driver.run(driver.theta0),
+                        f"sharded fused ({mode})")
+        got["fused"] = dict(run_s=orch.fused_seconds, graphs=graphs, **n)
+
+        # population mode on aersim against run_host_reference
+        task = build_task("genomic", **QUICKSTART["task"])
+        spec = qnn.QNNSpec("vqc", n_qubits=4, n_classes=task.n_classes)
+        fused_rounds._FUSED_CACHE.clear()
+        zero_counters()
+        driver = fused_rounds.FusedRoundDriver(
+            task, spec, backends.get("aersim"), maxiter0=10,
+            early_stop=False, device="cuda", **kw, **SHARD_POP)
+        theta0 = spec.init_params(jr.split(jr.PRNGKey(0))[1]).numpy()
+        with strict_fused():
+            pop = driver.run(theta0)
+        n = fused_launches(read_counters(), driver,
+                           f"sharded population ({mode})")
+        ref = driver.run_host_reference(theta0)
+        for f in ("active", "stop", "cohort", "dropped", "selected",
+                  "n_evals", "budgets", "cum_evals", "budgets_final",
+                  "cum_evals_final"):
+            check(np.array_equal(getattr(pop, f), getattr(ref, f)),
+                  f"sharded population ({mode}): {f} differs from "
+                  "run_host_reference")
+        check(pop.dropped.any() and np.array_equal(np.isnan(pop.losses),
+                                                   np.isnan(ref.losses)),
+              f"sharded population ({mode}): the dropout or the reports")
+        pop_gap = (float(np.nanmax(np.abs(pop.losses - ref.losses))),
+                   float(np.max(np.abs(pop.theta_g - ref.theta_g))))
+        check(pop_gap[0] <= FUSED_LOSS_TOL and pop_gap[1] <= FUSED_THETA_TOL,
+              f"sharded population ({mode}) against run_host_reference: "
+              f"|Δ loss| {pop_gap[0]}, |Δ θ_g| {pop_gap[1]}")
+        got["population"] = dict(gap=pop_gap, **n)
+
+        # the LLM-QFL quickstart's Step 1: 2 shards against one device
+        # padded to 6, and against phase 4's unpadded Step 1
+        step1 = dict(LLM_QUICKSTART, run=dict(LLM_QUICKSTART["run"],
+                                              n_rounds=1))
+        zero_counters()
+        task, res_l, orch = run_main_path("cuda", step1, method="llm-qfl",
+                                          **kw)
+        n = read_counters()
+        want = llm_launch_formula(LLM_QUICKSTART["run"]["llm_steps"], 2,
+                                  clients=SHARDS)
+        for name, count in want.items():
+            check(n[name] == count, f"sharded Step 1 ({mode}): {n[name]} "
+                  f"{name} launches, the formula gives {count}")
+        # against one device padded to 6, on the same base: the same
+        # clients, but lora_matmul plans its split reduction from the
+        # whole launch's grid (C x tiles), so a shard of 3 clients splits
+        # tiny w_in's dx 4 ways where 6 clients split it 2 ways (ROADMAP
+        # §3): held within the stage tolerance, the gap printed
+        cfg = task_llm_config("tiny-llm", task.vocab_size, task.llm_seq_len)
+        pad = BatchedLLMEngine(task, cfg, orch.llm_engine.base, seed=0,
+                               steps=LLM_QUICKSTART["run"]["llm_steps"],
+                               pad_to=SHARD_PAD).run()
+        teachers = orch.llm_outputs.teacher_probs
+        pad_gap = stage_gaps(res_l.llm_losses, res_l.llm_f1, teachers, pad,
+                             task)
+        gap = (float(np.max(np.abs(np.subtract(res_l.llm_losses,
+                                               llm["gpu"].llm_losses)))),
+               float(np.max(np.abs(np.subtract(res_l.llm_f1,
+                                               llm["gpu"].llm_f1)))),
+               max(float(np.max(np.abs(a - b))) for a, b in zip(
+                   teachers, llm["llm_outputs"].teacher_probs)))
+        for what, g in ((f"one device padded to {SHARD_PAD}", pad_gap),
+                        ("phase 4", gap)):
+            check(g[0] <= 1e-4 and g[1] <= 0.05 and g[2] <= 1e-4,
+                  f"sharded Step 1 ({mode}) against {what}: |Δ L_LLM| "
+                  f"{g[0]}, |Δ F1| {g[1]}, |Δ teacher| {g[2]}")
+        got["llm"] = dict(gap=gap, pad_gap=pad_gap,
+                          finetune_s=res_l.llm_finetune_time_s,
+                          **{k: n[k] for k in want})
+        print(f"phase 11 ({mode}, {SHARDS} shards): qfl quickstart host "
+              f"{got['qfl']['wall_s']:.2f} s, a round {rounds[0]:.4f} s "
+              f"(median; one shard {rounds[1]:.4f} s), "
+              f"{got['qfl']['replays']} replays; aersim "
+              f"{got['aersim']['replays']} replays; fused run "
+              f"{got['fused']['run_s']:.4f} s, {got['fused']['graphs']} "
+              f"graph(s), {got['fused']['graph_nodes']} replays a round; "
+              f"population |Δ loss| {pop_gap[0]:.3g}; every QFL run "
+              f"bitwise its one-shard run, no sync before a fused "
+              f"read-back; Step 1 {res_l.llm_finetune_time_s:.2f} s, "
+              f"|Δ L_LLM|, |Δ F1|, |Δ teacher| against one device padded "
+              f"to {SHARD_PAD} {pad_gap[0]:.3g}, {pad_gap[1]:.3g}, "
+              f"{pad_gap[2]:.3g}, against phase 4 {gap[0]:.3g}, "
+              f"{gap[1]:.3g}, {gap[2]:.3g}")
+    fused_rounds._FUSED_CACHE.clear()
+    wall = time.perf_counter() - t_phase
+    print(f"phase 11 (the clients axis) in {wall:.1f} s")
+    return dict(modes=out, wall_s=wall)
 
 
 # profiler ranges the smoke opens itself: on the device they span a
@@ -2463,8 +2724,12 @@ def main(argv) -> int:
         build_kernels()
         attn_phase(torch.Generator(device="cuda").manual_seed(1))
         return 0
-    check(not argv, f"unknown arguments {argv}; use --profile, --attn or "
-          "none")
+    if argv == ["--sharded"]:
+        build_kernels()
+        sharded_phase(*sharded_refs())
+        return 0
+    check(not argv, f"unknown arguments {argv}; use --profile, --attn, "
+          "--sharded or none")
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
     builds = build_kernels()
@@ -2488,6 +2753,7 @@ def main(argv) -> int:
     size_rule = size_rule_phase()
     llm = llm_phase()
     fused = fused_phase(qfl, llm)
+    sharded = sharded_phase(qfl, llm, fused)
     seq = sequential_phase()
     nwq = wide_phase()
     llm_wide = llm_wide_phase()
@@ -2509,6 +2775,7 @@ def main(argv) -> int:
           f"{min(llm_wide['step_s']):.3f} s")
 
     rule, tquick = shapes[0], tape_shapes[0]
+    sh = sharded["modes"]["one card"]
     n, nw, ns = llm["counts"], llm_wide["counts"], seq["seq_launches"]
     nq, nqw = ql["counts"], ql_wide["counts"]
     n0 = qfl["counts"]
@@ -2547,6 +2814,11 @@ def main(argv) -> int:
              fused_graph_nodes={k: fused[k]["graph_nodes"] for k in (
                  "qfl", "llm-qfl", "aersim nelder-mead", "aersim spsa",
                  "early")},
+             launches_sharded=sh["qfl"]["statevector_tape"],
+             launches_sharded_aersim=sh["aersim"]["statevector_tape"],
+             launches_sharded_fused=sh["fused"]["statevector_tape"],
+             launches_sharded_population=sh["population"][
+                 "statevector_tape"],
              bitwise_share_vs_gate_chain=tape_share,
              size_rule=f"n_qubits <= {svt.MAX_QUBITS}; above, run_tape "
                        "launches statevector_gate once a gate",
@@ -2559,6 +2831,7 @@ def main(argv) -> int:
              launches_sequential=ns["lora_matmul"],
              sequential=headline(lm_shapes, "seq-w_in"),
              launches_sequential_wide=seq_wide["counts"]["lora_matmul"],
+             launches_sharded=sh["llm"]["lora_matmul"],
              launches_gpt2=gpt2["counts"]["lora_matmul"],
              gpt2=headline(lm_shapes, "gpt2-w_in"),
              launches_deepseek=deepseek["counts"]["lora_matmul"],
@@ -2574,6 +2847,7 @@ def main(argv) -> int:
              launches_sequential=ns["flash_attention"],
              sequential=headline(fa_shapes, "seq"),
              launches_sequential_wide=seq_wide["counts"]["flash_attention"],
+             launches_sharded=sh["llm"]["flash_attention"],
              launches_gpt2=gpt2["counts"]["flash_attention"],
              gpt2=headline(fa_shapes, "gpt2"),
              launches_deepseek=deepseek["counts"]["flash_attention"],
@@ -2588,6 +2862,7 @@ def main(argv) -> int:
              sequential=headline(fa_bwd_shapes, "seq"),
              launches_sequential_wide=seq_wide["counts"][
                  "flash_attention_bwd"],
+             launches_sharded=sh["llm"]["flash_attention_bwd"],
              launches_gpt2=gpt2["counts"]["flash_attention_bwd"],
              gpt2=headline(fa_bwd_shapes, "gpt2"),
              launches_deepseek=deepseek["counts"]["flash_attention_bwd"],
@@ -2634,6 +2909,12 @@ def main(argv) -> int:
                           "wall_s", "run_s", "loss_gap", "theta_gap")
                           if f in v} if isinstance(v, dict) else v)
                           for k, v in fused.items()},
+                      "sharded": dict(wall_s=sharded["wall_s"], **{
+                          mode: {k: {f: v[f] for f in (
+                              "wall_s", "round_s", "run_s", "gap",
+                              "pad_gap", "finetune_s", "graphs") if f in v}
+                                 for k, v in m.items()}
+                          for mode, m in sharded["modes"].items()}),
                       "cli": {k: {f: v[f] for f in (
                           "wall_s", "cpu_wall_s", "finetune_s", "margin",
                           "near", "loss_gap", "theta_gap")}

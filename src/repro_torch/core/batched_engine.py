@@ -47,6 +47,31 @@ reads the raw probabilities.  The keys are derived on the host from host
 integers and copied to the device without a synchronisation; or, in the
 fused round loop, every slot's key of the round is already on the device
 (``eval_slots`` names the columns) and each call takes a slice of them.
+
+Clients axis (``n_devices > 1``)
+--------------------------------
+The engine cuts its ``(C, …)`` stacks into ``n_devices`` shards
+(``distributed/sharding.py``) and runs the local phase of each shard on
+its own device, one host thread issuing them in turn; the outputs come
+back to the host in client order.  That is safe because the round keeps
+the JAX engine's two invariants:
+
+  1. **Clients are independent until aggregation.**  No op of the local
+     phase mixes clients; every op is elementwise or batched along the
+     client axis, so a shard computes its clients' bits on its own.  A
+     shard bounds its loop by its own largest budget (read from the
+     host's budgets, no device read): iterations past a budget are
+     masked, so the trip count changes no bit.
+  2. **Keys follow client position.**  Client ``c``'s round key is
+     ``fold_in(fold_in(base, round), c)`` wherever it lands; real clients
+     keep ids ``0..C-1`` and padding clients take ``C..c_pad-1`` after
+     them.
+
+A client count that does not divide the shards is padded
+(``sharding.pad_client_count``) with inert clients: all-zero masks, zero
+budgets, uniform teacher rows and SPSA delta rows of ones (valid signs,
+as ``1/δ`` is taken every masked iteration); they are sliced off the
+outputs.
 """
 from __future__ import annotations
 
@@ -56,6 +81,7 @@ import numpy as np
 import torch
 
 from repro_torch import random as jr
+from repro_torch.distributed import sharding as shd
 from repro_torch.optim.batched_nm import batched_nm, best_point
 from repro_torch.optim.batched_spsa import batched_spsa, make_deltas
 from repro_torch.quantum import tape as tape_mod
@@ -170,37 +196,51 @@ class BatchedRoundEngine:
     ``seeds`` are the clients' SPSA seeds (``make_deltas``); ``seed`` is
     the root of the shot-noise key chain.  The optimizer defaults to
     Nelder–Mead, the port's first (the JAX engine's default is SPSA; the
-    orchestrator always names one).
+    orchestrator always names one).  ``n_devices > 1`` cuts the client
+    axis into that many shards, placed by ``sharding.client_devices(
+    n_devices, device, share_devices=share_devices)``.
     """
 
     def __init__(self, task, spec, backend, *, lam: float, mu: float,
                  use_llm: bool, teacher_probs: Optional[List] = None,
                  seeds: Sequence[int] = (), max_iter: int = 100,
                  optimizer: str = "nelder-mead", seed: int = 0,
-                 device="cuda"):
+                 n_devices: Optional[int] = None, device="cuda",
+                 share_devices: bool = False):
         C = task.n_clients
         n_cls = task.n_classes
         b_max = max(cl.n for cl in task.clients)
-        qX = np.zeros((C, b_max, spec.n_qubits), np.float32)
-        qy = np.zeros((C, b_max), np.int64)
-        mask = np.zeros((C, b_max), np.float32)
-        teacher = np.full((C, b_max, n_cls), 1.0 / n_cls, np.float32)
+        if n_devices is not None and int(n_devices) > 1:
+            self.devices = shd.client_devices(int(n_devices), device,
+                                              share_devices=share_devices)
+        else:
+            self.devices = [torch.device(device)]
+        c_pad = shd.pad_client_count(C, len(self.devices))
+        qX = np.zeros((c_pad, b_max, spec.n_qubits), np.float32)
+        qy = np.zeros((c_pad, b_max), np.int64)
+        mask = np.zeros((c_pad, b_max), np.float32)
+        teacher = np.full((c_pad, b_max, n_cls), 1.0 / n_cls, np.float32)
         for i, cl in enumerate(task.clients):
             qX[i, :cl.n] = cl.qX
             qy[i, :cl.n] = cl.qy
             mask[i, :cl.n] = 1.0
             if teacher_probs is not None and teacher_probs[i] is not None:
                 teacher[i, :cl.n] = _numpy(teacher_probs[i])
-        self.device = torch.device(device)
-        to = lambda a: torch.from_numpy(a).to(self.device)   # noqa: E731
-        self._qX, self._qy = to(qX), to(qy)
-        self._mask, self._teacher = to(mask), to(teacher)
+        self.device = self.devices[0]
+        stacks = dict(qX=qX, qy=qy, mask=mask, teacher=teacher)
         self._deltas = None            # NM is deterministic — no draws
         if optimizer == "spsa":
-            # float32 signs on the device; the port has no client mesh, so
-            # no padding rows (the JAX engine pads its mesh rows with ones)
-            self._deltas = to(make_deltas(seeds, max_iter, spec.n_params)
-                              .astype(np.float32))
+            # float32 signs on the device; padding clients never update
+            # (zero budgets) but their rows are read every masked
+            # iteration: valid signs, not zeros (0 ⇒ 1/δ = inf)
+            deltas = np.ones((c_pad, max_iter, spec.n_params), np.float64)
+            deltas[:C] = make_deltas(seeds, max_iter, spec.n_params)
+            self._deltas = torch.from_numpy(deltas.astype(np.float32)).to(
+                self.device)
+            stacks["deltas"] = self._deltas
+        # one dict of stacks a shard, on its device
+        self._shards = shd.put_client_stacks(self.devices, stacks, c_pad)
+        self._bounds = shd.shard_bounds(c_pad, len(self.devices))
         # sequential-path evals spent before the metered run: spsa_init
         # does 1, nm_init does n+1 (the initial simplex)
         self.init_evals = 1 if optimizer == "spsa" else spec.n_params + 1
@@ -208,6 +248,8 @@ class BatchedRoundEngine:
         # per run_round, fold_in(slot) a candidate in the optimizers
         self._base_key = jr.PRNGKey(seed)
         self._n_clients = C
+        self._c_pad = c_pad
+        self._max_iter = int(max_iter)
         self._local = build_local_phase(spec, backend, lam=lam, mu=mu,
                                         use_llm=use_llm, optimizer=optimizer,
                                         max_iter=max_iter)
@@ -220,16 +262,27 @@ class BatchedRoundEngine:
         ``round`` stage of the key-derivation contract.  Returns
         (thetas (C, P) float64, n_evals (C,) int64): the trained
         per-client parameters and the sequential-equivalent evaluation
-        counts (``init_evals`` + the branch-dependent spend).
+        counts (``init_evals`` + the branch-dependent spend).  Every
+        shard's phase is issued before any is read back, so shards on
+        different cards overlap; padding rows (zero budgets, key ids
+        ``C..c_pad-1``) are sliced off.
         """
-        theta_g = torch.as_tensor(_numpy(theta_g), dtype=torch.float32,
-                                  device=self.device)
-        iters = torch.as_tensor(np.asarray(maxiters, np.int32),
-                                device=self.device)
+        theta = np.asarray(_numpy(theta_g), np.float32)
+        iters = np.zeros((self._c_pad,), np.int32)
+        iters[:self._n_clients] = np.asarray(maxiters, np.int32)
         ckeys = jr.fold_in(jr.fold_in(self._base_key, round_idx),
-                           np.arange(self._n_clients))
-        x, n_evals = self._local(self._qX, self._qy, self._mask,
-                                 self._teacher, theta_g, iters, ckeys,
-                                 deltas=self._deltas)
-        return (_numpy(x).astype(np.float64),
-                _numpy(n_evals).astype(np.int64))
+                           np.arange(self._c_pad))
+        outs = []
+        for dev, st, (lo, hi) in zip(self.devices, self._shards,
+                                     self._bounds):
+            with shd.on_device(dev):
+                outs.append(self._local(
+                    st["qX"], st["qy"], st["mask"], st["teacher"],
+                    torch.from_numpy(theta).to(dev),
+                    torch.from_numpy(iters[lo:hi]).to(dev), ckeys[lo:hi],
+                    deltas=st.get("deltas"),
+                    n_steps=min(int(iters[lo:hi].max()), self._max_iter)))
+        C = self._n_clients
+        x = np.concatenate([_numpy(x) for x, _ in outs])[:C]
+        n_evals = np.concatenate([_numpy(n) for _, n in outs])[:C]
+        return x.astype(np.float64), n_evals.astype(np.int64)

@@ -21,6 +21,20 @@ zero), with client ids after every real client.
 Key contract: minibatch draws follow ``llm_client.llm_key(root, client,
 step)`` with ``step`` the global step counter, which survives a refresh
 (a second ``run()``), and adapter inits draw at ``LLM_INIT_STEP``.
+
+Clients axis (``n_devices > 1``): the stacks, adapters and AdamW states
+are cut into shards along the client axis (padded with inert clients to
+a multiple of the shards, ``sharding.pad_client_count``), the frozen
+base is placed whole on every shard's device, and each train step and
+evaluation runs shard by shard.  The one cross-client step, the FedAvg
+teacher ``a_g``, runs on the lead device over the gathered ``(c_pad, …)``
+stack in the one-device formula, and ``a_g`` goes back to every shard
+for the blend.  A sharded stage is bitwise a one-device stage with
+``pad_to=c_pad`` wherever a client's step does not depend on the
+clients beside it: on the CPU, and on the card unless a kernel splits a
+small grid's reduction by the launch's client count (``lora_matmul``,
+and ``int4_matmul`` on a QLoRA base, plan the split from the whole
+grid).
 """
 from __future__ import annotations
 
@@ -33,6 +47,7 @@ import torch
 from repro_torch import random as jr
 from repro_torch.core import llm_client as llmc
 from repro_torch.data.tokenizer import PAD
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
 from repro_torch.peft import lora as lora_mod
@@ -49,20 +64,25 @@ class LLMRoundResult:
 
 class BatchedLLMEngine:
     """Stacks all clients' shards and adapters once; runs the stage on
-    the device of the base."""
+    the device of the base, or over ``n_devices`` shards placed by
+    ``sharding.client_devices(n_devices, base device,
+    share_devices=share_devices)``, the base's device the lead."""
 
     def __init__(self, task, cfg, base_params, *, seed: int,
                  lr: float = 3e-3, steps: int = 30, batch_size: int = 16,
                  rho: float = 0.25, n_devices: Optional[int] = None,
-                 pad_to: Optional[int] = None):
-        if n_devices is not None and int(n_devices) > 1:
-            raise NotImplementedError(
-                "n_devices > 1 is not ported yet (ROADMAP §1, 'the "
-                "multi-GPU clients axis')")
+                 pad_to: Optional[int] = None, share_devices: bool = False):
         C = task.n_clients
         n_max = max(cl.n for cl in task.clients)
         L = task.llm_seq_len
         c_pad = max(C, int(pad_to)) if pad_to else C
+        lead = base_params["embed"].device
+        if n_devices is not None and int(n_devices) > 1:
+            self.devices = shd.client_devices(int(n_devices), lead,
+                                              share_devices=share_devices)
+        else:
+            self.devices = [lead]
+        c_pad = shd.pad_client_count(c_pad, len(self.devices))
         tokens = np.full((c_pad, n_max, L), PAD, np.int64)
         labels = np.full((c_pad, n_max, L), -1, np.int64)
         rowmask = np.zeros((c_pad, n_max), np.float32)
@@ -74,68 +94,112 @@ class BatchedLLMEngine:
             rowmask[i, :cl.n] = 1.0
             nvalid[i] = cl.n
             weights[i] = task.weights[i]
-        self.device = base_params["embed"].device
-        to = lambda a: torch.from_numpy(a).to(self.device)  # noqa: E731
-        self._tokens, self._labels = to(tokens), to(labels)
-        self._rowmask, self._weights = to(rowmask), to(weights)
+        self.device = self.devices[0]
+        self._stacks = shd.put_client_stacks(
+            self.devices, dict(tokens=tokens, labels=labels,
+                               rowmask=rowmask), c_pad)
+        self._bounds = shd.shard_bounds(c_pad, len(self.devices))
+        self._weights = torch.from_numpy(weights).to(self.device)
         self._nvalid = nvalid
 
         root = llmc.llm_root(seed)
         self._ckeys = [jr.fold_in(root, c) for c in range(c_pad)]
-        self._base = base_params
-        self.adapters = M.stack_clients([
+        # the frozen base whole on every shard's device, never cut
+        self.base = base_params
+        self._bases = shd.put_replicated(self.devices, base_params)
+        self._c_pad = c_pad
+        adapters = M.stack_clients([
             M.init_adapters(cfg, llmc.llm_key(root, c, llmc.LLM_INIT_STEP),
                             base_params) for c in range(c_pad)])
-        self.opt_state = adamw.init(self.adapters, n_clients=c_pad)
+        self.adapters = adapters
+        self.opt_state = adamw.init(adapters, n_clients=c_pad)
         self.a_g = None
         self._cfg = cfg
         self._n_labels = task.n_classes
         self._n_clients = C
-        self._c_pad = c_pad
         self._steps = int(steps)
         self._batch_size = int(batch_size)
         self._rho = float(rho)
         self._step = M.make_train_step(cfg, lr=lr)
         self._n_steps = 0             # global step counter (key contract)
 
-    def _minibatch(self, step: int):
+    # the client-stacked state, cut into shards; read whole on the lead
+    @property
+    def adapters(self):
+        return shd.gather_clients(self._adapters)
+
+    @adapters.setter
+    def adapters(self, tree):
+        self._adapters = shd.put_client_tree(self.devices, tree, self._c_pad)
+
+    @property
+    def opt_state(self):
+        return shd.gather_clients(self._opt)
+
+    @opt_state.setter
+    def opt_state(self, state):
+        self._opt = shd.put_client_tree(self.devices, state, self._c_pad)
+
+    def _minibatch(self, step: int) -> list:
+        """Each shard's minibatch of global step ``step``, drawn by
+        global client id."""
         idx = np.stack([llmc.sample_minibatch_idx(
             jr.fold_in(self._ckeys[c], step), self._nvalid[c],
             self._batch_size) for c in range(self._c_pad)])
-        idx = torch.from_numpy(idx.astype(np.int64)).to(self.device)
-        rows = torch.arange(self._c_pad, device=self.device)[:, None]
-        return {"tokens": self._tokens[rows, idx],
-                "labels": self._labels[rows, idx]}
+        out = []
+        for dev, st, (lo, hi) in zip(self.devices, self._stacks,
+                                     self._bounds):
+            i = torch.from_numpy(idx[lo:hi].astype(np.int64)).to(dev)
+            rows = torch.arange(hi - lo, device=dev)[:, None]
+            out.append({"tokens": st["tokens"][rows, i],
+                        "labels": st["labels"][rows, i]})
+        return out
 
     def run(self) -> LLMRoundResult:
         """Fine-tune all clients, distill toward the FedAvg teacher, and
         evaluate.  Updates the stacked adapter and optimizer state and
         advances the global step counter, so a later refresh continues
-        from both."""
-        loss = None
+        from both.  Each step is issued shard by shard before the next,
+        and nothing is read back before the end."""
+        shards = range(len(self.devices))
+        loss = [None] * len(self.devices)
         for s in range(self._steps):
-            self.adapters, self.opt_state, metrics = self._step(
-                self._base, self.adapters, self.opt_state,
-                self._minibatch(self._n_steps + s))
-            loss = metrics["loss"]
+            batches = self._minibatch(self._n_steps + s)
+            for k in shards:
+                with shd.on_device(self.devices[k]):
+                    self._adapters[k], self._opt[k], metrics = self._step(
+                        self._bases[k], self._adapters[k], self._opt[k],
+                        batches[k])
+                loss[k] = metrics["loss"]
         self._n_steps += self._steps
-        # Alg. 1 line 8: FedAvg teacher + distillation blend
-        self.a_g = lora_mod.weighted_average_stacked(self.adapters,
-                                                     self._weights)
-        self.adapters = lora_mod.blend_adapters(self.adapters, self.a_g,
-                                                self._rho)
-        with torch.no_grad():
-            logits, gold = llmc.label_logits(
-                self._cfg, self._base, self.adapters, self._tokens,
-                self._labels, self._n_labels)
-            losses = llmc.masked_label_nll(logits, gold, self._rowmask)
-            f1s = llmc.masked_macro_f1(logits, gold, self._rowmask,
-                                       self._n_labels)
-            teacher = torch.softmax(logits, dim=-1)
+        # Alg. 1 line 8: the FedAvg teacher on the lead over every client,
+        # then the distillation blend on every shard
+        self.a_g = lora_mod.weighted_average_stacked(
+            shd.gather_clients(self._adapters), self._weights)
+        a_g = shd.put_replicated(self.devices, self.a_g)
+        evals = []
+        for k in shards:
+            st = self._stacks[k]
+            with shd.on_device(self.devices[k]), torch.no_grad():
+                self._adapters[k] = lora_mod.blend_adapters(
+                    self._adapters[k], a_g[k], self._rho)
+                logits, gold = llmc.label_logits(
+                    self._cfg, self._bases[k], self._adapters[k],
+                    st["tokens"], st["labels"], self._n_labels)
+                evals.append((
+                    llmc.masked_label_nll(logits, gold, st["rowmask"]),
+                    llmc.masked_macro_f1(logits, gold, st["rowmask"],
+                                         self._n_labels),
+                    torch.softmax(logits, dim=-1)))
         C = self._n_clients
-        host = lambda t, dt: t.detach().cpu().numpy().astype(dt)[:C]  # noqa
-        last = (host(loss, np.float64) if loss is not None
+
+        def host(parts, dt):
+            return np.concatenate([t.detach().cpu().numpy() for t in parts]
+                                  ).astype(dt)[:C]
+
+        last = (host(loss, np.float64) if self._steps
                 else np.full(C, np.nan))
+        losses, f1s, teacher = zip(*evals)
         return LLMRoundResult(losses=host(losses, np.float64),
                               f1=host(f1s, np.float64),
                               teacher=host(teacher, np.float32),

@@ -71,11 +71,23 @@ and they spend 0 evaluations (the batched optimizers' ``active`` mask).
 ``run_host_reference`` is the per-round host loop of the same semantics,
 the oracle the fused run is held to.
 
-One device only: ``n_devices`` above 1 raises ``NotImplementedError``
-(ROADMAP §1, the multi-GPU clients axis).
+Clients axis (``n_devices > 1``, ``distributed/sharding.py``): under
+full participation the client stacks are padded with inert clients to a
+multiple of the shards (never eligible; the results drop them) and cut
+into shards; in population mode every shard's device holds the whole
+population, as the JAX package replicates it, and the round's cohort
+is what is cut (``c_round`` must divide the shards).  Each shard runs
+its local phase and report on its device; the lead (shard 0's device)
+does regulation before them and selection, float64 FedAvg, the server
+evaluations, termination and the scatter after them, so the carries
+live on the lead.  On one device the round stays one graph; across
+devices each stage is a graph on its device and the exchanges between
+them are copies ordered on the streams (``_FusedProgram``).
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
 
@@ -88,6 +100,7 @@ from repro_torch.core.batched_engine import (EPS, _numpy, build_local_phase,
                                              eval_slots)
 from repro_torch.core.termination import TerminationCriterion
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import statevector_gates as svg
 from repro_torch.kernels import statevector_tape as svt
 from repro_torch.optim.batched_spsa import make_deltas
@@ -190,14 +203,44 @@ def _launch_counts() -> dict:
             "replays": tape_mod.run_tape.replays}
 
 
-class _FusedProgram:
-    """The round body over static input, carry and output buffers.  On
-    the card it is captured once as a CUDA graph; ``graph_counts`` holds
-    the kernel launches and tape replays one replay of it makes,
-    ``replays`` the graph replays so far."""
+# per-client inputs every shard reads: the stacks (cut to the shard's
+# rows under full participation, whole population otherwise) and the
+# (R, cohort width, …) tables (cut to the shard's cohort positions)
+SHARD_STACKS = ("qX", "qy", "mask", "teacher", "deltas")
+SHARD_TABLES = ("eligible", "cohort", "slot_keys", "report_keys")
+# the fields of a run's results that carry the client axis last
+_CLIENT_FIELDS = ("selected", "losses", "ratios", "n_evals", "budgets",
+                  "cum_evals", "budgets_final", "last_losses_final",
+                  "cum_evals_final")
 
-    def __init__(self, spec, backend, cfg: dict, inputs: dict, device):
-        self.cfg, self.backend, self.device = cfg, backend, device
+
+class _FusedProgram:
+    """The round body over static input, carry, exchange and output
+    buffers.
+
+    A round is three stages: the lead's *pre* stage (regulation, the
+    round's budgets and float32 θ_g), each shard's local phase and report
+    on its device, and the lead's *post* stage (selection, FedAvg, the
+    server evaluations, termination, the scatter and the outputs).  The
+    lead's exchange buffers hold the whole cohort's budgets, trained
+    parameters, evaluation counts and reports; a shard on the lead's
+    device reads and writes its slice of them in place, a shard on
+    another device has buffers of its own, and copies between them run
+    between the stages on the devices' streams (PyTorch orders a copy
+    across devices with events; nothing waits on the host).
+
+    On the card, when every shard shares the lead's device, one round is
+    captured as one CUDA graph; across devices each stage is a graph on
+    its device, and the copies run between their replays.
+    ``graph_counts`` holds the kernel launches and tape replays one
+    round's replay makes, ``replays`` the rounds replayed so far."""
+
+    def __init__(self, spec, backend, cfg: dict, lead_in: dict,
+                 group_in: List[dict], groups):
+        self.cfg, self.backend = cfg, backend
+        # one group a device, in shard order: the first is the lead's
+        self.devices = [dev for dev, _ in groups]
+        self.lead = self.devices[0]
         # holds the tape, so its columns cached on the device live as
         # long as the graph that reads them
         self.cq = tape_mod.compile_qnn(spec)
@@ -205,13 +248,16 @@ class _FusedProgram:
             spec, backend, lam=cfg["lam"], mu=cfg["mu"],
             use_llm=cfg["use_llm"], optimizer=cfg["optimizer"],
             max_iter=cfg["max_iter"])
-        self.buf = {k: torch.empty_like(v, device=device)
-                    for k, v in inputs.items()}
-        self.load(inputs)
+        self.buf = {k: torch.empty_like(v, device=self.lead)
+                    for k, v in lead_in.items()}
+        self.gbuf = [{k: torch.empty_like(v, device=dev)
+                      for k, v in gi.items()}
+                     for (dev, _), gi in zip(groups, group_in)]
+        self.load(lead_in, group_in)
         R, C, W = cfg["n_rounds"], cfg["c_pop"], cfg["c_width"]
         P = spec.n_params
 
-        def z(*shape, dtype=torch.float32):
+        def z(*shape, dtype=torch.float32, device=self.lead):
             return torch.zeros(shape, dtype=dtype, device=device)
 
         self.state = dict(theta=z(P, dtype=torch.float64),
@@ -219,6 +265,30 @@ class _FusedProgram:
                           cum=z(C, dtype=torch.int64), prev=z(),
                           small=z(dtype=torch.int64),
                           done=z(dtype=torch.bool), r=z(dtype=torch.int64))
+        self.x = dict(theta32=z(P), gbud=z(W, dtype=torch.int64),
+                      ratios=z(W, dtype=torch.float64), th=z(W, P),
+                      nev=z(W, dtype=torch.int32), loss=z(W))
+        self.shards = []
+        for (dev, bounds), gb in zip(groups, self.gbuf):
+            base = bounds[0][0]
+            for lo, hi in bounds:
+                rows = slice(lo - base, hi - base)
+                ins = {k: v if cfg["subsample"] else v[rows]
+                       for k, v in gb.items() if k in SHARD_STACKS}
+                ins.update({k: v[:, rows] for k, v in gb.items()
+                            if k in SHARD_TABLES})
+                local = dev == self.lead
+                sh = dict(device=dev, lo=lo, hi=hi, ins=ins, remote=not local,
+                          r=z(dtype=torch.int64, device=dev))
+                if local:
+                    sh.update(theta32=self.x["theta32"],
+                              **{k: self.x[k][lo:hi]
+                                 for k in ("gbud", "th", "nev", "loss")})
+                else:
+                    sh.update(theta32=z(P, device=dev), **{
+                        k: torch.empty_like(self.x[k][lo:hi], device=dev)
+                        for k in ("gbud", "th", "nev", "loss")})
+                self.shards.append(sh)
         self.out = dict(
             active=z(R, dtype=torch.bool), stop=z(R, dtype=torch.bool),
             selected=z(R, W, dtype=torch.bool), losses=z(R, W),
@@ -229,9 +299,9 @@ class _FusedProgram:
             server_loss=z(R), val_acc=z(R), test_acc=z(R),
             comm_time_s=z(R, dtype=torch.float64),
             theta=z(R, P, dtype=torch.float64))
-        self.graph, self.graph_counts, self.replays = None, {}, 0
+        self.graphs, self.graph_counts, self.replays = [], {}, 0
         self._host = None
-        if device.type == "cuda":
+        if self.lead.type == "cuda":
             self._capture()
             pinned = lambda t: torch.empty(  # noqa: E731
                 t.shape, dtype=t.dtype, pin_memory=True)
@@ -239,11 +309,12 @@ class _FusedProgram:
             self._ready = torch.cuda.Event()
 
     # -- buffers --------------------------------------------------------------
-    def load(self, inputs: dict):
+    def load(self, lead_in: dict, group_in: List[dict]):
         """Copy a driver's inputs into the static buffers (from pinned
         host memory to the card, without a synchronisation)."""
-        for k, v in inputs.items():
-            self.buf[k].copy_(v, non_blocking=True)
+        for buf, inputs in [(self.buf, lead_in), *zip(self.gbuf, group_in)]:
+            for k, v in inputs.items():
+                buf[k].copy_(v, non_blocking=True)
 
     def _reset(self):
         s = self.state
@@ -255,6 +326,8 @@ class _FusedProgram:
         s["small"].zero_()
         s["done"].zero_()
         s["r"].zero_()
+        for sh in self.shards:
+            sh["r"].zero_()
 
     def _results(self) -> dict:
         s = self.state
@@ -267,9 +340,84 @@ class _FusedProgram:
             return self.backend.transform_probs(probs, key)
         return self.backend.apply_channel(probs)
 
-    def _round(self):
-        """One round, every value on the device; advances ``r``."""
-        cfg, b, s, o = self.cfg, self.buf, self.state, self.out
+    @staticmethod
+    def _gather(cohort):
+        """Row gather of a population stack by this round's cohort (the
+        identity under full participation)."""
+        if cohort is None:
+            return lambda a: a
+        return lambda a: a.index_select(0, cohort)
+
+    def _lead_pre(self):
+        """Regulation (Alg. 1 lines 11-17; after round 1 only): the
+        round's budgets and ratios, and θ_g in float32."""
+        cfg, b, s, x = self.cfg, self.buf, self.state, self.x
+        ridx = s["r"].view(1)
+        t = s["r"] + 1
+        eligible = b["eligible"].index_select(0, ridx)[0]
+        g = self._gather(b["cohort"].index_select(0, ridx)[0]
+                         if cfg["subsample"] else None)
+        gbud0 = g(s["budgets"])
+        if cfg["use_llm"]:
+            glast, gllm = g(s["last"]), g(b["llm"])
+            boosted = regulate_batched(gbud0, glast, gllm,
+                                       variant=cfg["regulation"],
+                                       cap=cfg["maxiter_cap"])
+            x["gbud"].copy_(torch.where((t > 1) & eligible, boosted, gbud0))
+            x["ratios"].copy_(torch.where(
+                (t > 1) & torch.isfinite(glast) & (gllm > 0),
+                glast.double() / gllm, 1.0))
+        else:
+            x["gbud"].copy_(gbud0)
+            x["ratios"].fill_(1.0)
+        x["theta32"].copy_(s["theta"])
+
+    def _shard_round(self, sh):
+        """One shard's local phase, at a static trip count, and its
+        clients' F_i at REPORT_EVAL_SLOT in one batched evaluation."""
+        cfg, b = self.cfg, sh["ins"]
+        sampling = self.backend.shots > 0
+        ridx = sh["r"].view(1)
+
+        def pick(table):                   # this round's row of a table
+            return table.index_select(0, ridx)[0]
+
+        eligible = pick(b["eligible"])
+        g = self._gather(pick(b["cohort"]) if cfg["subsample"] else None)
+        gqX, gqy, gmask = g(b["qX"]), g(b["qy"]), g(b["mask"])
+        th, n_evals = self.local(
+            gqX, gqy, gmask, g(b["teacher"]), sh["theta32"], sh["gbud"],
+            pick(b["slot_keys"]) if sampling else None,
+            deltas=g(b["deltas"]) if "deltas" in b else None,
+            active=eligible, n_steps=cfg["max_iter"])
+        noisy = self._measure(tape_mod.tape_probs(self.cq, th, gqX),
+                              pick(b["report_keys"]) if sampling else None)
+        p = torch.gather(noisy, -1, gqy[..., None])[..., 0]
+        glosses = -torch.sum(torch.log(p + EPS) * gmask, -1) \
+            / torch.clamp(gmask.sum(-1), min=1.0)
+        sh["th"].copy_(th)
+        sh["nev"].copy_(n_evals)
+        sh["loss"].copy_(torch.where(eligible, glosses, torch.nan))
+        sh["r"].add_(1)
+
+    def _send(self, sh):
+        """The round's θ_g and a shard's budgets to a shard on another
+        device."""
+        if sh["remote"]:
+            sh["theta32"].copy_(self.x["theta32"], non_blocking=True)
+            sh["gbud"].copy_(self.x["gbud"][sh["lo"]:sh["hi"]],
+                             non_blocking=True)
+
+    def _receive(self, sh):
+        """A shard's trained parameters, counts and reports to the lead."""
+        if sh["remote"]:
+            for k in ("th", "nev", "loss"):
+                self.x[k][sh["lo"]:sh["hi"]].copy_(sh[k], non_blocking=True)
+
+    def _lead_post(self):
+        """Selection, FedAvg, the server evaluations, termination, the
+        scatter to the population carries and the round's outputs."""
+        cfg, b, s, o, x = self.cfg, self.buf, self.state, self.out, self.x
         sampling = self.backend.shots > 0
         ridx = s["r"].view(1)
         t = s["r"] + 1
@@ -279,49 +427,11 @@ class _FusedProgram:
             return table.index_select(0, ridx)[0]
 
         eligible = pick(b["eligible"])
-        if cfg["subsample"]:
-            cohort = pick(b["cohort"])
-
-            def g(a):
-                return a.index_select(0, cohort)
-        else:
-            def g(a):
-                return a
-        gqX, gqy, gmask, gteacher = g(b["qX"]), g(b["qy"]), g(b["mask"]), \
-            g(b["teacher"])
-        gweights, gevaltime, gllm = g(b["weights"]), g(b["evaltime"]), \
-            g(b["llm"])
-        gdeltas = g(b["deltas"]) if "deltas" in b else None
+        cohort = pick(b["cohort"]) if cfg["subsample"] else None
+        g = self._gather(cohort)
+        gweights, gevaltime = g(b["weights"]), g(b["evaltime"])
         gbud0, glast = g(s["budgets"]), g(s["last"])
-
-        # regulation (Alg. 1 lines 11-17; after round 1 only)
-        if cfg["use_llm"]:
-            boosted = regulate_batched(gbud0, glast, gllm,
-                                       variant=cfg["regulation"],
-                                       cap=cfg["maxiter_cap"])
-            gbud = torch.where((t > 1) & eligible, boosted, gbud0)
-            gratios = torch.where(
-                (t > 1) & torch.isfinite(glast) & (gllm > 0),
-                glast.double() / gllm, 1.0)
-        else:
-            gbud = gbud0
-            gratios = torch.ones_like(gweights)
-
-        # the local phase, at a static trip count
-        theta32 = s["theta"].float()
-        th, n_evals = self.local(
-            gqX, gqy, gmask, gteacher, theta32, gbud,
-            pick(b["slot_keys"]) if sampling else None, deltas=gdeltas,
-            active=eligible, n_steps=cfg["max_iter"])
-
-        # every client's F_i at REPORT_EVAL_SLOT, one batched evaluation
-        noisy = self._measure(tape_mod.tape_probs(self.cq, th, gqX),
-                              pick(b["report_keys"]) if sampling else None)
-        p = torch.gather(noisy, -1, gqy[..., None])[..., 0]
-        glosses = -torch.sum(torch.log(p + EPS) * gmask, -1) \
-            / torch.clamp(gmask.sum(-1), min=1.0)
-        glosses = torch.where(eligible, glosses, torch.nan)
-
+        gbud, th, n_evals, glosses = x["gbud"], x["th"], x["nev"], x["loss"]
         skeys = pick(b["server_keys"]) if sampling else None
 
         def server(fn, theta, X, y, slot):
@@ -329,7 +439,7 @@ class _FusedProgram:
             return fn(self._measure(probs, skeys[slot] if sampling
                                     else None), y)
 
-        s_pre = server(qnn.nll_loss, theta32, b["val_qX"], b["val_qy"],
+        s_pre = server(qnn.nll_loss, x["theta32"], b["val_qX"], b["val_qy"],
                        backend_mod.SERVER_SLOT_LOSS_PRE)
 
         # alignment selection (Sec. III-B), float64 distances as the host
@@ -393,7 +503,7 @@ class _FusedProgram:
 
         for name, v in (("active", run), ("stop", run & stop),
                         ("selected", sel), ("losses", glosses),
-                        ("ratios", gratios), ("n_evals", evals_add),
+                        ("ratios", x["ratios"]), ("n_evals", evals_add),
                         ("budgets", s["budgets"]), ("cum_evals", s["cum"]),
                         ("server_loss_pre", s_pre), ("server_loss", s_post),
                         ("val_acc", v_acc), ("test_acc", t_acc),
@@ -401,26 +511,78 @@ class _FusedProgram:
             o[name].index_copy_(0, ridx, v[None])
         s["r"].add_(1)
 
+    def _round(self):
+        """One round, every value on the device: the lead's stages, and
+        each shard's on its device, issued in turn."""
+        with shd.on_device(self.lead):
+            self._lead_pre()
+        for sh in self.shards:
+            self._send(sh)
+        for sh in self.shards:
+            with shd.on_device(sh["device"]):
+                self._shard_round(sh)
+        for sh in self.shards:
+            self._receive(sh)
+        with shd.on_device(self.lead):
+            self._lead_post()
+
     # -- capture and launch ---------------------------------------------------
     def _capture(self):
-        """One eager round on a side stream (builds the kernels, checks
+        """One eager round on side streams (builds the kernels, checks
         the tape's gate columns once, sets up the libraries' handles),
-        then the round captured as a CUDA graph.  No fallback: a capture
-        that fails raises."""
-        main = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
+        then the round captured: one graph when every shard shares the
+        lead's device, else a graph a stage on its device.  No fallback:
+        a capture that fails raises."""
+        sides = {d: torch.cuda.Stream(d) for d in self.devices}
+        for d, side in sides.items():
+            side.wait_stream(torch.cuda.current_stream(d))
+        with contextlib.ExitStack() as stack:
+            for side in sides.values():
+                stack.enter_context(torch.cuda.stream(side))
             self._reset()
             self._round()
-        main.wait_stream(side)
+        for d, side in sides.items():
+            torch.cuda.current_stream(d).wait_stream(side)
         before = _launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self._round()
+        if len(self.devices) == 1:
+            stages = [(self.lead, self._round)]
+        else:
+            stages = ([(self.lead, self._lead_pre)]
+                      + [(sh["device"], functools.partial(self._shard_round,
+                                                          sh))
+                         for sh in self.shards]
+                      + [(self.lead, self._lead_post)])
+        for dev, stage in stages:
+            # a capture stream of the stage's own device (PyTorch's
+            # default one lies on the device of its first capture)
+            graph = torch.cuda.CUDAGraph()
+            with shd.on_device(dev), torch.cuda.graph(
+                    graph, stream=torch.cuda.Stream(dev)):
+                stage()
+            self.graphs.append((dev, graph))
         self.graph_counts = {k: v - before[k]
                              for k, v in _launch_counts().items()}
-        self.graph = graph
+
+    def _replay(self):
+        """One round from the captured graphs, the copies between the
+        stages' graphs issued on the streams in between."""
+        if len(self.graphs) == 1:
+            dev, graph = self.graphs[0]
+            with shd.on_device(dev):
+                graph.replay()
+            return
+        (lead, pre), *middle, (_, post) = self.graphs
+        with shd.on_device(lead):
+            pre.replay()
+        for sh in self.shards:
+            self._send(sh)
+        for dev, graph in middle:
+            with shd.on_device(dev):
+                graph.replay()
+        for sh in self.shards:
+            self._receive(sh)
+        with shd.on_device(lead):
+            post.replay()
 
     def launch(self, graph: bool = True):
         """Every round of a run from the loaded inputs, and the copy of
@@ -428,35 +590,44 @@ class _FusedProgram:
         captured round on the card (``graph``), else the body op by op."""
         self._reset()
         for _ in range(self.cfg["n_rounds"]):
-            if graph and self.graph is not None:
-                self.graph.replay()
+            if graph and self.graphs:
+                self._replay()
                 self.replays += 1
             else:
                 self._round()
         if self._host is not None:
             for k, v in self._results().items():
                 self._host[k].copy_(v, non_blocking=True)
-            self._ready.record()
+            self._ready.record(torch.cuda.current_stream(self.lead))
 
     def results(self) -> dict:
-        """The run's results on the host: the one read-back."""
+        """The run's results on the host, the padding clients sliced off:
+        the one read-back."""
         if self._host is None:
-            return {k: v.numpy().copy() for k, v in self._results().items()}
-        self._ready.synchronize()
-        return {k: v.numpy().copy() for k, v in self._host.items()}
+            out = {k: v.numpy().copy() for k, v in self._results().items()}
+        else:
+            self._ready.synchronize()
+            out = {k: v.numpy().copy() for k, v in self._host.items()}
+        C = self.cfg["c_out"]
+        for k in _CLIENT_FIELDS:
+            out[k] = np.ascontiguousarray(out[k][..., :C])
+        return out
 
 
-def get_fused_program(spec, backend, cfg: dict, inputs: dict, device
-                      ) -> _FusedProgram:
+def get_fused_program(spec, backend, cfg: dict, lead_in: dict,
+                      group_in: List[dict], groups) -> _FusedProgram:
     """Module-wide cache, as the JAX package's ``_FUSED_CACHE``: drivers
-    of the same static configuration, input shapes and device share the
-    captured program and load their own data into it."""
-    shapes = tuple((k, tuple(v.shape), str(v.dtype))
-                   for k, v in sorted(inputs.items()))
-    key = (spec, backend, int(backend.shots),
-           tuple(sorted(cfg.items())), shapes, str(device))
+    of the same static configuration, input shapes and shard layout
+    share the captured program and load their own data into it."""
+    def shapes(inputs):
+        return tuple((k, tuple(v.shape), str(v.dtype))
+                     for k, v in sorted(inputs.items()))
+    layout = tuple((str(dev), tuple(bounds)) for dev, bounds in groups)
+    key = (spec, backend, int(backend.shots), tuple(sorted(cfg.items())),
+           shapes(lead_in), tuple(shapes(g) for g in group_in), layout)
     if key not in _FUSED_CACHE:
-        _FUSED_CACHE[key] = _FusedProgram(spec, backend, cfg, inputs, device)
+        _FUSED_CACHE[key] = _FusedProgram(spec, backend, cfg, lead_in,
+                                          group_in, groups)
     return _FUSED_CACHE[key]
 
 
@@ -515,7 +686,8 @@ class FusedRoundDriver:
                  epsilon: float = 1e-3, n_rounds: int = 10,
                  early_stop: bool = True, patience: int = 1,
                  c_round: Optional[int] = None, dropout: float = 0.0,
-                 n_devices: Optional[int] = None, device=None):
+                 n_devices: Optional[int] = None, device=None,
+                 share_devices: bool = False):
         C = task.n_clients
         if c_round is not None:
             c_round = int(c_round)
@@ -531,12 +703,15 @@ class FusedRoundDriver:
                              "llm_losses from the LLM fine-tuning stage")
         if optimizer not in ("nelder-mead", "spsa"):
             raise ValueError(f"unknown batched optimizer {optimizer!r}")
+        self.devices = [resolve_device(device)]
         if n_devices is not None and int(n_devices) > 1:
-            raise NotImplementedError(
-                "the fused round loop over n_devices > 1 is not ported yet "
-                "(ROADMAP §1, 'multi-GPU clients axis'); it runs on one "
-                "device")
-        self.device = resolve_device(device)
+            self.devices = shd.client_devices(int(n_devices), device,
+                                              share_devices=share_devices)
+            if c_round is not None:
+                # the cohort is what is cut into shards each round: it
+                # must divide them (no padding inside the round)
+                shd.check_client_divisibility(c_round, int(n_devices))
+        self.device = self.devices[0]
         subsample = c_round is not None
         W = c_round if subsample else C
         R = int(n_rounds)
@@ -596,7 +771,6 @@ class FusedRoundDriver:
         else:
             dropped = np.zeros((R, W), bool)
         eligible = ~dropped
-        inputs.update(cohort=cohort, eligible=eligible)
         k_static = None
         if select_on:
             if dropout == 0.0:
@@ -606,8 +780,34 @@ class FusedRoundDriver:
                 n_el = eligible.sum(1).astype(np.float32)
                 inputs["k"] = np.maximum(1, np.round(
                     np.float32(select_frac) * n_el)).astype(np.int64)
+        # the unpadded population, for run_host_reference
+        self._pop = dict(inputs)
+
+        # full participation over shards: inert clients after the real
+        # ones (zero masks, budgets and weights, uniform teacher rows,
+        # SPSA signs of ones) pad the client axis to a multiple of them;
+        # they are never eligible, and the results drop them
+        n_sh = len(self.devices)
+        if not subsample and C % n_sh:
+            c_pad = shd.pad_client_count(C, n_sh)
+            fills = dict(teacher=1.0 / n_cls, deltas=1.0)
+            for k in ("qX", "qy", "mask", "teacher", "deltas", "weights",
+                      "evaltime", "llm", "budgets0"):
+                if k in inputs:
+                    v = inputs[k]
+                    pad = np.full((c_pad - C,) + v.shape[1:],
+                                  fills.get(k, 0), v.dtype)
+                    inputs[k] = np.concatenate([v, pad])
+            cohort_p = np.tile(np.arange(c_pad, dtype=np.int64), (R, 1))
+            eligible = np.concatenate(
+                [eligible, np.zeros((R, c_pad - C), bool)], 1)
+        else:
+            cohort_p = cohort
+        inputs["eligible"] = eligible
+        if subsample:
+            inputs["cohort"] = cohort
         if sampling:
-            ckeys = jr.fold_in(jr.fold_in(base, ts)[:, None, :], cohort)
+            ckeys = jr.fold_in(jr.fold_in(base, ts)[:, None, :], cohort_p)
             slots = eval_slots(optimizer, P, max_iter)
             inputs["slot_keys"] = jr.fold_in(ckeys[:, :, None, :], slots)
             inputs["report_keys"] = jr.fold_in(
@@ -618,11 +818,34 @@ class FusedRoundDriver:
             for k in ("slot_keys", "report_keys", "server_keys"):
                 inputs[k] = np.ascontiguousarray(inputs[k]).view(np.int32)
 
+        # shards cut the cohort positions; consecutive shards on one
+        # device form a group, whose inputs sit on that device once
+        bounds = shd.shard_bounds(cohort_p.shape[1], n_sh)
+        groups = []
+        for dev, b in zip(self.devices, bounds):
+            if groups and groups[-1][0] == dev:
+                groups[-1][1].append(b)
+            else:
+                groups.append((dev, [b]))
         pin = self.device.type == "cuda"
-        self._inputs = {k: (torch.from_numpy(np.ascontiguousarray(v))
-                            .pin_memory() if pin else
-                            torch.from_numpy(np.ascontiguousarray(v)))
-                        for k, v in inputs.items()}
+
+        def staged(v):
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            return t.pin_memory() if pin else t
+
+        # the lead keeps the cohort and eligibility tables too: its
+        # regulation, selection and scatter read them
+        self._lead_in = {k: staged(v) for k, v in inputs.items()
+                         if k not in SHARD_STACKS
+                         + ("slot_keys", "report_keys")}
+        self._group_in = []
+        for _, bs in groups:
+            rows = slice(bs[0][0], bs[-1][1])
+            gi = {k: staged(inputs[k] if subsample else inputs[k][rows])
+                  for k in SHARD_STACKS if k in inputs}
+            gi.update({k: staged(inputs[k][:, rows])
+                       for k in SHARD_TABLES if k in inputs})
+            self._group_in.append(gi)
         self._cohort, self._dropped = cohort, dropped
         self.task, self.spec, self.backend = task, spec, backend
         self.c_pop, self.c_round, self.c_width = C, c_round, W
@@ -637,10 +860,12 @@ class FusedRoundDriver:
             select_frac=float(select_frac), select_on=select_on,
             k_static=k_static, epsilon=float(epsilon),
             patience=int(patience), n_rounds=R, early_stop=bool(early_stop),
-            c_pop=C, c_width=W, subsample=subsample,
-            init_evals=self.init_evals)
+            c_pop=len(inputs["budgets0"]), c_width=cohort_p.shape[1],
+            c_out=C, subsample=subsample, init_evals=self.init_evals)
         self.program = get_fused_program(spec, backend, self._cfg,
-                                         self._inputs, self.device)
+                                         self._lead_in, self._group_in,
+                                         groups)
+
 
     # -- fused path -----------------------------------------------------------
     def start(self, theta_g, graph: bool = True):
@@ -651,8 +876,8 @@ class FusedRoundDriver:
         ``self.theta0`` keeps the start."""
         theta = np.asarray(theta_g, np.float64).reshape(-1)
         self.theta0 = theta.copy()
-        self._inputs["theta0"].copy_(torch.from_numpy(theta))
-        self.program.load(self._inputs)
+        self._lead_in["theta0"].copy_(torch.from_numpy(theta))
+        self.program.load(self._lead_in, self._group_in)
         self.program.launch(graph=graph)
 
     def finish(self) -> FusedRunOutput:
@@ -683,9 +908,9 @@ class FusedRoundDriver:
         sampling = self.backend.shots > 0
         base = jr.PRNGKey(self.seed)
         C, W, R = self.c_pop, self.c_width, self.n_rounds
-        host = {k: v.numpy() for k, v in self._inputs.items()}
-        on_dev = {k: v.to(dev) for k, v in self._inputs.items()
-                  if k in ("qX", "qy", "mask", "teacher", "deltas")}
+        host = self._pop
+        on_dev = {k: torch.from_numpy(v).to(dev) for k, v in host.items()
+                  if k in SHARD_STACKS}
         weights, evaltime, llm = host["weights"], host["evaltime"], \
             host["llm"]
         task = self.task

@@ -13,7 +13,10 @@ The port runs ``method="qfl"`` and ``method="llm-qfl"`` with
 ``rounds="fused"``: every round on the device with no host read until
 the run ends (``core/fused_rounds.py``; on the card a captured CUDA
 graph a round), with the population options ``c_round`` and
-``dropout``.  For ``llm-qfl``, Step 1 fine-tunes every client's LoRA
+``dropout``.  On the batched engine ``n_devices > 1`` cuts the client
+axis into that many shards, one a card (``distributed/sharding.py``;
+``share_devices=True`` puts them all on one card, to test the sharded
+path there).  For ``llm-qfl``, Step 1 fine-tunes every client's LoRA
 adapters on a frozen float32 base in round 1 — one client at a time
 (``core/llm_client.run_sequential_stage``) or all at once
 (``core/batched_llm.py``); its teacher soft labels feed the quantum
@@ -27,8 +30,8 @@ the host; the batched engine runs every client's local phase as one
 batched computation on the device (``core/batched_engine.py``) over the
 compiled tape.  The round's control laws run on the host exactly as in
 the JAX package: θ_g and the aggregation are float64 numpy, cast to
-float32 at the device boundary.  The other options raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+float32 at the device boundary.  Every option of ``RunConfig`` runs;
+an invalid combination raises the JAX package's ``ValueError``.
 
 On finite-shot backends (``fake``, ``aersim``, ``real``) every
 evaluation (optimizer objectives, the per-round client-loss reports,
@@ -131,14 +134,6 @@ class RunResult:
         return [getattr(r, attr) for r in self.rounds]
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP §1, {item!r}); the port "
-        "runs method='qfl' or 'llm-qfl', engine='sequential' or "
-        "'batched', rounds='host' or 'fused', optimizer='nelder-mead' or "
-        "'spsa', on one device")
-
-
 @dataclass
 class LLMOutputs:
     """Step 1's outputs, as the quantum rounds consume them: per-client
@@ -153,13 +148,17 @@ class Orchestrator:
     another run (the card's, or the JAX package's) in place of this run's
     fine-tuning, so the quantum rounds can be compared on equal inputs;
     the key stream advances as if the stage had run.  After Step 1,
-    ``self.llm_outputs`` holds the outputs the rounds consumed."""
+    ``self.llm_outputs`` holds the outputs the rounds consumed.
+    ``share_devices`` puts the ``n_devices`` shards on ``device`` itself
+    (``sharding.client_devices``)."""
 
     def __init__(self, task: FederatedTask, rc: RunConfig, device=None,
-                 llm_outputs: Optional[LLMOutputs] = None):
+                 llm_outputs: Optional[LLMOutputs] = None,
+                 share_devices: bool = False):
         self.task = task
         self.rc = rc
         self._llm_outputs = llm_outputs
+        self._share_devices = bool(share_devices)
         if rc.engine not in ("sequential", "batched"):
             raise ValueError(f"unknown engine {rc.engine!r}")
         if rc.rounds not in ("host", "fused"):
@@ -185,8 +184,6 @@ class Orchestrator:
             raise ValueError(f"unknown method {rc.method!r}")
         if rc.optimizer not in ("nelder-mead", "spsa"):
             raise ValueError(f"unknown optimizer {rc.optimizer!r}")
-        if rc.n_devices is not None and rc.n_devices > 1:
-            raise _not_ported("n_devices > 1", "multi-GPU clients axis")
         kind = rc.qnn_kind or ("vqc" if task.n_classes == 2 else "qcnn")
         feat_dim = int(task.clients[0].qX.shape[1])
         if feat_dim != rc.n_qubits:
@@ -293,14 +290,14 @@ class Orchestrator:
         if rc.engine == "batched":
             self.llm_clients = None     # per-client wrappers exist only
                                         # on the sequential path
-            self._llm_engine = BatchedLLMEngine(
+            self.llm_engine = BatchedLLMEngine(
                 task, cfg, base, seed=rc.seed, lr=rc.llm_lr,
                 steps=rc.llm_steps, rho=rc.distill_rho,
-                n_devices=rc.n_devices)
-            out = self._llm_engine.run()
+                n_devices=rc.n_devices, share_devices=self._share_devices)
+            out = self.llm_engine.run()
             self._llm_losses = [float(x) for x in out.losses]
             self._llm_f1 = [float(x) for x in out.f1]
-            self._teacher_probs = self._llm_engine.teacher_probs_list(
+            self._teacher_probs = self.llm_engine.teacher_probs_list(
                 task, out.teacher)
         else:
             (self.llm_clients, self._llm_losses, self._llm_f1,
@@ -338,7 +335,9 @@ class Orchestrator:
                 use_llm=rc.uses_llm, teacher_probs=self._teacher_probs,
                 seeds=[rc.seed * 997 + i for i in range(task.n_clients)],
                 max_iter=max(rc.maxiter_cap, rc.maxiter0),
-                optimizer=rc.optimizer, seed=rc.seed, device=self.device)
+                optimizer=rc.optimizer, seed=rc.seed,
+                n_devices=rc.n_devices, device=self.device,
+                share_devices=self._share_devices)
 
         maxiters = [rc.maxiter0] * task.n_clients
         last_losses = [float("inf")] * task.n_clients
@@ -465,7 +464,8 @@ class Orchestrator:
             regulation=rc.regulation, select_frac=rc.select_frac,
             epsilon=rc.epsilon, n_rounds=rc.n_rounds,
             early_stop=rc.early_stop, c_round=rc.c_round,
-            dropout=rc.dropout, n_devices=rc.n_devices, device=self.device)
+            dropout=rc.dropout, n_devices=rc.n_devices, device=self.device,
+            share_devices=self._share_devices)
         self.fused_driver = driver
         t0 = time.perf_counter()
         self.fused_output = out = driver.run(self._theta_g)
@@ -502,6 +502,7 @@ class Orchestrator:
 
 def run_experiment(task: FederatedTask, device=None,
                    llm_outputs: Optional[LLMOutputs] = None,
-                   **overrides) -> RunResult:
+                   share_devices: bool = False, **overrides) -> RunResult:
     return Orchestrator(task, RunConfig(**overrides), device=device,
-                        llm_outputs=llm_outputs).run()
+                        llm_outputs=llm_outputs,
+                        share_devices=share_devices).run()

@@ -88,6 +88,8 @@
 namespace {
 
 using tf32x3::cp16;
+using tf32x3::device_flag;
+using tf32x3::MAX_DEVICES;
 using tf32x3::tf32_rna;
 
 constexpr int TILE = 64;           // q rows, keys and queries of a tile
@@ -870,10 +872,11 @@ int forward(const Args& p, cudaStream_t s)
 {
     constexpr int TILE_BYTES = TILE * pitch<T>(D) * (int)sizeof(T);
     const int stages = p.Sk > TILE ? 2 : 1;
-    static bool ready = false;
-    if (!ready) {
+    static bool ready[MAX_DEVICES] = {};
+    bool* done = device_flag(ready);
+    if (!done || !*done) {
         allow_smem(attn_fwd_kernel<T, D>, 5 * TILE_BYTES);   // Q, 2 x K/V
-        ready = true;
+        if (done) *done = true;
     }
     const dim3 grid((p.S + TILE - 1) / TILE, p.H, p.B);
     attn_fwd_kernel<T, D><<<grid, 128, (1 + 2 * stages) * TILE_BYTES, s>>>(p);
@@ -892,10 +895,11 @@ int backward(const Args& p, cudaStream_t s)
         const cudaError_t err = cudaGetLastError();
         if (err != cudaSuccess) return (int)err;
     }
-    static bool ready = false;
-    if (!ready) {
+    static bool ready[MAX_DEVICES] = {};
+    bool* done = device_flag(ready);
+    if (!done || !*done) {
         allow_smem(attn_bwd_kernel<T, D>, L::BYTES);
-        ready = true;
+        if (done) *done = true;
     }
     const dim3 grid(nkt, p.KH, p.B);
     attn_bwd_kernel<T, D><<<grid, 128 * L::TEAMS, L::BYTES, s>>>(p);

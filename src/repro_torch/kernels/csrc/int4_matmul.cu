@@ -265,13 +265,14 @@ template <typename T, bool TRANS, bool BF16W>
 cudaError_t launch(const Args& p, dim3 grid, cudaStream_t s)
 {
     using R = Ring<sizeof(T) == 4 ? 2 : 1, BF16W ? 1 : 3, 0>;
-    static bool ready = false;
-    if (!ready) {
+    static bool ready[MAX_DEVICES] = {};
+    bool* done = device_flag(ready);
+    if (!done || !*done) {
         const cudaError_t e = cudaFuncSetAttribute(
             int4_matmul_kernel<T, TRANS, BF16W>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, R::BYTES);
         if (e != cudaSuccess) return e;
-        ready = true;
+        if (done) *done = true;
     }
     int4_matmul_kernel<T, TRANS, BF16W><<<grid, NT, R::BYTES, s>>>(p);
     if (p.splits > 1) {

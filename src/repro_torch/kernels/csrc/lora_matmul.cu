@@ -236,13 +236,14 @@ template <typename T, bool LO, int RP>
 cudaError_t launch_rp(const Args& p, dim3 grid, cudaStream_t s)
 {
     using R = Ring<LO ? 2 : 1, LO ? 2 : 1, RP, LO>;
-    static bool ready = false;
-    if (!ready) {
+    static bool ready[MAX_DEVICES] = {};
+    bool* done = device_flag(ready);
+    if (!done || !*done) {
         const cudaError_t e = cudaFuncSetAttribute(
             lora_matmul_kernel<T, LO, RP>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, R::BYTES);
         if (e != cudaSuccess) return e;
-        ready = true;
+        if (done) *done = true;
     }
     lora_matmul_kernel<T, LO, RP><<<grid, NT, R::BYTES, s>>>(p);
     if (p.splits > 1) {

@@ -786,6 +786,19 @@ inline int64_t split_steps(int64_t ctas, int64_t steps, int sms)
     return (steps + s - 1) / s;
 }
 
+// A kernel's function attributes (the dynamic shared memory it may take)
+// belong to the current device, so a launcher sets them once a device:
+// `flags` holds one "set" flag a device; null past MAX_DEVICES, where the
+// caller sets them every launch.
+constexpr int MAX_DEVICES = 64;
+inline bool* device_flag(bool (&flags)[MAX_DEVICES])
+{
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= MAX_DEVICES)
+        return nullptr;
+    return &flags[dev];
+}
+
 inline int sm_count()
 {
     int dev = 0, n = 132;

@@ -16,9 +16,17 @@ def tree_map(fn: Callable, tree, *rest):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
-                          for i, v in enumerate(tree))
+        return _rebuild(tree, [tree_map(fn, v, *(r[i] for r in rest))
+                               for i, v in enumerate(tree)])
     return fn(tree, *rest)
+
+
+def _rebuild(seq, items: List):
+    """A list or tuple of ``seq``'s type holding ``items``; a named
+    tuple (an optimizer state) is built from its fields."""
+    if hasattr(seq, "_fields"):
+        return type(seq)(*items)
+    return type(seq)(items)
 
 
 def tree_leaves(tree) -> List:
@@ -39,7 +47,7 @@ def tree_unflatten(tree, leaves: List):
         if isinstance(t, dict):
             return {k: build(t[k]) for k in sorted(t)}
         if isinstance(t, (list, tuple)):
-            return type(t)(build(v) for v in t)
+            return _rebuild(t, [build(v) for v in t])
         return next(it)
 
     return build(tree)

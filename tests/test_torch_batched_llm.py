@@ -205,8 +205,43 @@ def test_fedavg_and_blend_match_jax():
                                np.asarray(jb[0]["a"]), atol=1e-6)
 
 
-def test_multi_device_raises(setup):
+
+
+def _carried_adapters(s, n):
+    """JAX's adapter inits of clients ``0..n-1``, carried across."""
+    return convert.adapters_from_jax(
+        _tolist(jax.vmap(lambda k: JM.init_adapters(s["jcfg"], k,
+                                                    s["jbase"]))(
+            jax.vmap(jllmc.llm_key, in_axes=(None, 0, None))(
+                jllmc.llm_root(SEED), jnp.arange(n), jllmc.LLM_INIT_STEP))),
+        stacked=True)
+
+
+def test_stage_over_eight_shards(setup, runs):
+    """The clients axis: C=3 over 8 CPU shards (5 inert clients) is
+    bitwise the one-device stage padded to 8, adapters, AdamW state and
+    teacher ``a_g`` included, and holds to the JAX stage at the stage
+    tolerances."""
     s = setup
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        BatchedLLMEngine(s["task"], s["cfg"], s["base"], seed=0, steps=1,
-                         n_devices=2)
+    _, jout, _, _ = runs
+    outs, engines = [], []
+    for kw in (dict(n_devices=8), dict(pad_to=8)):
+        eng = BatchedLLMEngine(s["task"], s["cfg"], s["base"], seed=SEED,
+                               steps=STEPS, **kw)
+        eng.adapters = _carried_adapters(s, 8)
+        outs.append(eng.run())
+        engines.append(eng)
+    (shard, pad), (shard_eng, pad_eng) = outs, engines
+    assert len(shard_eng.devices) == 8 and len(pad_eng.devices) == 1
+    for f in ("losses", "f1", "teacher", "final_train_loss"):
+        np.testing.assert_array_equal(getattr(shard, f), getattr(pad, f),
+                                      err_msg=f)
+    for tree_a, tree_b in ((shard_eng.adapters, pad_eng.adapters),
+                           (shard_eng.opt_state, pad_eng.opt_state),
+                           (shard_eng.a_g, pad_eng.a_g)):
+        for a, b in zip(tree_leaves(tree_a), tree_leaves(tree_b)):
+            assert torch.equal(a, b)
+    np.testing.assert_allclose(shard.losses, jout.losses, atol=5e-4)
+    np.testing.assert_allclose(shard.f1, jout.f1, atol=0.05)
+    np.testing.assert_allclose(shard.teacher, np.asarray(jout.teacher),
+                               atol=5e-4)

@@ -12,6 +12,7 @@ JAX package's twins on the same inputs, with hypothesis, as the JAX
 tests do.  (``tests/test_torch_fused_rounds.py`` holds full
 participation to both packages' host loops.)
 """
+import dataclasses
 import functools
 
 import jax
@@ -283,8 +284,10 @@ def test_driver_validation():
                       (dict(optimizer="cobyla"), "optimizer")):
         with pytest.raises(ValueError, match=match):
             FusedRoundDriver(task, spec, be, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        FusedRoundDriver(task, spec, be, device="cpu", n_devices=2)
+    # the cohort is cut into the shards each round: it must divide them
+    with pytest.raises(ValueError, match="does not divide across 2"):
+        FusedRoundDriver(task, spec, be, device="cpu", n_devices=2,
+                         c_round=1)
     assert FusedRoundDriver(task, spec, be, device="cpu",
                             c_round=3).c_round is None
 
@@ -296,3 +299,25 @@ def test_population_options_need_fused_rounds():
     with pytest.raises(ValueError, match="batched"):
         run_experiment(task, rounds="fused", engine="sequential",
                        device="cpu")
+
+
+def test_population_over_eight_shards():
+    """The clients axis: C_pop=12, cohorts of 8 cut over 8 CPU shards,
+    ``fake``, dropout 0.25: the sharded fused run equals the one-shard
+    run bit for bit, and the JAX package's fused run and host
+    reference as the one-shard run does."""
+    jdriver, driver, theta0 = _pop_drivers("fake", 0.25, c_round=8,
+                                           n_rounds=3)
+    _, task = _tasks("pop")
+    sharded = FusedRoundDriver(
+        task, driver.spec, driver.backend, device="cpu", n_devices=8,
+        optimizer="spsa", seed=4, maxiter0=3, n_rounds=3, early_stop=False,
+        c_round=8, dropout=0.25)
+    assert len(sharded.program.shards) == 8
+    got, one = sharded.run(theta0), driver.run(theta0)
+    for f in dataclasses.fields(one):
+        a, b = getattr(one, f.name), getattr(got, f.name)
+        assert a.dtype == b.dtype and a.shape == b.shape, f.name
+        np.testing.assert_array_equal(a, b, err_msg=f.name)
+    assert got.dropped.any()
+    _assert_population_parity(got, jdriver.run(theta0))

@@ -126,3 +126,24 @@ def test_fused_matches_both_host_loops(name):
         assert all(len(r.selected) == 2 for r in fused.rounds)
     if name == "early-termination":
         assert fused.terminated_early
+
+
+@pytest.mark.parametrize("name", ["qfl-nm", "qfl-spsa-shots"])
+def test_sharded_fused_equals_the_sharded_host_loop(name):
+    """The clients axis: over 4 CPU shards (3 clients, 1 inert) the
+    fused run is the sharded host loop bit for bit and the one-shard
+    fused run, and holds to the JAX host loop as the one-shard run
+    does."""
+    want, llm = _jax_host(name)
+    task = _tasks()[1]
+    kw = dict(PAIRS[name], engine="batched", device="cpu", llm_outputs=llm)
+    host = run_experiment(task, rounds="host", n_devices=4, **kw)
+    fused = run_experiment(task, rounds="fused", n_devices=4, **kw)
+    one = run_experiment(task, rounds="fused", **kw)
+    for other in (host, one):
+        for attr in ("maxiters", "cum_evals", "selected", "server_loss",
+                     "client_losses", "ratios", "comm_time_s"):
+            assert fused.series(attr) == other.series(attr), attr
+        np.testing.assert_array_equal(fused.theta_g, other.theta_g)
+    _assert_round_parity(want, fused,
+                         theta_atol=JAX_THETA_ATOL.get(name, 2e-6))

@@ -38,6 +38,7 @@ def test_port_has_its_modules():
                  "kernels.int4_matmul", "kernels.distill_kl",
                  "quantum.statevector", "quantum.circuits",
                  "optim.gradfree", "optim.batched_spsa", "core.distill",
+                 "distributed.sharding",
                  "device", "launch", "launch.train"):
         assert f"repro_torch.{name}" in MODULES
 

@@ -78,13 +78,10 @@ def test_run_config_defaults_and_fields_match():
      "rounds='fused'.*engine='batched'"),
     (dict(engine="sequential", n_devices=2), ValueError,
      "n_devices > 1.*engine='batched'"),
-    (dict(rounds="fused", n_devices=2), NotImplementedError, "multi-GPU"),
-    (dict(n_devices=2), NotImplementedError, "multi-GPU"),
 ])
 def test_unported_options_raise(override, exc, item):
-    """Options the port does not run raise ``NotImplementedError`` naming
-    their ROADMAP item; the JAX package's own ``ValueError`` checks come
-    first, in its order."""
+    """Invalid option combinations raise the JAX package's own
+    ``ValueError``, in its order."""
     name, tkw = TASKS["genomic"]
     task = build_task(name, **tkw)
     kw = dict(KW, **override)
@@ -168,3 +165,38 @@ def test_llm_qfl_rounds_match_jax_with_step1_carried(jax_llm_runs,
                                want.series("client_losses"), atol=1e-5,
                                rtol=0)
     np.testing.assert_allclose(got.theta_g, want.theta_g, atol=1e-4, rtol=0)
+
+
+# --- the clients axis: every option over 8 CPU shards ------------------------
+SHARDED = [dict(method=m, rounds=r, optimizer=o, backend=b)
+           for m in ("qfl", "llm-qfl") for r in ("host", "fused")
+           for o in ("nelder-mead", "spsa") for b in ("exact", "fake")]
+SHARDED.append(dict(method="qfl", rounds="fused", optimizer="spsa",
+                    backend="fake", c_round=2, dropout=0.25))
+
+
+@pytest.mark.parametrize("opts", SHARDED, ids=lambda o: "-".join(
+    str(v) for v in o.values()))
+def test_every_option_runs_over_eight_shards(jax_llm_runs, opts):
+    """``run_experiment(task, engine="batched", n_devices=8,
+    device="cpu")`` runs every method, round loop, optimizer and
+    backend, and population mode (2 shards, cohorts of 2), bit for bit
+    as one shard; LLM-QFL on the JAX run's Step 1 outputs."""
+    name, tkw = LLM_TASK
+    res, teachers = jax_llm_runs[0.5]
+    llm = (LLMOutputs(res.llm_losses, res.llm_f1, teachers)
+           if opts["method"] == "llm-qfl" else None)
+    kw = dict(opts, engine="batched", n_rounds=2, maxiter0=2,
+              maxiter_cap=4, select_frac=0.5, early_stop=False)
+    n = 2 if "c_round" in opts else 8
+    task = build_task(name, **tkw)
+    one = run_experiment(task, device="cpu", llm_outputs=llm, **kw)
+    shard = run_experiment(task, device="cpu", llm_outputs=llm,
+                           n_devices=n, **kw)
+    for attr in ("maxiters", "cum_evals", "selected", "server_loss",
+                 "client_losses", "ratios", "comm_time_s"):
+        for got, want in zip(shard.series(attr), one.series(attr)):
+            # NaN where a population client sat the round out
+            np.testing.assert_array_equal(got, want, err_msg=attr)
+    assert len(shard.rounds) == len(one.rounds) == 2
+    np.testing.assert_array_equal(shard.theta_g, one.theta_g)

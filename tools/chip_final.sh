@@ -1,8 +1,10 @@
 #!/usr/bin/env bash
 # The chip record of a change to the port, in one call on one CUDA card:
 # chip_smoke.py, the card tests, chip_smoke.py --profile,
-# tools/attn_variants.py, and chip_smoke.attn_probe on a parent checkout
-# and this one in turns (parent, this, this, parent).
+# tools/attn_variants.py, and chip_smoke.attn_probe and
+# chip_smoke.lora_phase (lora_matmul's checks and times at every path's
+# shape) on a parent checkout and this one in turns (parent, this, this,
+# parent).
 #
 #   bash tools/chip_final.sh PARENT_DIR OUT_DIR
 #
@@ -39,7 +41,8 @@ probe() {
         PYTHONPATH="$tree/src:$PWD" python3 -c '
 import torch
 import chip_smoke as cs
-cs.attn_probe(torch.Generator(device="cuda").manual_seed(0))' || return 1
+cs.attn_probe(torch.Generator(device="cuda").manual_seed(0))
+cs.lora_phase(torch.Generator(device="cuda").manual_seed(1))' || return 1
     done
 }
 
@@ -48,7 +51,8 @@ step pytest env PYTHONPATH=src python3 -m pytest -q -m cuda \
     -p no:cacheprovider tests/test_torch_cuda.py \
     tests/test_torch_cuda_tape.py tests/test_torch_cuda_llm.py \
     tests/test_torch_cuda_qlora.py tests/test_torch_cuda_sequential.py \
-    tests/test_torch_cuda_shots.py tests/test_torch_cuda_fused.py
+    tests/test_torch_cuda_shots.py tests/test_torch_cuda_fused.py \
+    tests/test_torch_cuda_sharding.py
 step profile python3 chip_smoke.py --profile
 step variants python3 tools/attn_variants.py
 step pairs probe
