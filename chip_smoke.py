@@ -7,6 +7,9 @@
                                        # times and the lone-CTA probe
     python3 chip_smoke.py --sharded    # phase 11 only, on card-only
                                        # one-shard references
+    python3 chip_smoke.py --serving    # phase 12 only, with the serving
+                                       # shapes' kernel times and a
+                                       # profile of 4 serve steps
 
 Run from the root of a checkout, on a machine with a CUDA card and
 ``nvcc``.  It imports nothing of JAX and nothing of the JAX package
@@ -40,7 +43,8 @@ failure, and the script then exits non-zero with no result line.
    The card's Step 1 is held to the CPU's (plain path) within the
    batched-LLM tolerances, and the CPU's quantum rounds, run on the
    card's Step 1 outputs, to the card's rounds exactly on the integer
-   accounting.
+   accounting.  The CPU's rounds run in a process of their own beside
+   phases 5-11 and are collected before phase 12.
 5. Wide phases: a 10-qubit VQC (485 gates, 40 params), 8 clients, one
    round; and the LLM stage alone at ``llama3.2-1b`` widths (16 layers,
    d_model 2048, 4 clients × 16 rows × 64 tokens, 2 steps, float32 base).
@@ -110,12 +114,30 @@ failure, and the script then exits non-zero with no result line.
    local phase, so the launches are
    the one-shard formulas with the local phase counted once a shard.
    Where two or more cards are visible the same runs go across cards.
-11. Prints the phases' wall times, the card line, one
+11. Serving and decode (printed as phase 12, after phase 9):
+   ``llama3.2-1b`` at its published widths with its bfloat16 base, 4
+   requests, ``make_prefill_step`` on prompts of 32 and 512 tokens, then
+   16 serve steps sampled at temperature 0.8: prefill time, time a
+   serve step beside its byte bound (weights and cache at 3.35 TB/s),
+   tokens/s and peak memory.  Held: the launches of a prefill (16
+   ``flash_attention``, 80 ``lora_matmul``) and of each serve step (80
+   ``lora_matmul``); prefill's last logits against the decode path fed
+   the same prompt, within twice the CPU port's own gap at 32 tokens on
+   the same weights (at 32 and 512 tokens); prefill and 2 serve steps
+   against the CPU port (32 tokens): logits within 3e-2 of the largest,
+   caches within twice the CPU port's own prefill-against-decode gap;
+   on the same weights in float32 (float32 decode cache) logits and
+   caches within 1e-4; the card's prefill without the LoRA term must
+   miss the 3e-2 bound.
+   ``lora_matmul`` and ``flash_attention`` are timed at the serving
+   shapes in bfloat16 against cuBLAS and SDPA.
+12. Prints the phases' wall times, the card line, one
    ``{"kernels": [...]}`` line (``launches_sequential``: the launches of
    phase 7's sequential LLM-QFL Step 1, and for ``statevector_tape`` of
    its batched SPSA QFL run; ``launches_aersim``, ``launches_gpt2``,
    ``launches_deepseek``: phase 9's; ``launches_fused*``: phase 10's;
-   ``launches_sharded*``: phase 11's, on one card), and last
+   ``launches_sharded*``: phase 11's, on one card; ``launches_serving``
+   and ``serving``: phase 12's launches and shapes), and last
    ``{"ok": true, "device": {...}}``.
 
 Each path is driven with every launch counter set to 0 just before it
@@ -145,6 +167,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, published
 F32_FLOPS_PER_S = 67e12            # H100 SXM, float32 outside tensor cores
 TF32_FLOPS_PER_S = 495e12          # H100 SXM, TF32 tensor cores, dense
+BF16_FLOPS_PER_S = 989e12          # H100 SXM, bf16 tensor cores, dense
 
 QUICKSTART = dict(task=dict(n_clients=5, train_size=250, test_size=100,
                             val_size=60, seed=0),
@@ -157,6 +180,10 @@ LLM_QUICKSTART = dict(task=QUICKSTART["task"],
 LLM_WIDE = dict(task=dict(n_clients=4, train_size=64, test_size=16,
                           val_size=16, seed=0),
                 steps=2, batch_size=16)
+# torch threads of the process that runs phase 4's quantum rounds on the
+# CPU beside the later phases (the costliest CPU comparison of the smoke,
+# 230-258 s on 8 threads, most of it the host's own loop)
+CPU_JOB_THREADS = 4
 # the batched-LLM tolerances of the JAX package's tests
 LLM_LOSS_TOL, LLM_F1_TOL, TEACHER_TOL = 5e-4, 0.05, 5e-4
 KERNELS = ("statevector_gate", "statevector_tape", "lora_matmul",
@@ -176,6 +203,43 @@ GATE_SHAPES = ((SIZE_RULE_ROWS, SIZE_RULE_QUBITS,
                 "size rule: run_tape above 14 qubits"),
                (4750, 4, "none: the quickstart's replays use the tape kernel"),
                (17200, 10, "none: the wide replays use the tape kernel"))
+
+
+def _run_job(send, fn, args):
+    """A spawned process's body: ``fn(*args)`` sent back as (ok, value)."""
+    try:
+        out = (True, fn(*args))
+    except BaseException:
+        import traceback
+        out = (False, traceback.format_exc())
+    send.send(out)
+    send.close()
+
+
+class CpuJob:
+    """``fn(*args)`` in a spawned process of its own, beside the card's
+    phases.  The process is daemonic, so it ends with the smoke wherever
+    that stops; ``result()`` waits for it and fails the smoke if it
+    failed."""
+
+    def __init__(self, what: str, fn, *args):
+        import multiprocessing
+        ctx = multiprocessing.get_context("spawn")
+        self.what = what
+        self._recv, send = ctx.Pipe(duplex=False)
+        self._proc = ctx.Process(target=_run_job, args=(send, fn, args),
+                                 daemon=True)
+        self._proc.start()
+        send.close()
+
+    def result(self):
+        try:
+            ok, value = self._recv.recv()
+        except EOFError:
+            ok, value = False, "it ended with no result"
+        self._proc.join()
+        check(ok, f"{self.what}, exit code {self._proc.exitcode}: {value}")
+        return value
 
 
 def check(cond, msg):
@@ -456,15 +520,18 @@ def abs_err(got, want) -> float:
     return float((got.detach().float() - want.detach().float()).abs().max())
 
 
-def rel_err(got, want) -> float:
-    """max |got - want| over max(1, max |want|)."""
-    got, want = got.detach().float(), want.detach().float()
+def rel_err(got, want, floor: float = 1.0) -> float:
+    """max |got - want| over max(floor, max |want|), on got's device."""
+    got = got.detach().float()
+    want = want.detach().float().to(got.device)
     return float((got - want).abs().max()
-                 / max(1.0, float(want.abs().max())))
+                 / max(floor, float(want.abs().max())))
 
 
-def bound_ms(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+def bound_ms(flops: float, nbytes: float, peak: float = F32_FLOPS_PER_S):
+    """flops at ``peak`` (FFMA float32 unless stated) or bytes over 3.35
+    TB/s, whichever takes longer: (ms, what bounds it)."""
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -474,10 +541,7 @@ def tc_bound_ms(products: int, flops: float, nbytes: float):
     products (3xTF32: 3 for float32 operands, 2 when the weight is exact
     in TF32): products · 2MNK over 495 TFLOP/s, or bytes over 3.35 TB/s,
     whichever is larger."""
-    t_ops = products * flops / TF32_FLOPS_PER_S
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    return bound_ms(products * flops, nbytes, TF32_FLOPS_PER_S)
 
 
 # Projection shapes (K, N) of one layer, and the rows M each launch sees:
@@ -515,6 +579,23 @@ def lora_flops_bytes(C, M, K, N, r, elem=4):
     flops = 2 * C * M * (K * N + K * r + r * N)
     nbytes = elem * (C * M * K + K * N + C * K * r + C * r * N + C * M * N)
     return flops, nbytes
+
+
+def time_lora(x, w, a, b, iters: int = 100, replays: int = 20) -> dict:
+    """One lora_matmul forward (scale 2) timed: the kernel, its plain
+    version and cuBLAS ``x@W`` + ``baddbmm``, in a host loop (``*ms``)
+    and the kernel and cuBLAS in a CUDA graph (``*graph_ms``)."""
+    import torch
+    from repro_torch.kernels import lora_matmul as lm, ref
+    kern = lambda: lm._launch(x, w, a, b, 2.0)  # noqa: E731
+    lib = lambda: torch.baddbmm(  # noqa: E731
+        torch.matmul(x, w), torch.bmm(x, a), b, alpha=2.0)
+    return dict(ms=cuda_ms(kern, iters=iters),
+                graph_ms=graph_ms(kern, replays),
+                plain_ms=cuda_ms(lambda: ref.lora_matmul(x, w, a, b, 2.0),
+                                 iters=iters),
+                library_ms=cuda_ms(lib, iters=iters),
+                library_graph_ms=graph_ms(lib, replays))
 
 
 def lora_phase(gen):
@@ -572,24 +653,17 @@ def lora_phase(gen):
             dy = _randn(gen, (C, M, N))
             big = K * N >= 1 << 24
             it = 10 if big else 100
-            ms = cuda_ms(lambda: lm._launch(x, w, a, b, 2.0), iters=it)
+            t = time_lora(x, w, a, b, it, 3 if big else 20)
+            ms, dev, plain = t["ms"], t["graph_ms"], t["plain_ms"]
+            library, lib_dev = t["library_ms"], t["library_graph_ms"]
             dx_ms = cuda_ms(lambda: lm._launch(dy, w.t(), b.transpose(1, 2),
                                                a.transpose(1, 2), 2.0),
                             iters=it)
-            plain = cuda_ms(lambda: ref.lora_matmul(x, w, a, b, 2.0),
-                            iters=it)
-            lib = lambda: torch.baddbmm(  # noqa: E731
-                torch.matmul(x, w), torch.bmm(x, a), b, alpha=2.0)
-            library = cuda_ms(lib, iters=it)
-            n_graph = 3 if big else 20
-            dev = graph_ms(lambda: lm._launch(x, w, a, b, 2.0), n_graph)
-            lib_dev = graph_ms(lib, n_graph)
             flops, nbytes = lora_flops_bytes(C, M, K, N, r)
             bms, by = bound_ms(flops, nbytes)
             tms, tby = tc_bound_ms(3, 2 * C * M * N * K, nbytes)
-            shapes.append(dict(shape=name, C=C, M=M, K=K, N=N, r=r, ms=ms,
-                               graph_ms=dev, dx_ms=dx_ms, plain_ms=plain,
-                               library_ms=library, library_graph_ms=lib_dev,
+            shapes.append(dict(shape=name, C=C, M=M, K=K, N=N, r=r,
+                               dx_ms=dx_ms, **t,
                                bound_ms=bms, bound_by=by, tc_bound_ms=tms,
                                tc_bound_by=tby, tc_products=3,
                                tflops=flops / dev / 1e9,
@@ -697,6 +771,24 @@ def attn_check(gen, name, B, S, H, KH, D, causal, window, dtype):
     return abs_err(got, want), max(abs_err(u, w) for u, w in zip(g, gw))
 
 
+def time_attn(q, k, v) -> dict:
+    """One causal flash_attention forward timed: the kernel, its plain
+    version and SDPA with grouped heads, in a host loop (``*ms``) and the
+    kernel and SDPA in a CUDA graph (``*graph_ms``)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa, ref
+    scale = q.shape[-1] ** -0.5
+    kern = lambda: fa._forward(q, k, v, True, 0, scale)  # noqa: E731
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    return dict(ms=cuda_ms(kern, iters=100), graph_ms=graph_ms(kern),
+                plain_ms=cuda_ms(lambda: ref.flash_attention(q, k, v),
+                                 iters=50),
+                library_ms=cuda_ms(sdpa, iters=100),
+                library_graph_ms=graph_ms(sdpa))
+
+
 def attn_phase(gen):
     """flash_attention forward and backward against ``ref`` and plain
     autograd, the backward's bitwise repeatability; times against SDPA;
@@ -766,21 +858,14 @@ def attn_phase(gen):
         do = _randn(gen, (B, S, H, D))
         with torch.no_grad():
             out, lse = fa._forward(q, k, v, True, 0, D ** -0.5)
-            ms = cuda_ms(lambda: fa._forward(q, k, v, True, 0, D ** -0.5),
-                         iters=100)
-            plain = cuda_ms(lambda: ref.flash_attention(q, k, v), iters=50)
-            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                qt, kt, vt, is_causal=True, enable_gqa=True)
-            library = cuda_ms(sdpa, iters=100)
-            dev = graph_ms(lambda: fa._forward(q, k, v, True, 0, D ** -0.5))
-            lib_dev = graph_ms(sdpa)
+            t = time_attn(q, k, v)
+            ms, dev, plain = t["ms"], t["graph_ms"], t["plain_ms"]
+            library, lib_dev = t["library_ms"], t["library_graph_ms"]
             bms, by = bound_ms(*attn_flops_bytes(B, S, H, KH, D))
             # on the tensor cores at float32 accuracy: 3 TF32 products
             tms, tby = tc_bound_ms(3, *attn_flops_bytes(B, S, H, KH, D))
-        fwd.append(dict(shape=name, B=B, S=S, H=H, KH=KH, D=D, ms=ms,
-                        graph_ms=dev, plain_ms=plain, library_ms=library,
-                        library_graph_ms=lib_dev, bound_ms=bms, bound_by=by,
+        fwd.append(dict(shape=name, B=B, S=S, H=H, KH=KH, D=D, **t,
+                        bound_ms=bms, bound_by=by,
                         tc_bound_ms=tms, tc_bound_by=tby))
         b_ms = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse, do),
                        iters=100)
@@ -1179,18 +1264,38 @@ def llm_phase() -> dict:
           f"max |Δ L_LLM| {d_loss:.3g}, |Δ F1| {d_f1:.3g}, |Δ teacher| "
           f"{d_teacher:.3g}")
 
-    # the quantum rounds on the CPU, fed the card's Step 1
-    t0 = time.perf_counter()
-    _, cpu2, _ = run_main_path("cpu", LLM_QUICKSTART, method="llm-qfl",
-                               llm_outputs=orch.llm_outputs)
-    loss_gap, theta_gap = compare_runs(gpu, cpu2)
-    print(f"llm-qfl rounds (cpu, plain, on the card's Step 1) in "
-          f"{time.perf_counter() - t0:.2f} s: equal maxiters/selected/"
-          f"cum_evals; max |Δ server loss| {loss_gap:.3g}, max |Δ θ_g| "
-          f"{theta_gap:.3g}")
+    # the quantum rounds on the CPU, fed the card's Step 1, in a process
+    # of their own beside the later phases (llm_rounds collects them)
+    job = CpuJob("llm-qfl rounds (cpu, plain)", cpu_llm_rounds,
+                 orch.llm_outputs)
     return dict(counts=n, wall_s=wall, finetune_s=gpu.llm_finetune_time_s,
                 round_s=orch.round_seconds, gpu=gpu,
-                llm_outputs=orch.llm_outputs)
+                llm_outputs=orch.llm_outputs, cpu_rounds=job)
+
+
+def cpu_llm_rounds(llm_outputs):
+    """The LLM-QFL quickstart's quantum rounds on the CPU (plain path),
+    fed the card's Step 1: (result, seconds)."""
+    import torch
+    torch.set_num_threads(CPU_JOB_THREADS)
+    t0 = time.perf_counter()
+    _, res, _ = run_main_path("cpu", LLM_QUICKSTART, method="llm-qfl",
+                              llm_outputs=llm_outputs)
+    return res, time.perf_counter() - t0
+
+
+def llm_rounds(llm: dict):
+    """Phase 4's quantum rounds on the CPU, collected and held to the
+    card's: the integer accounting exactly, losses and θ_g as
+    ``compare_runs`` says."""
+    t0 = time.perf_counter()
+    cpu2, seconds = llm["cpu_rounds"].result()
+    loss_gap, theta_gap = compare_runs(llm["gpu"], cpu2)
+    print(f"llm-qfl rounds (cpu, plain, on the card's Step 1; a process of "
+          f"{CPU_JOB_THREADS} threads beside phases 5-11) in {seconds:.2f} "
+          f"s, {time.perf_counter() - t0:.2f} s of it waited for: equal "
+          f"maxiters/selected/cum_evals; max |Δ server loss| "
+          f"{loss_gap:.3g}, max |Δ θ_g| {theta_gap:.3g}")
 
 
 def wide_phase():
@@ -2453,6 +2558,377 @@ def sharded_phase(qfl: dict, llm: dict, fused: dict) -> dict:
     return dict(modes=out, wall_s=wall)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: serving and decode at llama3.2-1b's full width
+# ---------------------------------------------------------------------------
+# B requests, prompts of the serving example's 32 tokens and of 512 (eight
+# 64-key tiles of the attention kernel), then SERVE_STEPS serve steps
+SERVE_MODEL, SERVE_B, SERVE_STEPS = "llama3.2-1b", 4, 16
+SERVE_PROMPTS = (32, 512)
+SERVE_TEMPERATURE = 0.8
+# the card against the CPU port on the same weights (32-token prompts),
+# of the largest magnitude.  bfloat16 base: logits within 3e-2 (the bound
+# of tests/test_torch_decode.py for bfloat16 logits rounded in another
+# order); the caches (every layer's k and v) within twice the CPU port's
+# own gap between its prefill's caches and those its decode path fills,
+# the bfloat16 noise of the residual stream at this depth, as prefill's
+# logits are held to the decode path's.  The same weights in float32,
+# with a float32 decode cache (a bfloat16 one rounds a float32 model's
+# k, v and softmax back to bfloat16), separate the kernels from that
+# noise: logits and caches within 1e-4, the float32 bound of
+# tests/test_torch_cuda_decode.py.  A control, the card's prefill with
+# every lora_b zeroed, must land outside SERVE_CPU_TOL.
+SERVE_CPU_TOL, SERVE_F32_TOL = 3e-2, 1e-4
+
+
+def serving_launches(n_layers: int, n_proj: int = 5) -> dict:
+    """Launches of one prefill and of one serve step: every adapted
+    projection once a layer; attention once a layer in prefill (the
+    decode attention is plain torch, as the JAX package's is jnp)."""
+    return {"prefill": {"lora_matmul": n_layers * n_proj,
+                        "flash_attention": n_layers},
+            "serve_step": {"lora_matmul": n_layers * n_proj,
+                           "flash_attention": 0}}
+
+
+def check_serving_launches(n: dict, want: dict, what: str):
+    for name, count in n.items():
+        check(count == want.get(name, 0),
+              f"{what}: {count} {name} launches, want {want.get(name, 0)}")
+
+
+def times_text(t: dict, library: str) -> str:
+    return (f"kernel {t['ms'] * 1e3:.2f} us (graph {t['graph_ms'] * 1e3:.2f}"
+            f" us), plain {t['plain_ms'] * 1e3:.1f} us, {library} "
+            f"{t['library_ms'] * 1e3:.2f} us (graph "
+            f"{t['library_graph_ms'] * 1e3:.2f} us)")
+
+
+def serving_kernel_times(gen) -> dict:
+    """``lora_matmul`` and ``flash_attention`` at the serving shapes, in
+    bfloat16: each held to its plain version (2e-2 of the largest
+    magnitude) and timed by ``time_lora`` / ``time_attn``, beside its
+    bound (bf16 tensor cores, 989 TFLOP/s, or bytes over 3.35 TB/s)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa, lora_matmul as lm
+    from repro_torch.kernels import ref
+    bf = torch.bfloat16
+    d, ff, r = 2048, 8192, 8
+    B, H, KH, D = SERVE_B, 32, 8, 64
+    lora, attn = [], []
+    with torch.no_grad():
+        for name, M_ in (("decode-w_in", B), ("prefill-32-w_in", B * 32),
+                         ("prefill-512-w_in", B * 512)):
+            K, N = d, 2 * ff
+            x = _randn(gen, (1, M_, K), dtype=bf)
+            w = _randn(gen, (K, N), K ** -0.5, bf)
+            a = _randn(gen, (1, K, r), K ** -0.5, bf)
+            b = _randn(gen, (1, r, N), 0.1, bf)
+            got = lm._launch(x, w, a, b, 2.0)
+            want = ref.lora_matmul(x, w, a, b, 2.0)
+            err = rel_err(got, want, floor=0.0)
+            check(err <= 2e-2, f"lora_matmul {name}: error {err}")
+            t = time_lora(x, w, a, b, iters=50)
+            bms, by = bound_ms(*lora_flops_bytes(1, M_, K, N, r, elem=2),
+                               BF16_FLOPS_PER_S)
+            lora.append(dict(shape=name, C=1, M=M_, K=K, N=N, r=r,
+                             dtype="bfloat16",
+                             max_abs_err=abs_err(got, want), **t,
+                             bound_ms=bms, bound_by=by))
+            print(f"  serving lora_matmul {name} (M={M_} K={K} N={N} r={r} "
+                  f"bf16): {times_text(t, 'cuBLAS')}, bound "
+                  f"{bms * 1e3:.2f} us ({by}); rel err {err:.3g}")
+        for S in SERVE_PROMPTS:
+            q = _randn(gen, (B, S, H, D), dtype=bf)
+            k = _randn(gen, (B, S, KH, D), dtype=bf)
+            v = _randn(gen, (B, S, KH, D), dtype=bf)
+            got = fa._forward(q, k, v, True, 0, D ** -0.5)[0]
+            want = ref.flash_attention(q, k, v)
+            err = rel_err(got, want, floor=0.0)
+            check(err <= 2e-2, f"flash_attention serving S={S}: {err}")
+            t = time_attn(q, k, v)
+            bms, by = bound_ms(*attn_flops_bytes(B, S, H, KH, D, elem=2),
+                               BF16_FLOPS_PER_S)
+            attn.append(dict(shape=f"prefill-{S}", B=B, S=S, H=H, KH=KH, D=D,
+                             dtype="bfloat16", max_abs_err=abs_err(got, want),
+                             **t, bound_ms=bms, bound_by=by))
+            print(f"  serving flash_attention prefill-{S} (B={B} S={S} "
+                  f"H={H} KH={KH} D={D} bf16): {times_text(t, 'SDPA')}, "
+                  f"bound {bms * 1e3:.2f} us ({by}); rel err {err:.3g}")
+    return dict(lora_matmul=lora, flash_attention=attn)
+
+
+def decode_path(cfg, model, prompts, device):
+    """The serve step fed ``prompts`` one token at a time from an empty
+    cache (the serving example's prefill): its last logits and the cache
+    it filled."""
+    from repro_torch.models import model as M
+    serve = M.make_serve_step(cfg)
+    B, P = prompts.shape
+    cache = M.init_cache(cfg, B, P, device=device)
+    for p in range(P):
+        logits, cache = serve(*model, cache, prompts[:, p:p + 1], p)
+    return logits, cache
+
+
+def decode_cache(cfg, caches, steps: int, device):
+    """A decode cache of ``P + steps`` slots holding prefill's ``P``, in
+    their dtype (the activations')."""
+    from repro_torch.models import model as M
+    B, P = caches[0][0].shape[:2]
+    cache = M.init_cache(cfg, B, P + steps, dtype=caches[0][0].dtype,
+                         device=device)
+    for (k, v), (ck, cv) in zip(caches, cache):
+        ck[:, :P] = k
+        cv[:, :P] = v
+    return cache
+
+
+def cache_errs(got, want) -> list:
+    """Each layer's larger error of k and v, of the largest magnitude."""
+    return [max(rel_err(g, w, floor=0.0) for g, w in zip(gl, wl))
+            for gl, wl in zip(got, want)]
+
+
+def against_cpu(cfg, model, cpu_model, prompts, steps: int = 2) -> dict:
+    """The card's prefill and ``steps`` serve steps (fed the card's greedy
+    tokens) against the CPU port's on the same weights, of the largest
+    magnitude: the logits, each layer's prefill caches and each layer's
+    decode cache after the steps; ``cpu`` is the CPU's prefill."""
+    import torch
+    from repro_torch.models import model as M
+    prefill, serve = M.make_prefill_step(cfg), M.make_serve_step(cfg)
+    P = prompts.shape[1]
+    logits, caches = {}, {}
+    for dev, m in (("cuda", model), ("cpu", cpu_model)):
+        logits[dev], caches[dev] = prefill(*m, {"tokens": prompts.to(dev)})
+    out = dict(prefill=rel_err(logits["cuda"], logits["cpu"], floor=0.0),
+               prefill_caches=cache_errs(caches["cuda"], caches["cpu"]),
+               steps=[], cpu=(logits["cpu"], caches["cpu"]))
+    cache = {dev: decode_cache(cfg, caches[dev], steps, dev)
+             for dev in caches}
+    tok = torch.argmax(logits["cuda"], -1)[:, None]
+    for s in range(steps):
+        got, cache["cuda"] = serve(*model, cache["cuda"], tok, P + s)
+        want, cache["cpu"] = serve(*cpu_model, cache["cpu"], tok.cpu(),
+                                   P + s)
+        out["steps"].append(rel_err(got, want, floor=0.0))
+        tok = torch.argmax(got, -1)[:, None]
+    out["step_caches"] = cache_errs(cache["cuda"], cache["cpu"])
+    return out
+
+
+def serving_counts(run: dict, name: str) -> dict:
+    """A kernel's launches in one prefill and in the serve steps after
+    it, for the ``kernels`` line."""
+    return {"prefill": run["launches_prefill"][name],
+            f"serve_steps_{SERVE_STEPS}": run["launches_steps"][name]}
+
+
+def serving_phase(profile: bool = False) -> dict:
+    """Phase 12: ``llama3.2-1b`` at its published widths (16 layers,
+    d_model 2048, 32/8 heads of 64, d_ff 8192, vocab 128256, tied), the
+    base in its config's bfloat16, adapters with ``lora_b`` + 0.01, 4
+    requests: ``make_prefill_step`` on prompts of 32 and 512 tokens, then
+    16 serve steps sampled at temperature 0.8, timed.  Checks, made after
+    every number is printed: the launches of a prefill and of the serve
+    steps; prefill's last logits against the decode path fed the same
+    prompt, within twice the CPU port's own gap at 32 tokens on the same
+    weights (at 32 and at 512 tokens); at 32 tokens, the card against the
+    CPU port (prefill and 2 serve steps, logits and caches) in bfloat16
+    and on the same weights in float32, and the control (no LoRA term),
+    as ``SERVE_CPU_TOL`` sets out.  Peak memory is taken after the base
+    draw (whose own peak is printed).  ``profile`` traces 4 warm serve
+    steps after the 512-token prefill."""
+    import torch
+    from repro_torch import random as jr
+    from repro_torch.configs.registry import get
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_leaves, tree_map
+    t_phase = time.perf_counter()
+    cfg = get(SERVE_MODEL)
+    B, steps = SERVE_B, SERVE_STEPS
+    want = serving_launches(cfg.n_layers)
+    torch.cuda.reset_peak_memory_stats()
+    key = jr.PRNGKey(0)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, key)
+    adapters = [{k: v + 0.01 if "lora_b" in k else v for k, v in a.items()}
+                for a in M.init_adapters(cfg, key, params)]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    draw_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    model = (params, adapters)
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(model))
+    prompts = torch.from_numpy(jr.randint(
+        key, (B, max(SERVE_PROMPTS)), 4, cfg.vocab_size - 4)).long().cuda()
+    prefill = M.make_prefill_step(cfg)
+    serve = M.make_serve_step(cfg)
+    runs = {}
+    for P in SERVE_PROMPTS:
+        batch = {"tokens": prompts[:, :P]}
+        prefill(*model, batch)                                  # warm
+        zero_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = prefill(*model, batch)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        n_prefill = read_counters()
+        cache = decode_cache(cfg, caches, steps, "cuda")
+        cache_bytes = sum(t.numel() * t.element_size()
+                          for t in tree_leaves(cache))
+        tok = torch.argmax(logits, -1)[:, None]
+        k = jr.fold_in(key, P)
+        zero_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for s in range(steps):
+            k, sub = jr.split(k)
+            step_logits, cache = serve(*model, cache, tok, P + s)
+            tok = jr.categorical(sub, step_logits / SERVE_TEMPERATURE)[:, None]
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        n_steps = read_counters()
+        dec = decode_path(cfg, model, prompts[:, :P], "cuda")[0]
+        r = runs[P] = dict(
+            prefill_s=prefill_s, decode_s=decode_s, step_s=decode_s / steps,
+            tokens_per_s=B * steps / decode_s,
+            gap=float((dec - logits).abs().max()),
+            largest_logit=float(logits.abs().max()),
+            cache_bytes=cache_bytes,
+            bound_step_ms=(weight_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3,
+            finite=bool(torch.isfinite(logits).all()
+                        and torch.isfinite(step_logits).all()),
+            launches_prefill=n_prefill, launches_steps=n_steps,
+            logits=logits, caches=caches)
+        print(f"phase 12 (serving {SERVE_MODEL}, bf16, B={B}, prompt {P}): "
+              f"prefill {prefill_s * 1e3:.2f} ms; {steps} serve steps "
+              f"{decode_s:.4f} s, {r['step_s'] * 1e3:.3f} ms a step (byte "
+              f"bound {r['bound_step_ms']:.3f} ms: {weight_bytes / 1e9:.3f} "
+              f"GB of weights and {cache_bytes / 1e6:.1f} MB of cache at "
+              f"3.35 TB/s), {r['tokens_per_s']:.1f} tokens/s; prefill "
+              f"against the decode path {r['gap']:.3g} (largest logit "
+              f"{r['largest_logit']:.3g}); launches: prefill "
+              f"{json.dumps(n_prefill)}, serve steps {json.dumps(n_steps)}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # the CPU port on the same weights at 32 tokens: prefill and 2 serve
+    # steps against the card's, its own decode path against its prefill,
+    # the control, then all of it again on the weights in float32
+    P_cpu = min(SERVE_PROMPTS)
+    tokens = prompts[:, :P_cpu]
+    t0 = time.perf_counter()
+    cpu_model = tree_map(lambda t: t.cpu(), model)
+    bf = against_cpu(cfg, model, cpu_model, tokens)
+    cpu_logits, cpu_caches = bf.pop("cpu")
+    dec_logits, dec_cache = decode_path(cfg, cpu_model, tokens.cpu(), "cpu")
+    cpu_gap = float((dec_logits - cpu_logits).abs().max())
+    cpu_cache_gap = max(cache_errs(dec_cache, cpu_caches))
+    no_lora = [{k: torch.zeros_like(v) if "lora_b" in k else v
+                for k, v in a.items()} for a in adapters]
+    control = rel_err(prefill(params, no_lora, {"tokens": tokens})[0],
+                      cpu_logits, floor=0.0)
+    del no_lora, dec_cache, cpu_caches
+    bf16_s = time.perf_counter() - t0
+    f32 = lambda t: t.float()  # noqa: E731
+    f32_model = tree_map(f32, model)
+    f32_cpu_model = tree_map(f32, cpu_model)
+    fl = against_cpu(cfg, f32_model, f32_cpu_model, tokens)
+    fl.pop("cpu")
+    del f32_model, f32_cpu_model, cpu_model
+    cpu_s = time.perf_counter() - t0
+    wall = time.perf_counter() - t_phase
+    err_cache = max(bf["prefill_caches"] + bf["step_caches"])
+    layers = lambda e: ", ".join(f"{x:.3g}" for x in e)  # noqa: E731
+    print(f"phase 12: CPU port ({P_cpu} tokens) in {cpu_s:.1f} s (bfloat16 "
+          f"{bf16_s:.1f} s, float32 {cpu_s - bf16_s:.1f} s): card "
+          f"against it, of the largest, bfloat16: prefill logits "
+          f"{bf['prefill']:.3g}, serve steps {layers(bf['steps'])} "
+          f"(tolerance {SERVE_CPU_TOL}); caches {err_cache:.3g} (tolerance "
+          f"twice the CPU port's own prefill against decode path "
+          f"{cpu_cache_gap:.3g}; prefill's by layer "
+          f"{layers(bf['prefill_caches'])}); control without the LoRA term "
+          f"{control:.3g} (must exceed {SERVE_CPU_TOL}); float32 weights: "
+          f"prefill logits {fl['prefill']:.3g}, serve steps "
+          f"{layers(fl['steps'])}, prefill caches "
+          f"{max(fl['prefill_caches']):.3g}, decode caches "
+          f"{max(fl['step_caches']):.3g} (tolerance {SERVE_F32_TOL}, a "
+          f"float32 decode cache); prefill against the decode path "
+          f"{runs[P_cpu]['gap']:.3g} on the card, {cpu_gap:.3g} on the CPU; "
+          f"base draw {init_s:.2f} s (peak {draw_peak:.2f} GiB); peak "
+          f"memory after it {peak:.2f} GiB; phase {wall:.1f} s")
+    if profile:
+        profile_serving(cfg, model, runs[max(SERVE_PROMPTS)])
+
+    for P, r in runs.items():
+        check_serving_launches(r["launches_prefill"], want["prefill"],
+                               f"prefill {P}")
+        check_serving_launches(r["launches_steps"], {
+            name: steps * c for name, c in want["serve_step"].items()},
+            f"{steps} serve steps after a {P}-token prefill")
+        check(r["finite"] and r["logits"].shape == (B, cfg.vocab_size),
+              f"prefill {P} or its serve steps: logits not finite")
+        check(r["gap"] <= 2 * cpu_gap,
+              f"prefill {P} against the decode path: {r['gap']} on the "
+              f"card, over twice the CPU port's {cpu_gap} at {P_cpu} tokens")
+    for what, err, tol in (
+            [("bfloat16 prefill logits", bf["prefill"], SERVE_CPU_TOL),
+             ("bfloat16 caches", err_cache, 2 * cpu_cache_gap),
+             ("float32 prefill logits", fl["prefill"], SERVE_F32_TOL),
+             ("float32 prefill caches", max(fl["prefill_caches"]),
+              SERVE_F32_TOL),
+             ("float32 decode caches", max(fl["step_caches"]),
+              SERVE_F32_TOL)]
+            + [(f"bfloat16 serve step {s}", e, SERVE_CPU_TOL)
+               for s, e in enumerate(bf["steps"])]
+            + [(f"float32 serve step {s}", e, SERVE_F32_TOL)
+               for s, e in enumerate(fl["steps"])]):
+        check(err <= tol, f"{what} after a {P_cpu}-token prompt: the card "
+              f"against the CPU port {err} of the largest, over {tol}")
+    check(control > SERVE_CPU_TOL,
+          f"the control (card prefill without the LoRA term) is within "
+          f"{SERVE_CPU_TOL} of the CPU port with it ({control}): the bound "
+          "cannot see a lost adapter term")
+    big = runs[max(SERVE_PROMPTS)]
+    return dict(
+        wall_s=wall, cpu_s=cpu_s, bf16_s=bf16_s, init_s=init_s,
+        peak_gib=peak,
+        draw_peak_gib=draw_peak,
+        weight_bytes=weight_bytes, bound_step_ms=big["bound_step_ms"],
+        bf16=bf, float32=fl, control=control, cpu_gap=cpu_gap,
+        cpu_cache_gap=cpu_cache_gap,
+        runs={P: {k: v for k, v in r.items() if k not in ("logits",
+                                                           "caches")}
+              for P, r in runs.items()})
+
+
+def profile_serving(cfg, model, run: dict):
+    """Device busy time and idle share of 4 warm serve steps (greedy)
+    after a prefill's cache, traced by ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import model as M
+    serve = M.make_serve_step(cfg)
+    P = run["caches"][0][0].shape[1]
+    cache = decode_cache(cfg, run["caches"], 8, "cuda")
+    tok = torch.argmax(run["logits"], -1)[:, None]
+    logits, cache = serve(*model, cache, tok, P)                 # warm
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for s in range(1, 5):
+            logits, cache = serve(*model, cache,
+                                  torch.argmax(logits, -1)[:, None], P + s)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    print_profile(prof, "serve steps", wall, f"4 greedy serve steps of "
+                  f"{SERVE_MODEL} after a {P}-token prefill, B={SERVE_B}")
+
+
 # profiler ranges the smoke opens itself: on the device they span a
 # range's kernels and the gaps between them, so they are no kernels
 RANGES = ("sample_counts",)
@@ -2728,8 +3204,13 @@ def main(argv) -> int:
         build_kernels()
         sharded_phase(*sharded_refs())
         return 0
+    if argv == ["--serving"]:
+        build_kernels()
+        serving_kernel_times(torch.Generator(device="cuda").manual_seed(1))
+        serving_phase(profile=True)
+        return 0
     check(not argv, f"unknown arguments {argv}; use --profile, --attn, "
-          "--sharded or none")
+          "--sharded, --serving or none")
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
     builds = build_kernels()
@@ -2765,6 +3246,10 @@ def main(argv) -> int:
     gpt2 = gpt2_phase()
     deepseek = llm_wide_sequential_phase("deepseek-llm-7b-base",
                                          DEEPSEEK_TASK, "deepseek sequential")
+    llm_rounds(llm)
+    serve_times = serving_kernel_times(gen)
+    serving = serving_phase()
+    big = serving["runs"][max(SERVE_PROMPTS)]
     gib = 2 ** 30
     print(f"qlora wide against llm wide: base "
           f"{ql_wide['base_bytes'] / gib:.3f} GiB against "
@@ -2836,6 +3321,8 @@ def main(argv) -> int:
              gpt2=headline(lm_shapes, "gpt2-w_in"),
              launches_deepseek=deepseek["counts"]["lora_matmul"],
              deepseek=headline(lm_shapes, "deepseek-w_in"),
+             launches_serving=serving_counts(big, "lora_matmul"),
+             serving=serve_times["lora_matmul"],
              shapes=lm_shapes,
              waves=[{k: w[k] for k in ("tiles", "lora_graph_ms")}
                     for w in waves],
@@ -2852,6 +3339,8 @@ def main(argv) -> int:
              gpt2=headline(fa_shapes, "gpt2"),
              launches_deepseek=deepseek["counts"]["flash_attention"],
              deepseek=headline(fa_shapes, "deepseek"),
+             launches_serving=serving_counts(big, "flash_attention"),
+             serving=serve_times["flash_attention"],
              shapes=fa_shapes,
              probe=fa_probe, **build_summary(builds["flash_attention"])),
         dict(name=fa.NAME + "_bwd", route="cuda", source=fa.SOURCE,
@@ -2922,6 +3411,12 @@ def main(argv) -> int:
                       "gpt2": {k: gpt2[k] for k in (
                           "init_s", "run_s", "step_s", "peak_gib", "gap",
                           "n_params")},
+                      "serving": {k: serving[k] for k in (
+                          "wall_s", "cpu_s", "bf16_s", "init_s",
+                          "peak_gib",
+                          "draw_peak_gib", "weight_bytes", "bound_step_ms",
+                          "bf16", "float32", "control", "cpu_gap",
+                          "cpu_cache_gap", "runs")},
                       "deepseek": {k: deepseek[k] for k in (
                           "init_s", "init_peak_gib", "stage_s", "batched_s",
                           "step_s", "peak_gib", "seq_peak_gib", "gap",

@@ -1,7 +1,9 @@
 """Model configuration: the dense fields of ``repro/configs/base.py``.
 
 The port runs dense decoder LLMs only (``pattern == (("attn", "mlp"),)``),
-so ``ModelConfig`` keeps the fields those use; the mixture-of-experts,
+so ``ModelConfig`` keeps the fields those use, and ``reduced`` derives
+the ``-smoke`` variant of a config as the JAX package does; the
+mixture-of-experts,
 latent-attention, state-space and encoder-decoder fields come with the
 ROADMAP item "the other model families".  ``LoRAConfig.quantize_base``
 selects QLoRA: ``models.model.init_params`` then stores every adapted
@@ -11,6 +13,7 @@ Field names, defaults and ``head_dim`` inference are the JAX package's.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
@@ -45,6 +48,9 @@ class ModelConfig:
     dtype: str = "bfloat16"
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    # long-context policy
+    supports_long_decode: bool = False     # sub-quadratic decode path exists
+    long_decode_window: int = 8192         # SWA window used for long_500k
 
     def __post_init__(self):
         if self.head_dim is None:
@@ -56,3 +62,26 @@ class ModelConfig:
     @property
     def n_groups(self) -> int:
         return self.n_layers // len(self.pattern)
+
+
+def reduced(cfg: ModelConfig, *, d_model: int = 256, n_groups: int = 1,
+            vocab: int = 512) -> ModelConfig:
+    """Reduced same-family variant for CPU smoke tests, field for field
+    the JAX package's ``reduced`` over the fields the port has."""
+    period = len(cfg.pattern)
+    n_heads = max(2, min(4, cfg.n_heads))
+    n_kv = 1 if cfg.n_kv_heads < cfg.n_heads else n_heads
+    return dataclasses.replace(
+        cfg,
+        name=cfg.name + "-smoke",
+        n_layers=period * n_groups,
+        d_model=d_model,
+        n_heads=n_heads,
+        n_kv_heads=n_kv,
+        head_dim=d_model // n_heads,
+        d_ff=d_model * 2 if cfg.d_ff else 0,
+        vocab_size=vocab,
+        sliding_window=min(cfg.sliding_window, 64) if cfg.sliding_window
+        else 0,
+        long_decode_window=64,
+        lora=dataclasses.replace(cfg.lora, rank=4))

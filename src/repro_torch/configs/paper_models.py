@@ -23,6 +23,8 @@ LLAMA32_1B = ModelConfig(
     rope_theta=500000.0,
     tie_embeddings=True,
     lora=LoRAConfig(rank=8, alpha=16.0),
+    supports_long_decode=True,
+    long_decode_window=8192,
 )
 
 GPT2 = ModelConfig(

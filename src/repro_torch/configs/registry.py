@@ -1,0 +1,55 @@
+"""Architecture registry: ``get(name)`` resolves ``--arch`` ids.
+
+The port of ``repro/configs/registry.py`` for the dense family: the
+assigned dense configs (``stablelm-3b``, ``starcoder2-7b``,
+``llama3-405b``), the paper's LLMs, and the ``-smoke`` form of each
+(``base.reduced``).  The other assigned architectures need mixers or
+blocks the port does not have yet, and raise ``NotImplementedError``;
+an unknown name raises ``KeyError``, as in the JAX package.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import List
+
+from repro_torch.configs import paper_models
+from repro_torch.configs.base import ModelConfig, reduced
+
+_ASSIGNED = {
+    "starcoder2-7b": "repro_torch.configs.starcoder2_7b",
+    "llama3-405b": "repro_torch.configs.llama3_405b",
+    "stablelm-3b": "repro_torch.configs.stablelm_3b",
+}
+
+# assigned architectures of the other model families (MoE, MLA, Mamba,
+# xLSTM, encoder-decoder and vision frontends)
+OTHER_FAMILIES = ("llama4-maverick-400b-a17b", "qwen2-vl-72b",
+                  "whisper-large-v3", "xlstm-125m", "minicpm3-4b",
+                  "kimi-k2-1t-a32b", "jamba-1.5-large-398b")
+
+_PAPER = {
+    "llama3.2-1b": paper_models.LLAMA32_1B,
+    "gpt2": paper_models.GPT2,
+    "deepseek-llm-7b-base": paper_models.DEEPSEEK_7B,
+    "tiny-llm": paper_models.TINY_LLM,
+}
+
+
+def ported_names() -> List[str]:
+    return list(_ASSIGNED) + list(_PAPER)
+
+
+def get(name: str) -> ModelConfig:
+    if name in _ASSIGNED:
+        return importlib.import_module(_ASSIGNED[name]).CONFIG
+    if name in _PAPER:
+        return _PAPER[name]
+    if name in OTHER_FAMILIES:
+        raise NotImplementedError(
+            f"{name!r} is not ported yet (ROADMAP §1, 'the other model "
+            "families'); the port runs the dense family: "
+            f"{ported_names()}")
+    if name.endswith("-smoke"):
+        return reduced(get(name[: -len("-smoke")]))
+    raise KeyError(f"unknown arch {name!r}; known: "
+                   f"{ported_names() + list(OTHER_FAMILIES)}")

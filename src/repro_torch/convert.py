@@ -14,6 +14,12 @@ JAX.
   - ``adapters_from_jax`` does the same for LoRA adapters, one client's
     (``(n_groups, …)`` leaves) or client-stacked (``(C, n_groups, …)``).
   - ``adamw_from_jax`` maps an ``AdamWState`` (step, mu, nu) alike.
+  - ``cache_from_jax`` maps a decode cache: JAX's tuple of one ``(k,
+    v)`` a pattern position, each ``(n_groups, B, S, KH, D)``, becomes
+    the port's list of one ``(k, v)`` a layer.
+
+A bfloat16 array (numpy's ``ml_dtypes`` bfloat16) is carried bit for
+bit.
 """
 from __future__ import annotations
 
@@ -30,7 +36,11 @@ def from_jax(tree, device="cpu"):
         return {k: from_jax(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(from_jax(v, device) for v in tree)
-    return torch.from_numpy(np.array(tree)).to(device)
+    arr = np.array(tree)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
 
 
 def _unstack_groups(groups, device, stacked: bool):
@@ -59,3 +69,11 @@ def adamw_from_jax(state, device="cpu", stacked: bool = False) -> AdamWState:
     return AdamWState(step=from_jax(step, device),
                       mu=adapters_from_jax(mu, device, stacked),
                       nu=adapters_from_jax(nu, device, stacked))
+
+
+def cache_from_jax(cache, device="cpu") -> list:
+    P = len(cache)
+    n_groups = np.shape(cache[0][0])[0]
+    return [tuple(from_jax(np.take(t, g, axis=0), device)
+                  for t in cache[p])
+            for g in range(n_groups) for p in range(P)]

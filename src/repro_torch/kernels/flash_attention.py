@@ -73,7 +73,10 @@ def _check(q, k, v, *more):
     if H % KH:
         raise ValueError(f"{H} q-heads do not group over {KH} kv-heads")
     if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
+        raise ValueError(
+            f"head dim {D} not in {HEAD_DIMS}: the kernel takes no other "
+            "(stablelm-3b's head dim 80 waits on ROADMAP §2, "
+            "'flash_attention at head dim 80')")
     if q.dtype not in DTYPES:
         raise TypeError(f"flash_attention takes float32 or bfloat16, "
                         f"not {q.dtype}")

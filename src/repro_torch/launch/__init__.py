@@ -1,2 +1,2 @@
 """Command-line entry points of the port (``python -m
-repro_torch.launch.train``)."""
+repro_torch.launch.train``, ``python -m repro_torch.launch.serve``)."""

@@ -77,12 +77,22 @@ def dense(x: torch.Tensor, w: Union[torch.Tensor, QWeight],
         return _qlora_dense(x, w, lora)
     w = w.to(x.dtype)
     if lora is None:
-        return x @ w
+        return matmul(x, w)
     a, b, scale = lora
     C, K = x.shape[0], x.shape[-1]
     y = ops.lora_matmul(x.reshape(C, -1, K), w, a.to(x.dtype),
                         b.to(x.dtype), scale)
     return y.reshape(*x.shape[:-1], w.shape[1])
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in x's dtype.  On the CPU a bfloat16 product is taken in
+    float32 and rounded once, as XLA computes it there; torch's own CPU
+    bfloat16 matmul can carry a NaN of one row into another."""
+    w = w.to(x.dtype)
+    if x.device.type == "cpu" and x.dtype == torch.bfloat16:
+        return (x.float() @ w.float()).to(x.dtype)
+    return x @ w
 
 
 def _qlora_dense(x, w: QWeight, lora) -> torch.Tensor:

@@ -1,8 +1,11 @@
-"""Model assembly: init, forward, cross-entropy and the LoRA train step.
+"""Model assembly: init, forward, cross-entropy, the LoRA train step,
+prefill and the one-token serve step.
 
-The port of ``repro/models/model.py`` for the fine-tuning stage:
-``init_params``, ``init_adapters``, ``forward`` (no remat, no frontend),
-``chunked_ce`` and ``make_train_step`` (one microbatch).
+The port of ``repro/models/model.py`` for the dense family:
+``init_params``, ``init_adapters``, ``forward`` (no remat, no frontend;
+``collect_cache`` as JAX's ``FwdOptions``), ``chunked_ce``,
+``make_train_step`` (one microbatch), ``logits_last``,
+``make_prefill_step``, ``init_cache`` and ``make_serve_step``.
 
 Layouts.  The base is ``{"embed", "final_norm", "lm_head" (untied
 only), "layers": [layer dict, ...]}``: the JAX package's group-stacked
@@ -13,6 +16,14 @@ carries a leading client axis ``(C, …)``, while the base is shared and
 never stacked.  A QLoRA base (``cfg.lora.quantize_base``) holds
 ``{name}__q``/``{name}__s`` in place of each adapted weight.
 Activations are ``(C, B, S, d)``.
+
+Serving runs one adapter set: ``make_prefill_step`` and
+``make_serve_step`` take one client's adapters (``init_adapters``' list,
+unstacked) and ``(B, S)`` tokens, as the JAX package's steps do, and
+run them on the client axis as ``C = 1``.  The decode cache is a list of
+``(k, v)`` a layer, each ``(B, S, KH, D)``: JAX's group-stacked tuple
+unrolled (``convert.cache_from_jax``).  The serve step writes it in
+place and returns it.
 """
 from __future__ import annotations
 
@@ -23,7 +34,7 @@ import torch
 from repro_torch import random as jr
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.common import init_dense, rms_norm
+from repro_torch.models.common import init_dense, matmul, rms_norm
 from repro_torch.optim import adamw
 from repro_torch.peft import lora as lora_mod
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
@@ -87,17 +98,23 @@ def stack_clients(trees: List):
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
-def forward(cfg, params: Dict, adapters: List, tokens: torch.Tensor
-            ) -> torch.Tensor:
-    """tokens ``(C, B, S)`` → post-norm hidden ``(C, B, S, d)``."""
+def forward(cfg, params: Dict, adapters: List, tokens: torch.Tensor, *,
+            collect_cache: bool = False):
+    """tokens ``(C, B, S)`` → post-norm hidden ``(C, B, S, d)``; with
+    ``collect_cache``, ``(hidden, caches)``, one ``(k, v)`` a layer, each
+    ``(C·B, S, KH, D)`` in the activation dtype."""
     x = params["embed"][tokens]
     positions = torch.arange(tokens.shape[-1], device=tokens.device)
     P = len(cfg.pattern)
+    caches = []
     for i, (base, adp) in enumerate(zip(params["layers"], adapters)):
         mixer, ffn = cfg.pattern[i % P]
-        x = L.apply_layer_train(cfg, {**base, **adp}, x, positions, mixer,
-                                ffn)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+        x, cache = L.apply_layer_train(cfg, {**base, **adp}, x, positions,
+                                       mixer, ffn)
+        if collect_cache:
+            caches.append(cache)
+    hidden = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return (hidden, caches) if collect_cache else hidden
 
 
 def _head(cfg, params):
@@ -166,3 +183,72 @@ def make_train_step(cfg, *, lr: float = 1e-4, loss_chunk: int = 512):
         return new_adapters, new_opt, {"loss": loss, "grad_norm": gnorm}
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# prefill / serve
+# ---------------------------------------------------------------------------
+def logits_last(cfg, params, hidden: torch.Tensor) -> torch.Tensor:
+    """Float32 logits of the last position: hidden ``(..., S, d)`` →
+    ``(..., V)``, the product in the activation dtype (rounded there,
+    as JAX's einsum is) and then widened."""
+    return matmul(hidden[..., -1, :], _head(cfg, params)).float()
+
+
+def _one_client(adapters: List) -> List:
+    """One adapter set as a client stack of one (views, no copy)."""
+    return tree_map(lambda t: t[None], adapters)
+
+
+def make_prefill_step(cfg):
+    """``(params, adapters, batch) → (logits (B, V), caches)``: the
+    prompt ``batch["tokens"]`` ``(B, S)`` through the full-sequence
+    forward (attention windowed by ``cfg.sliding_window``), its last
+    position's float32 logits, and each layer's ``(k, v)`` ``(B, S, KH,
+    D)`` in the activation dtype."""
+    def prefill(params, adapters, batch):
+        with torch.no_grad():
+            hidden, caches = forward(cfg, params, _one_client(adapters),
+                                     batch["tokens"][None],
+                                     collect_cache=True)
+            return logits_last(cfg, params, hidden)[0], caches
+    return prefill
+
+
+def init_cache(cfg, batch: int, seq: int, *, window: int = 0,
+               dtype=torch.bfloat16, device=None) -> List:
+    """Zero decode caches, one ``(k, v)`` a layer, each ``(batch, s, KH,
+    D)`` with ``s = min(seq, window)`` when ``window`` is set (a rolling
+    cache when the window fits in ``seq``), else ``seq``.  ``device=None``
+    is the card."""
+    device = resolve_device(device)
+    P = len(cfg.pattern)
+    s = min(seq, window) if window else seq
+    return [L.cache_struct(cfg, cfg.pattern[i % P][0], batch, s, dtype,
+                           device) for i in range(cfg.n_layers)]
+
+
+def make_serve_step(cfg, *, window: int = 0):
+    """One-token decode: ``(params, adapters, cache, token (B, 1), pos)
+    → (logits (B, V), cache)``.  ``pos`` is the token's position, an int
+    or a 0-dim int tensor on the device; ``window`` masks attention to
+    the last ``window`` positions (0: the whole cache).  As in the JAX
+    package, the window is this argument's and ``cfg.sliding_window`` is
+    not read."""
+    P = len(cfg.pattern)
+
+    def serve(params, adapters, cache, token, pos):
+        with torch.no_grad():
+            x = params["embed"][token][None]                # (1, B, 1, d)
+            new_cache = []
+            for i, (base, adp) in enumerate(zip(params["layers"],
+                                                _one_client(adapters))):
+                mixer, ffn = cfg.pattern[i % P]
+                x, c = L.apply_layer_decode(cfg, {**base, **adp}, x, pos,
+                                            cache[i], mixer, ffn,
+                                            window=window)
+                new_cache.append(c)
+            x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+            return logits_last(cfg, params, x)[0], new_cache
+
+    return serve

@@ -2,10 +2,10 @@
 Alg. 1).
 
 The port of ``repro/peft/lora.py``'s ``init_layer_adapters``,
-``weighted_average_stacked``, ``blend_adapters`` and its QLoRA int4
-quantization.  Adapters attach to the 2-D base weights named in
-``cfg.lora.targets``: A ``(d_in, r)`` drawn normal / √d_in, B
-``(r, d_out)`` zero, both float32.
+``merge_layer``, ``adapter_param_count``, ``weighted_average_stacked``,
+``blend_adapters`` and its QLoRA int4 quantization.  Adapters attach to
+the 2-D base weights named in ``cfg.lora.targets``: A ``(d_in, r)``
+drawn normal / √d_in, B ``(r, d_out)`` zero, both float32.
 
 QLoRA: a target weight ``w`` whose width divides into blocks is stored
 as ``w__q`` (packed int4, ``(d_in, d_out/2)`` uint8: the low nibble the
@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch import random as jr
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def init_layer_adapters(key, cfg, layer_params: Dict) -> Dict:
@@ -54,6 +54,25 @@ def init_layer_adapters(key, cfg, layer_params: Dict) -> Dict:
         out[f"{n}_lora_b"] = torch.zeros((r, d_out), dtype=torch.float32,
                                          device=dev)
     return out
+
+
+def merge_layer(cfg, layer_params: Dict, adapters: Dict) -> Dict:
+    """Fold one layer's adapters into its base weights (the inference
+    deployment path): ``W + scale·A@B`` in float32, rounded once to the
+    base weight's dtype."""
+    merged = dict(layer_params)
+    scale = cfg.lora.alpha / cfg.lora.rank
+    for n, w in layer_params.items():
+        a = adapters.get(f"{n}_lora_a")
+        if a is None:
+            continue
+        b = adapters[f"{n}_lora_b"]
+        merged[n] = (w.float() + scale * (a.float() @ b.float())).to(w.dtype)
+    return merged
+
+
+def adapter_param_count(adapters) -> int:
+    return sum(int(x.numel()) for x in tree_leaves(adapters))
 
 
 def weighted_average_stacked(stacked, weights: torch.Tensor):

@@ -1,5 +1,6 @@
 """Threefry-2x32 keys: ``PRNGKey``, ``split``, ``fold_in``, ``uniform``,
-``permutation``, ``choice``, ``normal`` and ``truncated_normal``.
+``randint``, ``permutation``, ``choice``, ``normal``,
+``truncated_normal``, ``gumbel`` and ``categorical``.
 
 Bit-for-bit the draws of ``jax.random`` with the default threefry
 implementation and ``jax_threefry_partitionable=True`` (the default from
@@ -28,7 +29,9 @@ same hash on int32 words (uint32 arithmetic's bits), then XLA's float32
 an IEEE operation that rounds the same on any device, so a draw is the
 same on the CPU and on the card.  Against ``jax.random`` they are
 bitwise equal on at least 99.9 % of values and within 2 ulp on all
-(``tests/test_torch_random.py``).
+(``tests/test_torch_random.py``).  ``gumbel`` and ``categorical`` (the
+serving entry point's sampler) take the same route: jax 0.9's default
+``mode="low"`` draw ``-log(-log(u))`` through the same ``log``.
 """
 from __future__ import annotations
 
@@ -132,6 +135,24 @@ def uniform(key: np.ndarray, shape: Tuple[int, ...] = (),
     lo, hi = np.float32(minval), np.float32(maxval)
     # XLA contracts the affine map into one fused multiply-add
     return np.maximum(lo, _fma_f32(floats, hi - lo, lo)).reshape(shape)
+
+
+def randint(key: np.ndarray, shape: Tuple[int, ...], minval: int,
+            maxval: int) -> np.ndarray:
+    """int32 draws in ``[minval, maxval)``, as ``jax.random.randint``:
+    two words of 32 bits an element, from the two halves of a ``split``,
+    folded into the span by uint32 arithmetic (which wraps as XLA's
+    does: ``(2**16 % span)**2`` is 0 for spans of 2**16 and more)."""
+    shape = tuple(shape)
+    lo_i, hi_i = int(minval), int(maxval)
+    k1, k2 = split(key)
+    higher, lower = random_bits(k1, shape), random_bits(k2, shape)
+    span = _U32((hi_i - lo_i) & _M32 if hi_i > lo_i else 1)
+    with np.errstate(over="ignore"):
+        mult = _U32(1 << 16) % span
+        mult = (mult * mult) % span
+        off = ((higher % span) * mult + lower % span) % span
+    return (np.int64(lo_i) + off.astype(np.int64)).astype(np.int32)
 
 
 def permutation(key: np.ndarray, n: int) -> np.ndarray:
@@ -390,3 +411,29 @@ def truncated_normal(key: np.ndarray, lower: float, upper: float,
     out = float(_SQRT2) * erf_inv(u)
     return torch.clamp(out, float(np.nextafter(lower, np.float32(np.inf))),
                        float(np.nextafter(upper, np.float32(-np.inf))))
+
+
+_TINY = np.finfo(np.float32).tiny
+
+
+def gumbel(key: np.ndarray, shape: Tuple[int, ...], device="cpu"
+           ) -> torch.Tensor:
+    """float32 Gumbel draws, as ``jax.random.gumbel`` in jax 0.9's
+    default ``mode="low"``: ``-log(-log(u))`` for ``u`` uniform in
+    ``[tiny, 1)``, both logs XLA's float32 CPU ``log``."""
+    u = _uniform_torch(key, tuple(shape), np.float32(_TINY), np.float32(1),
+                       device)
+    return -_log(-_log(u))
+
+
+def categorical(key: np.ndarray, logits: torch.Tensor) -> torch.Tensor:
+    """One draw a row of ``softmax(logits)`` over the last axis, as
+    ``jax.random.categorical(key, logits)``: the Gumbel-max trick, the
+    first index of the largest ``gumbel + logits``, drawn on the
+    logits' device.  ``logits`` are float32 (JAX draws the noise in
+    their dtype).  Returns int64 indices of shape ``logits.shape[:-1]``."""
+    if logits.dtype != torch.float32:
+        raise TypeError(f"categorical takes float32 logits, not "
+                        f"{logits.dtype}")
+    g = gumbel(key, tuple(logits.shape), logits.device)
+    return torch.argmax(g + logits, dim=-1)

@@ -39,7 +39,9 @@ def test_port_has_its_modules():
                  "quantum.statevector", "quantum.circuits",
                  "optim.gradfree", "optim.batched_spsa", "core.distill",
                  "distributed.sharding",
-                 "device", "launch", "launch.train"):
+                 "device", "launch", "launch.train", "launch.serve",
+                 "configs.registry", "configs.stablelm_3b",
+                 "configs.starcoder2_7b", "configs.llama3_405b"):
         assert f"repro_torch.{name}" in MODULES
 
 

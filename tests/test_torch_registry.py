@@ -1,0 +1,73 @@
+"""The port's config registry against the JAX package's: ``get`` and
+``reduced`` field by field for every dense name and its ``-smoke`` form;
+every other assigned architecture raises ``NotImplementedError`` naming
+its ROADMAP item."""
+import dataclasses
+
+import pytest
+
+from repro.configs import base as jbase
+from repro.configs import registry as jreg
+from repro_torch.configs import base as tbase
+from repro_torch.configs import registry as treg
+
+DENSE = ["stablelm-3b", "starcoder2-7b", "llama3-405b", "llama3.2-1b",
+         "gpt2", "deepseek-llm-7b-base", "tiny-llm"]
+# JAX fields of the other families, which the port's config leaves out
+LEFT_OUT = ("mrope_sections", "moe", "mla", "mamba", "xlstm",
+            "encoder_decoder", "n_encoder_layers", "n_frontend_tokens",
+            "frontend")
+
+
+def _same(got, want):
+    for f in dataclasses.fields(got):
+        if f.name == "lora":
+            for g in dataclasses.fields(got.lora):
+                assert getattr(got.lora, g.name) == \
+                    getattr(want.lora, g.name), g.name
+        else:
+            assert getattr(got, f.name) == getattr(want, f.name), f.name
+    for f in dataclasses.fields(want):
+        if not hasattr(got, f.name):
+            assert f.name in LEFT_OUT, f.name
+            assert getattr(want, f.name) == f.default or (
+                f.default_factory is not dataclasses.MISSING), f.name
+
+
+@pytest.mark.parametrize("suffix", ["", "-smoke"])
+@pytest.mark.parametrize("name", DENSE)
+def test_get_equals_jax_field_for_field(name, suffix):
+    _same(treg.get(name + suffix), jreg.get(name + suffix))
+
+
+@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("kw", [{}, dict(d_model=128, n_groups=2,
+                                        vocab=1024)])
+def test_reduced_equals_jax(name, kw):
+    _same(tbase.reduced(treg.get(name), **kw),
+          jbase.reduced(jreg.get(name), **kw))
+
+
+def test_the_dense_names_are_the_jax_dense_names():
+    dense = [n for n in jreg.all_names()
+             if all(m == "attn" and f == "mlp"
+                    for m, f in jreg.get(n).pattern)
+             and not jreg.get(n).encoder_decoder
+             and not jreg.get(n).frontend]
+    assert sorted(treg.ported_names()) == sorted(dense)
+    assert sorted(treg.ported_names() + list(treg.OTHER_FAMILIES)) == \
+        sorted(jreg.all_names())
+
+
+@pytest.mark.parametrize("suffix", ["", "-smoke"])
+@pytest.mark.parametrize("name", sorted(treg.OTHER_FAMILIES))
+def test_other_families_raise(name, suffix):
+    jreg.get(name + suffix)            # the JAX package has it
+    with pytest.raises(NotImplementedError, match="other model families"):
+        treg.get(name + suffix)
+
+
+def test_unknown_names_raise_key_error():
+    for name in ("gpt-5", "gpt-5-smoke", "stablelm-3b-smoke-smoke-x"):
+        with pytest.raises(KeyError):
+            treg.get(name)

@@ -1,0 +1,88 @@
+"""``python -m repro_torch.launch.serve`` against ``examples/serving.py``:
+the same printed lines (timings aside), the same prompts, and on the
+same weights the same sampled tokens; ``--device`` defaults to the card
+and never falls back to the CPU."""
+import os
+import re
+import runpy
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.launch import serve
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
+TIMED = (re.compile(r"prefill\(\d+ tokens, sequential smoke path\): "
+                    r"[\d.]+s"),
+         re.compile(r"decoded \d+ tokens × \d+ requests in [\d.]+s "
+                    r"\([\d.]+ tok/s\)"))
+
+
+def _untimed(line: str) -> str:
+    """The line with its times and rate (the decimals) blanked."""
+    return re.sub(r"\d+\.\d+", "T", line)
+
+
+def _example(argv, capsys):
+    old = sys.argv
+    sys.argv = ["serving.py", *argv]
+    try:
+        runpy.run_path(str(ROOT / "examples" / "serving.py"),
+                       run_name="__main__")
+    finally:
+        sys.argv = old
+    return capsys.readouterr().out.splitlines()
+
+
+@pytest.mark.parametrize("argv", [[], ["--arch", "starcoder2-7b",
+                                       "--batch", "2", "--prompt-len", "8",
+                                       "--steps", "6"]])
+def test_prints_the_examples_lines(argv, capsys):
+    out = serve.main([*argv, "--device", "cpu"])
+    got = capsys.readouterr().out.splitlines()
+    want = _example(argv, capsys)
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        assert _untimed(g) == _untimed(w)
+    for line, pattern in zip(got[1:3], TIMED):
+        assert pattern.fullmatch(line), line
+    B = int(argv[argv.index("--batch") + 1]) if argv else 4
+    P = int(argv[argv.index("--prompt-len") + 1]) if argv else 32
+    assert out["prompts"].shape == (B, P)
+
+
+def test_prompts_equal_jax():
+    out = serve.main(["--steps", "1", "--prompt-len", "5", "--device",
+                      "cpu"])
+    cfg_vocab = 512
+    want = np.asarray(jax.random.randint(jax.random.PRNGKey(0), (4, 5), 4,
+                                         cfg_vocab - 4))
+    np.testing.assert_array_equal(out["prompts"], want)
+
+
+def test_the_card_is_the_default():
+    """Without ``--device`` the entry point asks for the card, and
+    without one it raises rather than run on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default runs there")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--steps", "1"])
+
+
+def test_runs_as_a_module():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--steps", "2", "--prompt-len", "4"], capture_output=True,
+        text=True, env=env, cwd=ROOT, timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert lines[0] == "serving stablelm-3b-smoke: 1L d=256 pattern=['attn']"
+    assert lines[-1].startswith("sample token ids: [")
