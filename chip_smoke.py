@@ -10,6 +10,9 @@
     python3 chip_smoke.py --serving    # phase 12 only, with the serving
                                        # shapes' kernel times and a
                                        # profile of 4 serve steps
+    python3 chip_smoke.py --families   # phases 13 and 14 only: kimi-k2
+                                       # and minicpm3-4b served, and
+                                       # stablelm-3b's prefill
 
 Run from the root of a checkout, on a machine with a CUDA card and
 ``nvcc``.  It imports nothing of JAX and nothing of the JAX package
@@ -131,13 +134,36 @@ failure, and the script then exits non-zero with no result line.
    miss the 3e-2 bound.
    ``lora_matmul`` and ``flash_attention`` are timed at the serving
    shapes in bfloat16 against cuBLAS and SDPA.
-12. Prints the phases' wall times, the card line, one
+12. The mixture-of-experts and latent-attention families (printed as
+   phases 13 and 14, after phase 12, the earlier phases' tensors freed
+   first).  Phase 13: ``kimi-k2-1t-a32b`` at its published widths, its
+   depth cut to one ``("attn", "moe")`` layer (printed), the bf16 base
+   as ``init_params`` draws it (19.42 B values, each leaf a slice at a
+   time), served as phase 12 serves: prefill and serve-step times beside
+   the byte bound (every expert's weights read each step), tokens/s,
+   peak memory; the 512-token prefill's routing integers against a host
+   recount from the read-back router logits, the MoE block's update
+   against a float32 per-token reference (``MOE_REF_TOL``), prefill
+   against the decode path for the rows that lost no choice to the
+   capacity.  Phase 14: ``minicpm3-4b`` at its published widths and all
+   62 layers, served alike; its first 2 layers on the card against the
+   CPU port on the same weights (bf16, and float32 with a float32 decode
+   cache), the CPU half in a process of its own beside the card's work;
+   the whole model in float32 prefill against the absorbed-matrix decode
+   path; then ``stablelm-3b``'s prefill at head dim 80 through the
+   kernel against the plain attention.  ``flash_attention`` at head dims
+   112, 96 over 64 and 80, and ``lora_matmul`` at kimi's and MLA's
+   projections, are held to their plain versions and timed against SDPA
+   and cuBLAS.
+13. Prints the phases' wall times, the card line, one
    ``{"kernels": [...]}`` line (``launches_sequential``: the launches of
    phase 7's sequential LLM-QFL Step 1, and for ``statevector_tape`` of
    its batched SPSA QFL run; ``launches_aersim``, ``launches_gpt2``,
    ``launches_deepseek``: phase 9's; ``launches_fused*``: phase 10's;
    ``launches_sharded*``: phase 11's, on one card; ``launches_serving``
-   and ``serving``: phase 12's launches and shapes), and last
+   and ``serving``: phase 12's launches and shapes; ``launches_kimi``,
+   ``kimi``, ``launches_minicpm``, ``minicpm``, ``launches_stablelm``,
+   ``stablelm``: phases 13 and 14's), and last
    ``{"ok": true, "device": {...}}``.
 
 Each path is driven with every launch counter set to 0 just before it
@@ -716,12 +742,18 @@ def attn_pairs(S: int, causal: bool = True, window: int = 0) -> int:
     return sum(q)
 
 
-def attn_flops_bytes(B, S, H, KH, D, backward=False, elem=4):
+def attn_flops_bytes(B, S, H, KH, D, backward=False, elem=4, Dv=None):
+    """Operations and bytes of causal attention over ``S`` keys: the
+    forward reads q, k and v and writes o (of v's head dim ``Dv``) and
+    the row logsumexp."""
     pairs = B * H * attn_pairs(S)
+    if not backward:     # S = QK^T (D) and PV (Dv), 2 flops a product
+        Dv = Dv or D
+        return (2 * (D + Dv) * pairs,
+                elem * (B * S * (H * D + KH * D + KH * Dv + H * Dv))
+                + 4 * B * H * S)
     q = B * S * H * D
     kv = 2 * B * S * KH * D
-    if not backward:     # S = QK^T and PV, 2 D flops each per pair
-        return 4 * D * pairs, elem * (2 * q + kv) + 4 * B * H * S
     # S, dP, dV, dK, dQ: 10 D flops per pair; read q k v o dO lse, write
     # dq dk dv
     return 10 * D * pairs, elem * (4 * q + 2 * kv) + 4 * B * H * S
@@ -743,19 +775,37 @@ ATTN_EDGES = tuple(
        for D in (32, 64, 128)]
     + [(3, 129, 3, KH, 64, True, 0, "float32") for KH in (1, 3)]
     + [(1, 129, 1, 1, 64, True, 0, "bfloat16")])
+# the head dims of the other families and stablelm-3b (80; MLA's q/k 96
+# over a v of 64, 48 over 32 at -smoke width; kimi-k2's 112), forward
+# and backward at the tile
+# edges: (B, S, H, KH, D, Dv, causal, window, dtype).  S = 129 over one
+# sequence and head is an odd B·S·H above 64 keys.
+ATTN_HEAD_DIM_EDGES = tuple(
+    [(2, S, 4, 2, D, D, True, 0, dt) for D in (80, 96, 112)
+     for S in (64, 129) for dt in ("float32", "bfloat16")]
+    + [(1, 129, 1, 1, D, D, True, 0, "float32") for D in (80, 96, 112)]
+    + [(2, 100, 8, 2, 112, 112, False, 16, "bfloat16"),
+       (2, 129, 4, 4, 96, 64, True, 0, "float32"),
+       (2, 129, 4, 4, 96, 64, True, 0, "bfloat16"),
+       (3, 33, 4, 4, 96, 64, True, 0, "float32"),
+       (1, 129, 1, 1, 96, 64, True, 0, "float32")]
+    + [(2, 129, 4, 4, 48, Dv, True, 0, dt) for Dv in (32, 48)
+       for dt in ("float32", "bfloat16")])
 
 
-def attn_check(gen, name, B, S, H, KH, D, causal, window, dtype):
+def attn_check(gen, name, B, S, H, KH, D, causal, window, dtype, Dv=None):
     """Forward and dq/dk/dv of one case against ``ref`` and plain
     autograd: 2e-5 (float32) or 2e-2 (bfloat16) of the largest magnitude.
-    Returns the float32 max abs errors (forward, backward)."""
+    ``Dv`` (default ``D``) is v's head dim.  Returns the float32 max abs
+    errors (forward, backward)."""
     import torch
     from repro_torch.kernels import flash_attention as fa, ref
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    Dv = Dv or D
     q = _randn(gen, (B, S, H, D), dtype=dtype).requires_grad_()
     k = _randn(gen, (B, S, KH, D), dtype=dtype).requires_grad_()
-    v = _randn(gen, (B, S, KH, D), dtype=dtype).requires_grad_()
-    do = _randn(gen, (B, S, H, D), dtype=dtype)
+    v = _randn(gen, (B, S, KH, Dv), dtype=dtype).requires_grad_()
+    do = _randn(gen, (B, S, H, Dv), dtype=dtype)
     got = fa.flash_attention(q, k, v, causal=causal, window=window)
     g = torch.autograd.grad(got, (q, k, v), do)
     want = ref.flash_attention(q, k, v, causal=causal, window=window)
@@ -774,11 +824,15 @@ def attn_check(gen, name, B, S, H, KH, D, causal, window, dtype):
 def time_attn(q, k, v) -> dict:
     """One causal flash_attention forward timed: the kernel, its plain
     version and SDPA with grouped heads, in a host loop (``*ms``) and the
-    kernel and SDPA in a CUDA graph (``*graph_ms``)."""
+    kernel and SDPA in a CUDA graph (``*graph_ms``).  SDPA takes a v
+    narrower than q as it is."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa, ref
     scale = q.shape[-1] ** -0.5
-    kern = lambda: fa._forward(q, k, v, True, 0, scale)  # noqa: E731
+    if v.shape[-1] == q.shape[-1]:
+        kern = lambda: fa._forward(q, k, v, True, 0, scale)  # noqa: E731
+    else:           # a narrower v: the wrapper's zero pad is in the call
+        kern = lambda: fa.flash_attention(q, k, v)  # noqa: E731
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
         qt, kt, vt, is_causal=True, enable_gqa=True)
@@ -827,12 +881,20 @@ def attn_phase(gen):
                             getattr(torch, dt))
         max_err, max_bwd_err = max(max_err, fe), max(max_bwd_err, be)
         cases += 1
+    for B, S, H, KH, D, Dv, c, w, dt in ATTN_HEAD_DIM_EDGES:
+        fe, be = attn_check(gen, f"head dims B={B} S={S} H={H} KH={KH} "
+                            f"D={D} Dv={Dv} causal={c} window={w} {dt}",
+                            B, S, H, KH, D, c, w, getattr(torch, dt), Dv=Dv)
+        max_err, max_bwd_err = max(max_err, fe), max(max_bwd_err, be)
+        cases += 1
     # the backward twice on the same inputs: bitwise equal (one k-tile at
     # the main paths' shapes; k-tile slabs summed in a fixed order above)
     repeats = 0
     for name, B, S, H, KH, D in ATTN_SHAPES + (
             ("three k-tiles", 2, 160, 8, 2, 64),
-            ("three k-tiles, odd B·S·H", 3, 129, 3, 1, 64)):
+            ("three k-tiles, odd B·S·H", 3, 129, 3, 1, 64),
+            ("three k-tiles, D=112", 2, 160, 8, 1, 112),
+            ("three k-tiles, D=80, odd B·S·H", 3, 129, 3, 1, 80)):
         q, do = _randn(gen, (B, S, H, D)), _randn(gen, (B, S, H, D))
         k, v = _randn(gen, (B, S, KH, D)), _randn(gen, (B, S, KH, D))
         out, lse = fa._forward(q, k, v, True, 0, D ** -0.5)
@@ -843,7 +905,8 @@ def attn_phase(gen):
         repeats += 1
     torch.cuda.synchronize()
     print(f"kernel phase: flash_attention == plain on {cases} cases "
-          f"({len(ATTN_EDGES)} at tile edges), max abs err {max_err:.3g} "
+          f"({len(ATTN_EDGES)} at tile edges, {len(ATTN_HEAD_DIM_EDGES)} "
+          f"at head dims 48 (v 32), 80, 96 (v 64) and 112), max abs err {max_err:.3g} "
           f"forward, {max_bwd_err:.3g} backward (tolerance: the JAX "
           "sweep's 2e-5 float32 / 2e-2 bfloat16; elsewhere 2e-5 / 2e-2 of "
           "the largest magnitude: online softmax and TF32-split products "
@@ -1984,18 +2047,35 @@ def cli_run(label: str, argv, device: str):
     return res, n, wall, m
 
 
+def cli_cpu_runs(runs, threads: int) -> list:
+    """The CPU halves of phase 9b, one after another in a spawned
+    process: ``[(label, result, wall, margin, printed lines)]``, each
+    margin's tensors as ``HostTensor``s (a tensor would be shared through
+    the exiting process)."""
+    import contextlib
+    import io
+    import torch
+    torch.set_num_threads(threads)
+    out = []
+    for label, argv in runs:
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            cpu, _, wall, margin = cli_run(label, argv, "cpu")
+        margin.__dict__.update(host_tree(margin.__dict__))
+        out.append((label, cpu, wall, margin, text.getvalue()))
+    return out
+
+
 def cli_phase() -> dict:
     """(b) ``repro_torch.launch.train`` with Experiment I's flags on the
-    card, each run then held to the same command on the CPU: QFL and
-    LLM-QFL, batched; QFL sequential; QFL batched on ``fake`` and
-    ``real``.  Every draw within NEAR of a CDF boundary in either run
-    falls in the same class in both, unless the two runs' boundaries
-    straddle it no more than NEAR apart.  LLM-QFL selecting 20 % runs on
-    the card alone (``CARD_ONLY``)."""
-    import numpy as np
+    card: QFL and LLM-QFL, batched; QFL sequential; QFL batched on
+    ``fake`` and ``real``; each is then run on the CPU in a process of
+    its own beside the later phases (``CPU_JOB_THREADS`` threads, the
+    runs one after another) and held to the card's by ``cli_compare``.
+    LLM-QFL selecting 20 % runs on the card alone (``CARD_ONLY``)."""
     print("phase 9b: the training CLI, Experiment I's flags (aersim, 100 "
           f"shots, Dirichlet 0.5 shards, 5 clients, {EXP1[-1]} rounds):")
-    out, cards = {}, {}
+    out, cards, margins = {}, {}, {}
     for label, extra in CLI_RUNS:
         gpu, n, wall, margin = cli_run(label, EXP1 + extra, "cuda")
         if "sequential" in label:
@@ -2012,7 +2092,35 @@ def cli_phase() -> dict:
                                     wall, n, margin)
             continue
         cards[label] = gpu
-        cpu, _, cpu_wall, cpu_margin = cli_run(label, EXP1 + extra, "cpu")
+        margins[label] = margin
+        out[label] = dict(wall_s=wall, counts=n,
+                          margin=dict(value=margin.value, near=margin.near,
+                                      draws=margin.draws),
+                          finetune_s=gpu.llm_finetune_time_s)
+    job = CpuJob("phase 9b's CPU runs", cli_cpu_runs,
+                 [(label, EXP1 + extra) for label, extra in CLI_RUNS
+                  if label not in CARD_ONLY], CPU_JOB_THREADS)
+    return dict(out=out, cards=cards, margins=margins, job=job,
+                started=time.perf_counter())
+
+
+def cli_compare(cli: dict) -> dict:
+    """Phase 9b's CPU runs, collected and each held to its card run:
+    integer accounting exactly, losses and θ_g as ``compare_runs`` says,
+    Step 1 within ``LLM_LOSS_TOL``; every draw within NEAR of a CDF
+    boundary in either run falls in the same class in both, unless the
+    two runs' boundaries straddle it no more than NEAR apart."""
+    import numpy as np
+    t0 = time.perf_counter()
+    runs = cli["job"].result()
+    waited = time.perf_counter() - t0
+    out = cli["out"]
+    print(f"phase 9b's CPU runs ({CPU_JOB_THREADS} threads, a process of "
+          f"their own beside phases 9c-14; {waited:.1f} s waited for):")
+    for label, cpu, cpu_wall, cpu_margin, text in runs:
+        print(text, end="")
+        cpu_margin.__dict__.update(host_tree(cpu_margin.__dict__, False))
+        gpu, margin = cli["cards"][label], cli["margins"][label]
         loss_gap, theta_gap = compare_runs(gpu, cpu, what=f"cli {label}")
         if label.startswith("llm-qfl"):
             d_loss = float(np.max(np.abs(np.subtract(gpu.llm_losses,
@@ -2031,11 +2139,7 @@ def cli_phase() -> dict:
               f"the two runs' boundaries (largest boundary shift "
               f"{near.shift:.3g}); max |Δ server loss| {loss_gap:.3g}, max "
               f"|Δ θ_g| {theta_gap:.3g}")
-        out[label] = dict(wall_s=wall, cpu_wall_s=cpu_wall, counts=n,
-                          margin=dict(value=margin.value, near=margin.near,
-                                      draws=margin.draws),
-                          near=near._asdict(),
-                          finetune_s=gpu.llm_finetune_time_s,
+        out[label].update(cpu_wall_s=cpu_wall, near=near._asdict(),
                           loss_gap=loss_gap, theta_gap=theta_gap)
     return out
 
@@ -2605,21 +2709,32 @@ def times_text(t: dict, library: str) -> str:
 
 
 def serving_kernel_times(gen) -> dict:
-    """``lora_matmul`` and ``flash_attention`` at the serving shapes, in
-    bfloat16: each held to its plain version (2e-2 of the largest
+    """``lora_matmul`` and ``flash_attention`` at phase 12's serving
+    shapes (``llama3.2-1b``'s ``w_in``, rank 8), in bfloat16
+    (``kernel_times``)."""
+    d, ff, B = 2048, 8192, SERVE_B
+    return kernel_times(
+        gen, [(name, M_, d, 2 * ff, 8) for name, M_ in (
+            ("decode-w_in", B), ("prefill-32-w_in", B * 32),
+            ("prefill-512-w_in", B * 512))],
+        [(f"prefill-{S}", B, S, 32, 8, 64, 64) for S in SERVE_PROMPTS])
+
+
+def kernel_times(gen, lora_shapes, attn_shapes) -> dict:
+    """``lora_matmul`` at ``(name, M, K, N, r)`` (one client) and
+    ``flash_attention`` forward at ``(name, B, S, H, KH, D, Dv)`` (causal),
+    in bfloat16: each held to its plain version (2e-2 of the largest
     magnitude) and timed by ``time_lora`` / ``time_attn``, beside its
-    bound (bf16 tensor cores, 989 TFLOP/s, or bytes over 3.35 TB/s)."""
+    bound (bf16 tensor cores, 989 TFLOP/s, or bytes over 3.35 TB/s).  A
+    v narrower than q goes through the wrapper's zero pad, as the model
+    calls it; it is timed padded (the pad is part of the call)."""
     import torch
     from repro_torch.kernels import flash_attention as fa, lora_matmul as lm
     from repro_torch.kernels import ref
     bf = torch.bfloat16
-    d, ff, r = 2048, 8192, 8
-    B, H, KH, D = SERVE_B, 32, 8, 64
     lora, attn = [], []
     with torch.no_grad():
-        for name, M_ in (("decode-w_in", B), ("prefill-32-w_in", B * 32),
-                         ("prefill-512-w_in", B * 512)):
-            K, N = d, 2 * ff
+        for name, M_, K, N, r in lora_shapes:
             x = _randn(gen, (1, M_, K), dtype=bf)
             w = _randn(gen, (K, N), K ** -0.5, bf)
             a = _randn(gen, (1, K, r), K ** -0.5, bf)
@@ -2635,37 +2750,46 @@ def serving_kernel_times(gen) -> dict:
                              dtype="bfloat16",
                              max_abs_err=abs_err(got, want), **t,
                              bound_ms=bms, bound_by=by))
-            print(f"  serving lora_matmul {name} (M={M_} K={K} N={N} r={r} "
+            print(f"  lora_matmul {name} (M={M_} K={K} N={N} r={r} "
                   f"bf16): {times_text(t, 'cuBLAS')}, bound "
                   f"{bms * 1e3:.2f} us ({by}); rel err {err:.3g}")
-        for S in SERVE_PROMPTS:
+        for name, B, S, H, KH, D, Dv in attn_shapes:
             q = _randn(gen, (B, S, H, D), dtype=bf)
             k = _randn(gen, (B, S, KH, D), dtype=bf)
-            v = _randn(gen, (B, S, KH, D), dtype=bf)
-            got = fa._forward(q, k, v, True, 0, D ** -0.5)[0]
+            v = _randn(gen, (B, S, KH, Dv), dtype=bf)
+            got = fa.flash_attention(q, k, v)
             want = ref.flash_attention(q, k, v)
             err = rel_err(got, want, floor=0.0)
-            check(err <= 2e-2, f"flash_attention serving S={S}: {err}")
+            check(err <= 2e-2, f"flash_attention {name}: {err}")
             t = time_attn(q, k, v)
-            bms, by = bound_ms(*attn_flops_bytes(B, S, H, KH, D, elem=2),
-                               BF16_FLOPS_PER_S)
-            attn.append(dict(shape=f"prefill-{S}", B=B, S=S, H=H, KH=KH, D=D,
+            if Dv < D:      # the kernel alone on a v padded beforehand
+                vp = torch.nn.functional.pad(v, (0, D - Dv))
+                t["padded_kernel_graph_ms"] = graph_ms(
+                    lambda: fa._forward(q, k, vp, True, 0, D ** -0.5))
+            bms, by = bound_ms(*attn_flops_bytes(B, S, H, KH, D, elem=2,
+                                                 Dv=Dv), BF16_FLOPS_PER_S)
+            attn.append(dict(shape=name, B=B, S=S, H=H, KH=KH, D=D, Dv=Dv,
                              dtype="bfloat16", max_abs_err=abs_err(got, want),
                              **t, bound_ms=bms, bound_by=by))
-            print(f"  serving flash_attention prefill-{S} (B={B} S={S} "
-                  f"H={H} KH={KH} D={D} bf16): {times_text(t, 'SDPA')}, "
-                  f"bound {bms * 1e3:.2f} us ({by}); rel err {err:.3g}")
+            pad = (f"; the kernel alone on v padded beforehand (graph) "
+                   f"{t['padded_kernel_graph_ms'] * 1e3:.2f} us"
+                   if Dv < D else "")
+            print(f"  flash_attention {name} (B={B} S={S} H={H} KH={KH} "
+                  f"D={D} Dv={Dv} bf16): {times_text(t, 'SDPA')}, bound "
+                  f"{bms * 1e3:.2f} us ({by}); rel err {err:.3g}{pad}")
     return dict(lora_matmul=lora, flash_attention=attn)
 
 
-def decode_path(cfg, model, prompts, device):
+def decode_path(cfg, model, prompts, device, dtype=None):
     """The serve step fed ``prompts`` one token at a time from an empty
-    cache (the serving example's prefill): its last logits and the cache
-    it filled."""
+    cache (the serving example's prefill; bfloat16 unless ``dtype``): its
+    last logits and the cache it filled."""
+    import torch
     from repro_torch.models import model as M
     serve = M.make_serve_step(cfg)
     B, P = prompts.shape
-    cache = M.init_cache(cfg, B, P, device=device)
+    cache = M.init_cache(cfg, B, P, dtype=dtype or torch.bfloat16,
+                         device=device)
     for p in range(P):
         logits, cache = serve(*model, cache, prompts[:, p:p + 1], p)
     return logits, cache
@@ -2690,34 +2814,6 @@ def cache_errs(got, want) -> list:
             for gl, wl in zip(got, want)]
 
 
-def against_cpu(cfg, model, cpu_model, prompts, steps: int = 2) -> dict:
-    """The card's prefill and ``steps`` serve steps (fed the card's greedy
-    tokens) against the CPU port's on the same weights, of the largest
-    magnitude: the logits, each layer's prefill caches and each layer's
-    decode cache after the steps; ``cpu`` is the CPU's prefill."""
-    import torch
-    from repro_torch.models import model as M
-    prefill, serve = M.make_prefill_step(cfg), M.make_serve_step(cfg)
-    P = prompts.shape[1]
-    logits, caches = {}, {}
-    for dev, m in (("cuda", model), ("cpu", cpu_model)):
-        logits[dev], caches[dev] = prefill(*m, {"tokens": prompts.to(dev)})
-    out = dict(prefill=rel_err(logits["cuda"], logits["cpu"], floor=0.0),
-               prefill_caches=cache_errs(caches["cuda"], caches["cpu"]),
-               steps=[], cpu=(logits["cpu"], caches["cpu"]))
-    cache = {dev: decode_cache(cfg, caches[dev], steps, dev)
-             for dev in caches}
-    tok = torch.argmax(logits["cuda"], -1)[:, None]
-    for s in range(steps):
-        got, cache["cuda"] = serve(*model, cache["cuda"], tok, P + s)
-        want, cache["cpu"] = serve(*cpu_model, cache["cpu"], tok.cpu(),
-                                   P + s)
-        out["steps"].append(rel_err(got, want, floor=0.0))
-        tok = torch.argmax(got, -1)[:, None]
-    out["step_caches"] = cache_errs(cache["cuda"], cache["cpu"])
-    return out
-
-
 def serving_counts(run: dict, name: str) -> dict:
     """A kernel's launches in one prefill and in the serve steps after
     it, for the ``kernels`` line."""
@@ -2732,19 +2828,17 @@ def serving_phase(profile: bool = False) -> dict:
     requests: ``make_prefill_step`` on prompts of 32 and 512 tokens, then
     16 serve steps sampled at temperature 0.8, timed.  Checks, made after
     every number is printed: the launches of a prefill and of the serve
-    steps; prefill's last logits against the decode path fed the same
-    prompt, within twice the CPU port's own gap at 32 tokens on the same
-    weights (at 32 and at 512 tokens); at 32 tokens, the card against the
-    CPU port (prefill and 2 serve steps, logits and caches) in bfloat16
-    and on the same weights in float32, and the control (no LoRA term),
-    as ``SERVE_CPU_TOL`` sets out.  Peak memory is taken after the base
-    draw (whose own peak is printed).  ``profile`` traces 4 warm serve
-    steps after the 512-token prefill."""
+    steps; then, in ``serving_compare`` once the CPU port's half (started
+    after the draw, in a process of its own) is in, prefill's last logits
+    against the decode path and the card against the CPU port at 32
+    tokens.  Peak memory is taken after the base draw (whose own peak is
+    printed).  ``profile`` traces 4 warm serve steps after the 512-token
+    prefill."""
     import torch
     from repro_torch import random as jr
     from repro_torch.configs.registry import get
     from repro_torch.models import model as M
-    from repro_torch.tree import tree_leaves, tree_map
+    from repro_torch.tree import tree_leaves
     t_phase = time.perf_counter()
     cfg = get(SERVE_MODEL)
     B, steps = SERVE_B, SERVE_STEPS
@@ -2764,46 +2858,21 @@ def serving_phase(profile: bool = False) -> dict:
                        for t in tree_leaves(model))
     prompts = torch.from_numpy(jr.randint(
         key, (B, max(SERVE_PROMPTS)), 4, cfg.vocab_size - 4)).long().cuda()
-    prefill = M.make_prefill_step(cfg)
-    serve = M.make_serve_step(cfg)
+    P_cpu = min(SERVE_PROMPTS)
+    fed = prompts[:, P_cpu:P_cpu + 2]
+    job = CpuJob("phase 12's CPU half", family_half_cpu, cfg,
+                 *host_tree((model, prompts[:, :P_cpu], fed)),
+                 CPU_JOB_THREADS)
     runs = {}
     for P in SERVE_PROMPTS:
-        batch = {"tokens": prompts[:, :P]}
-        prefill(*model, batch)                                  # warm
-        zero_counters()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits, caches = prefill(*model, batch)
-        torch.cuda.synchronize()
-        prefill_s = time.perf_counter() - t0
-        n_prefill = read_counters()
-        cache = decode_cache(cfg, caches, steps, "cuda")
-        cache_bytes = sum(t.numel() * t.element_size()
-                          for t in tree_leaves(cache))
-        tok = torch.argmax(logits, -1)[:, None]
-        k = jr.fold_in(key, P)
-        zero_counters()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for s in range(steps):
-            k, sub = jr.split(k)
-            step_logits, cache = serve(*model, cache, tok, P + s)
-            tok = jr.categorical(sub, step_logits / SERVE_TEMPERATURE)[:, None]
-        torch.cuda.synchronize()
-        decode_s = time.perf_counter() - t0
-        n_steps = read_counters()
+        r = runs[P] = serve_timed(cfg, model, prompts[:, :P], steps, key,
+                                  weight_bytes)
         dec = decode_path(cfg, model, prompts[:, :P], "cuda")[0]
-        r = runs[P] = dict(
-            prefill_s=prefill_s, decode_s=decode_s, step_s=decode_s / steps,
-            tokens_per_s=B * steps / decode_s,
-            gap=float((dec - logits).abs().max()),
-            largest_logit=float(logits.abs().max()),
-            cache_bytes=cache_bytes,
-            bound_step_ms=(weight_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3,
-            finite=bool(torch.isfinite(logits).all()
-                        and torch.isfinite(step_logits).all()),
-            launches_prefill=n_prefill, launches_steps=n_steps,
-            logits=logits, caches=caches)
+        r["gap"] = float((dec - r["logits"]).abs().max())
+        r["largest_logit"] = float(r["logits"].abs().max())
+        prefill_s, decode_s = r["prefill_s"], r["decode_s"]
+        n_prefill, n_steps = r["launches_prefill"], r["launches_steps"]
+        cache_bytes = r["cache_bytes"]
         print(f"phase 12 (serving {SERVE_MODEL}, bf16, B={B}, prompt {P}): "
               f"prefill {prefill_s * 1e3:.2f} ms; {steps} serve steps "
               f"{decode_s:.4f} s, {r['step_s'] * 1e3:.3f} ms a step (byte "
@@ -2815,36 +2884,73 @@ def serving_phase(profile: bool = False) -> dict:
               f"{json.dumps(n_prefill)}, serve steps {json.dumps(n_steps)}")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
-    # the CPU port on the same weights at 32 tokens: prefill and 2 serve
-    # steps against the card's, its own decode path against its prefill,
-    # the control, then all of it again on the weights in float32
-    P_cpu = min(SERVE_PROMPTS)
-    tokens = prompts[:, :P_cpu]
-    t0 = time.perf_counter()
-    cpu_model = tree_map(lambda t: t.cpu(), model)
-    bf = against_cpu(cfg, model, cpu_model, tokens)
-    cpu_logits, cpu_caches = bf.pop("cpu")
-    dec_logits, dec_cache = decode_path(cfg, cpu_model, tokens.cpu(), "cpu")
-    cpu_gap = float((dec_logits - cpu_logits).abs().max())
-    cpu_cache_gap = max(cache_errs(dec_cache, cpu_caches))
+    # the card's half of the comparison with the CPU port at 32 tokens
+    # (whose half runs in a process of its own, started after the draw),
+    # and the control
+    card = family_half(cfg, model, prompts[:, :P_cpu], fed)
     no_lora = [{k: torch.zeros_like(v) if "lora_b" in k else v
                 for k, v in a.items()} for a in adapters]
-    control = rel_err(prefill(params, no_lora, {"tokens": tokens})[0],
-                      cpu_logits, floor=0.0)
-    del no_lora, dec_cache, cpu_caches
-    bf16_s = time.perf_counter() - t0
-    f32 = lambda t: t.float()  # noqa: E731
-    f32_model = tree_map(f32, model)
-    f32_cpu_model = tree_map(f32, cpu_model)
-    fl = against_cpu(cfg, f32_model, f32_cpu_model, tokens)
-    fl.pop("cpu")
-    del f32_model, f32_cpu_model, cpu_model
-    cpu_s = time.perf_counter() - t0
-    wall = time.perf_counter() - t_phase
+    control_logits = M.make_prefill_step(cfg)(
+        params, no_lora, {"tokens": prompts[:, :P_cpu]})[0].float().cpu()
+    del no_lora
+    if profile:
+        profile_serving(cfg, model, runs[max(SERVE_PROMPTS)])
+    for P, r in runs.items():
+        check_serving_launches(r["launches_prefill"], want["prefill"],
+                               f"prefill {P}")
+        check_serving_launches(r["launches_steps"], {
+            name: steps * c for name, c in want["serve_step"].items()},
+            f"{steps} serve steps after a {P}-token prefill")
+        check(r["finite"] and r["logits"].shape == (B, cfg.vocab_size),
+              f"prefill {P} or its serve steps: logits not finite")
+    big = runs[max(SERVE_PROMPTS)]
+    return dict(
+        wall_s=time.perf_counter() - t_phase, init_s=init_s, peak_gib=peak,
+        draw_peak_gib=draw_peak, weight_bytes=weight_bytes,
+        bound_step_ms=big["bound_step_ms"], job=job, card=card,
+        control_logits=control_logits,
+        runs={P: {k: v for k, v in r.items() if k not in ("logits",
+                                                           "caches")}
+              for P, r in runs.items()})
+
+
+def serving_compare(serving: dict) -> dict:
+    """Phase 12's checks against the CPU port, once its half is in: at 32
+    tokens, prefill and 2 serve steps fed the prompt's next tokens, in
+    bfloat16 (logits within ``SERVE_CPU_TOL`` of the largest, every
+    layer's caches within twice the CPU port's own prefill-against-decode
+    gap) and on the same weights in float32 with a float32 decode cache
+    (``SERVE_F32_TOL``); prefill against the decode path on the card, at
+    32 and 512 tokens, within twice the CPU port's own gap at 32; the
+    control (the card's prefill without the LoRA term) outside
+    ``SERVE_CPU_TOL``."""
+    t0 = time.perf_counter()
+    cpu = host_tree(serving.pop("job").result(), False)
+    waited = time.perf_counter() - t0
+    card = serving.pop("card")
+    P_cpu = min(SERVE_PROMPTS)
+    errs = {}
+    for label in ("bfloat16", "float32"):
+        g, w = card[label], cpu[label]
+        errs[label] = dict(
+            prefill=rel_err(g["prefill"], w["prefill"], floor=0.0),
+            steps=[rel_err(a, b, floor=0.0)
+                   for a, b in zip(g["steps"], w["steps"])],
+            prefill_caches=cache_errs(g["caches"], w["caches"]),
+            step_caches=cache_errs(g["step_caches"], w["step_caches"]),
+            seconds=w["seconds"])
+    bf, fl = errs["bfloat16"], errs["float32"]
+    cpu_gap, cpu_cache_gap = cpu["bfloat16"]["gap"], \
+        cpu["bfloat16"]["cache_gap"]
+    control = rel_err(serving.pop("control_logits"),
+                      cpu["bfloat16"]["prefill"], floor=0.0)
     err_cache = max(bf["prefill_caches"] + bf["step_caches"])
     layers = lambda e: ", ".join(f"{x:.3g}" for x in e)  # noqa: E731
-    print(f"phase 12: CPU port ({P_cpu} tokens) in {cpu_s:.1f} s (bfloat16 "
-          f"{bf16_s:.1f} s, float32 {cpu_s - bf16_s:.1f} s): card "
+    runs = serving["runs"]
+    print(f"phase 12: CPU port ({P_cpu} tokens; a process of "
+          f"{CPU_JOB_THREADS} threads beside phases 12-14, "
+          f"{cpu['seconds']:.1f} s: bfloat16 {bf['seconds']:.1f} s, "
+          f"float32 {fl['seconds']:.1f} s; {waited:.1f} s waited for): card "
           f"against it, of the largest, bfloat16: prefill logits "
           f"{bf['prefill']:.3g}, serve steps {layers(bf['steps'])} "
           f"(tolerance {SERVE_CPU_TOL}); caches {err_cache:.3g} (tolerance "
@@ -2858,19 +2964,10 @@ def serving_phase(profile: bool = False) -> dict:
           f"{max(fl['step_caches']):.3g} (tolerance {SERVE_F32_TOL}, a "
           f"float32 decode cache); prefill against the decode path "
           f"{runs[P_cpu]['gap']:.3g} on the card, {cpu_gap:.3g} on the CPU; "
-          f"base draw {init_s:.2f} s (peak {draw_peak:.2f} GiB); peak "
-          f"memory after it {peak:.2f} GiB; phase {wall:.1f} s")
-    if profile:
-        profile_serving(cfg, model, runs[max(SERVE_PROMPTS)])
-
+          f"base draw {serving['init_s']:.2f} s (peak "
+          f"{serving['draw_peak_gib']:.2f} GiB); peak memory after it "
+          f"{serving['peak_gib']:.2f} GiB; phase {serving['wall_s']:.1f} s")
     for P, r in runs.items():
-        check_serving_launches(r["launches_prefill"], want["prefill"],
-                               f"prefill {P}")
-        check_serving_launches(r["launches_steps"], {
-            name: steps * c for name, c in want["serve_step"].items()},
-            f"{steps} serve steps after a {P}-token prefill")
-        check(r["finite"] and r["logits"].shape == (B, cfg.vocab_size),
-              f"prefill {P} or its serve steps: logits not finite")
         check(r["gap"] <= 2 * cpu_gap,
               f"prefill {P} against the decode path: {r['gap']} on the "
               f"card, over twice the CPU port's {cpu_gap} at {P_cpu} tokens")
@@ -2892,17 +2989,683 @@ def serving_phase(profile: bool = False) -> dict:
           f"the control (card prefill without the LoRA term) is within "
           f"{SERVE_CPU_TOL} of the CPU port with it ({control}): the bound "
           "cannot see a lost adapter term")
-    big = runs[max(SERVE_PROMPTS)]
+    return dict(serving, cpu_s=cpu["seconds"], bf16_s=bf["seconds"],
+                bf16=bf, float32=fl, control=control, cpu_gap=cpu_gap,
+                cpu_cache_gap=cpu_cache_gap)
+
+
+def serve_timed(cfg, model, prompts, steps: int, key, weight_bytes: int
+                ) -> dict:
+    """One warm ``make_prefill_step`` on ``prompts`` ``(B, P)`` timed, then
+    ``steps`` serve steps sampled at ``SERVE_TEMPERATURE`` timed, each
+    with its launches counted; the serve step's byte bound is the
+    weights and the cache once over 3.35 TB/s."""
+    import torch
+    from repro_torch import random as jr
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_leaves
+    prefill, serve = M.make_prefill_step(cfg), M.make_serve_step(cfg)
+    B, P = prompts.shape
+    batch = {"tokens": prompts}
+    prefill(*model, batch)                                      # warm
+    zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = prefill(*model, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    n_prefill = read_counters()
+    cache = decode_cache(cfg, caches, steps, "cuda")
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(cache))
+    tok = torch.argmax(logits, -1)[:, None]
+    k = jr.fold_in(key, P)
+    zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(steps):
+        k, sub = jr.split(k)
+        step_logits, cache = serve(*model, cache, tok, P + s)
+        tok = jr.categorical(sub, step_logits / SERVE_TEMPERATURE)[:, None]
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
     return dict(
-        wall_s=wall, cpu_s=cpu_s, bf16_s=bf16_s, init_s=init_s,
-        peak_gib=peak,
-        draw_peak_gib=draw_peak,
-        weight_bytes=weight_bytes, bound_step_ms=big["bound_step_ms"],
-        bf16=bf, float32=fl, control=control, cpu_gap=cpu_gap,
-        cpu_cache_gap=cpu_cache_gap,
-        runs={P: {k: v for k, v in r.items() if k not in ("logits",
-                                                           "caches")}
-              for P, r in runs.items()})
+        prefill_s=prefill_s, decode_s=decode_s, step_s=decode_s / steps,
+        tokens_per_s=B * steps / decode_s, cache_bytes=cache_bytes,
+        bound_step_ms=(weight_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3,
+        finite=bool(torch.isfinite(logits).all()
+                    and torch.isfinite(step_logits).all()),
+        launches_prefill=n_prefill, launches_steps=read_counters(),
+        logits=logits, caches=caches)
+
+
+# ---------------------------------------------------------------------------
+# phases 13 and 14: the mixture-of-experts and latent-attention families
+# ---------------------------------------------------------------------------
+KIMI, MINICPM, STABLELM = "kimi-k2-1t-a32b", "minicpm3-4b", "stablelm-3b"
+# phase 14's CPU half: minicpm3-4b's first layers at this depth, on the
+# card's weights
+FAMILY_CPU_DEPTH = 2
+# phase 13's per-token reference of the MoE block: at least this many
+# tokens of the 512-token prefill (those with a dropped choice first)
+MOE_REF_TOKENS = 64
+# the block's update (routed experts and the shared expert, bfloat16)
+# against that float32 reference, of the reference's largest magnitude.
+# Each element of the update is rounded to bfloat16 about ten times on
+# its way (each expert's two products, SwiGLU's two ops, the gate
+# product, the sum over the top 8, the shared expert's three, the final
+# add), each by at most 2**-9 of itself; 2e-2 is the bfloat16 bound the
+# smoke holds every kernel to against its plain version.
+MOE_REF_TOL = 2e-2
+# phase 13's prefill against the decode path: requests of 32 tokens, and
+# how many of them must route their last token alike in both (a token
+# whose k-th and (k+1)-th router logits lie within the two paths'
+# bfloat16 noise of each other may take another expert in each: such a
+# flip is reported with its margin and that noise, and not held)
+DECODE_CHECK_B, DECODE_CHECK_HELD = 16, 8
+
+
+def adapted_launches(cfg, decode: bool) -> int:
+    """``lora_matmul`` launches of one pass: every adapted projection a
+    layer (GQA's wq, wkv, wo; MLA's wq_a, wq_b, wkv_a, wkv_b, wo; the
+    MLP's w_in, w_out; the MoE block's experts and shared expert take no
+    adapter), but MLA's ``wkv_b`` in decode, whose absorbed form reads
+    its base weight."""
+    n = 0
+    for i in range(cfg.n_layers):
+        mixer, ffn = cfg.pattern[i % len(cfg.pattern)]
+        n += 3 if mixer == "attn" else (4 if decode else 5)
+        n += 2 if ffn == "mlp" else 0
+    return n
+
+
+def family_launches(cfg) -> dict:
+    return {"prefill": {"lora_matmul": adapted_launches(cfg, False),
+                        "flash_attention": cfg.n_layers},
+            "serve_step": {"lora_matmul": adapted_launches(cfg, True),
+                           "flash_attention": 0}}
+
+
+def draw_family(cfg) -> tuple:
+    """The base of ``cfg`` as ``init_params`` draws it on the card (its
+    config's bfloat16, each leaf a slice at a time) and its adapters with
+    ``lora_b`` + 0.01: ((params, adapters), draw seconds, the draw's peak
+    GiB, the model's bytes)."""
+    import torch
+    from repro_torch import random as jr
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_leaves
+    torch.cuda.reset_peak_memory_stats()
+    key = jr.PRNGKey(0)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, key)
+    adapters = [{k: v + 0.01 if "lora_b" in k else v for k, v in a.items()}
+                for a in M.init_adapters(cfg, key, params)]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    model = (params, adapters)
+    return (model, init_s, torch.cuda.max_memory_allocated() / 2 ** 30,
+            sum(t.numel() * t.element_size() for t in tree_leaves(model)))
+
+
+@contextlib.contextmanager
+def moe_spy():
+    """Every MoE block called inside, recorded: a list that receives, a
+    call each, its input ``x``, its parameters, its update ``y``, and
+    each client's router logits and ``Routing``."""
+    from repro_torch.models import ffn
+    calls, update0, route0 = [], ffn.moe_update, ffn.route
+
+    def route(logits, m):
+        r = route0(logits, m)
+        calls[-1]["logits"].append(logits)
+        calls[-1]["routing"].append(r)
+        return r
+
+    def update(params, cfg, x):
+        calls.append(dict(x=x, params=params, logits=[], routing=[]))
+        calls[-1]["y"], balance = update0(params, cfg, x)
+        return calls[-1]["y"], balance
+    ffn.moe_update, ffn.route = update, route
+    try:
+        yield calls
+    finally:
+        ffn.moe_update, ffn.route = update0, route0
+
+
+def logit_margins(r, k: int):
+    """Each token's smallest gap between neighbouring router logits
+    (log-probabilities) among its first k choices and the next: how near
+    its routing is to a tie."""
+    import torch
+    top = torch.sort(r.probs, dim=-1, descending=True).values[:, :k + 1]
+    lg = torch.log(top)
+    return (lg[:, :-1] - lg[:, 1:]).min(dim=-1).values
+
+
+def host_recount(logits, experts, m) -> dict:
+    """The routing recounted on the host from read-back float32 router
+    logits ``(T, E)``: each token's top-k experts (a stable descending
+    sort of the logits, which order as the probabilities do), and from
+    the card's choices ``experts`` ``(T, k)`` each choice's rank in its
+    expert by a running count (the one-hot cumsum, not the card's sort),
+    the capacity, the kept set and the per-expert counts."""
+    import numpy as np
+    T, E = logits.shape
+    ids = np.argsort(-logits, axis=1, kind="stable")[:, :m.top_k]
+    flat = experts.reshape(-1)
+    pos, seen = np.empty_like(flat), np.zeros(E, np.int64)
+    for i, e in enumerate(flat):
+        pos[i] = seen[e]
+        seen[e] += 1
+    cap = max(8, -(-math.ceil(m.top_k * T * m.capacity_factor
+                              / m.n_experts) // 8) * 8)
+    return dict(ids=ids, pos=pos, keep=pos < cap, counts=seen, capacity=cap)
+
+
+def check_routing(call, m, what: str) -> dict:
+    """The card's routing integers of one MoE call against
+    ``host_recount``: the top-k experts equal (a token may differ only
+    where the card's float32 probabilities tie exactly), each choice's
+    rank, the kept set, the capacity and the per-expert counts equal."""
+    import numpy as np
+    r = call["routing"][0]
+    logits = call["logits"][0].float().cpu().numpy()
+    experts = r.experts.cpu().numpy()
+    host = host_recount(logits, experts, m)
+    probs = r.probs.float().cpu().numpy()
+    diff = np.nonzero((host["ids"] != experts).any(axis=1))[0]
+    for t in diff:          # a tie: the same probabilities, other indices
+        check(np.array_equal(np.sort(probs[t, host["ids"][t]]),
+                             np.sort(probs[t, experts[t]])),
+              f"{what}: token {t} takes experts {experts[t].tolist()} on "
+              f"the card, {host['ids'][t].tolist()} on the host")
+    check(r.capacity == host["capacity"], f"{what}: capacity {r.capacity} "
+          f"against the host's {host['capacity']}")
+    check(np.array_equal(r.pos.cpu().numpy(), host["pos"]),
+          f"{what}: the ranks in the experts differ from the host's count")
+    keep = r.keep.cpu().numpy()
+    check(np.array_equal(keep, host["keep"]), f"{what}: the kept set "
+          "differs from the host's")
+    counts = np.bincount(experts.reshape(-1), minlength=m.n_experts)
+    check(np.array_equal(counts, host["counts"]), f"{what}: counts")
+    return dict(ties=len(diff), capacity=r.capacity,
+                dropped=int((~keep).sum()), kept=int(keep.sum()),
+                max_count=int(counts.max()),
+                over_capacity=int((counts > r.capacity).sum()))
+
+
+def moe_reference(call, cfg, n_tokens: int) -> dict:
+    """The MoE block's update for a sample of tokens from its weights in
+    float32 on the card, token by token, sharing no code with its
+    dispatch: the sum over each token's kept experts of its gate times
+    the expert's SwiGLU (``silu(x W_in[:, :ff]) * (x W_in[:, ff:]) W_out``),
+    plus the shared expert, from the block's normed tokens.  The sample:
+    the tokens with a dropped choice (up to half), then tokens evenly
+    spaced.  Returns the error against the block's update, of the
+    reference's largest magnitude, and the sample."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models.common import rms_norm
+    m, p, r = cfg.moe, call["params"], call["routing"][0]
+    x, y = call["x"], call["y"]
+    d = x.shape[-1]
+    xn = rms_norm(x, p["ln2"], cfg.norm_eps).reshape(-1, d)
+    T, k = xn.shape[0], m.top_k
+    keep = r.keep.view(T, k)
+    dropped = torch.nonzero(~keep.all(dim=1))[:, 0].tolist()
+    sample = sorted(set(dropped[:n_tokens // 2])
+                    | set(range(0, T, max(1, T // n_tokens))))
+
+    def swiglu_f32(v, w_in, w_out):
+        h = v @ w_in.float()
+        ff = h.shape[-1] // 2
+        return (F.silu(h[..., :ff]) * h[..., ff:]) @ w_out.float()
+    ref, got = [], []
+    for t in sample:
+        v = xn[t].float()
+        out = torch.zeros(d, device=x.device)
+        for j in range(k):
+            if keep[t, j]:
+                e = int(r.experts[t, j])
+                out += r.gates[t, j] * swiglu_f32(v, p["w_in"][e],
+                                                  p["w_out"][e])
+        if m.n_shared_experts:
+            out += swiglu_f32(v, p["shared_w_in"], p["shared_w_out"])
+        ref.append(out)
+        got.append(y.reshape(-1, d)[t].float())
+    ref, got = torch.stack(ref), torch.stack(got)
+    return dict(err=float((got - ref).abs().max() / ref.abs().max()),
+                tokens=len(sample), with_drops=len(set(dropped) & set(sample)))
+
+
+def kimi_phase(gen) -> dict:
+    """Phase 13: ``kimi-k2-1t-a32b`` at its published widths (d_model
+    7168, 64/8 heads of 112, 384 experts top-8 of d_ff 2048 and one
+    shared expert, vocab 163840, untied), its depth cut from 61 layers to
+    one ``("attn", "moe")`` group; the bfloat16 base as ``init_params``
+    draws it; 4 requests, prompts of 32 and 512 tokens, then 16 serve
+    steps at temperature 0.8, timed.  Checks: the launches; the 512-token
+    prefill's routing integers against a host recount from the read-back
+    router logits; the MoE block's update against a per-token float32
+    reference; prefill against the decode path on ``DECODE_CHECK_B``
+    prompts of 32 tokens, both with a capacity that drops no choice
+    (``capacity_factor = E / k``: the serve step of 4 requests never
+    drops, but prefill does, and a dropped choice is a different
+    function, not an error): every layer's cache within 2e-2 of its
+    largest, and the last logits within ``SERVE_CPU_TOL`` of the largest
+    for the rows whose last token took the same experts in both paths
+    (at least ``DECODE_CHECK_HELD``); a row whose last token took others
+    must have routed within twice the two paths' router-logit gap of a
+    tie, and is reported; ``flash_attention`` at head dim 112 and
+    ``lora_matmul`` at kimi's projections against their plain versions.
+    The card's model is freed at the end."""
+    import dataclasses
+    import torch
+    from repro_torch import random as jr
+    from repro_torch.configs.registry import get
+    from repro_torch.models import model as M
+    t_phase = time.perf_counter()
+    full = get(KIMI)
+    cfg = dataclasses.replace(full, n_layers=len(full.pattern))
+    m = cfg.moe
+    print(f"phase 13: {KIMI} at its published widths (d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.head_dim}, {m.n_experts} experts top-{m.top_k} of d_ff "
+          f"{m.d_ff} and {m.n_shared_experts} shared, vocab "
+          f"{cfg.vocab_size}); depth cut from {full.n_layers} layers to "
+          f"{cfg.n_layers} (one {cfg.pattern[0]} group)")
+    model, init_s, draw_peak, weight_bytes = draw_family(cfg)
+    B, steps, key = SERVE_B, SERVE_STEPS, jr.PRNGKey(0)
+    prompts = torch.from_numpy(jr.randint(
+        key, (B, max(SERVE_PROMPTS)), 4, cfg.vocab_size - 4)).long().cuda()
+    torch.cuda.reset_peak_memory_stats()
+    runs = {P: serve_timed(cfg, model, prompts[:, :P], steps, key,
+                           weight_bytes) for P in SERVE_PROMPTS}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for P, r in runs.items():
+        print(f"phase 13 ({KIMI}, bf16, B={B}, prompt {P}): prefill "
+              f"{r['prefill_s'] * 1e3:.2f} ms; {steps} serve steps "
+              f"{r['decode_s']:.4f} s, {r['step_s'] * 1e3:.3f} ms a step "
+              f"(byte bound {r['bound_step_ms']:.3f} ms: "
+              f"{weight_bytes / 1e9:.3f} GB of weights, every expert's "
+              f"read each step, and {r['cache_bytes'] / 1e6:.1f} MB of "
+              f"cache at 3.35 TB/s), {r['tokens_per_s']:.1f} tokens/s; "
+              f"launches: prefill {json.dumps(r['launches_prefill'])}, "
+              f"serve steps {json.dumps(r['launches_steps'])}")
+
+    prefill = M.make_prefill_step(cfg)
+    with torch.no_grad(), moe_spy() as calls:
+        prefill(*model, {"tokens": prompts})
+    routing = check_routing(calls[0], m, "prefill 512")
+    ref = moe_reference(calls[0], cfg, MOE_REF_TOKENS)
+    del calls
+    P, nb = min(SERVE_PROMPTS), DECODE_CHECK_B
+    nodrop = dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.n_experts / m.top_k))
+    check_prompts = torch.from_numpy(jr.randint(
+        jr.fold_in(key, 13), (nb, P), 4, cfg.vocab_size - 4)).long().cuda()
+    with torch.no_grad(), moe_spy() as calls:
+        logits, caches = M.make_prefill_step(nodrop)(
+            *model, {"tokens": check_prompts})
+    r32 = calls[0]["routing"][0]
+    last = torch.arange(nb, device="cuda") * P + P - 1
+    lost = int((~r32.keep).sum())
+    margin = logit_margins(r32, m.top_k)[last].tolist()
+    chose, lg = r32.experts[last], calls[0]["logits"][0][last]
+    del calls
+    with torch.no_grad(), moe_spy() as calls:
+        dec, dec_cache = decode_path(nodrop, model, check_prompts, "cuda")
+    same = (torch.sort(chose, dim=1).values == torch.sort(
+        calls[-1]["routing"][0].experts, dim=1).values).all(dim=1).tolist()
+    noise = (calls[-1]["logits"][0] - lg).abs().max(dim=1).values.tolist()
+    del calls
+    row_err = ((dec - logits).abs().max(dim=-1).values
+               / logits.abs().max()).tolist()
+    cache_err = max(cache_errs(dec_cache, caches))
+    held = [b for b in range(nb) if same[b]]
+    flips = [(b, margin[b], noise[b]) for b in range(nb) if not same[b]]
+    times = kernel_times(
+        gen, [(f"kimi-{n}-M{M_}", M_, K, N, cfg.lora.rank)
+              for n, (K, N) in (("wq", (cfg.d_model, cfg.n_heads
+                                       * cfg.head_dim)),
+                                ("wkv", (cfg.d_model, 2 * cfg.n_kv_heads
+                                         * cfg.head_dim)),
+                                ("wo", (cfg.n_heads * cfg.head_dim,
+                                        cfg.d_model)))
+              for M_ in (B, B * max(SERVE_PROMPTS))],
+        [(f"kimi-prefill-{S}", B, S, cfg.n_heads, cfg.n_kv_heads,
+          cfg.head_dim, cfg.head_dim) for S in SERVE_PROMPTS])
+    wall = time.perf_counter() - t_phase
+    print(f"phase 13: routing at the 512-token prefill (T={B * 512}) equal "
+          f"to the host's recount: capacity {routing['capacity']}, "
+          f"{routing['kept']} choices kept, {routing['dropped']} dropped, "
+          f"{routing['over_capacity']} experts over capacity (largest "
+          f"count {routing['max_count']}), {routing['ties']} exact ties; "
+          f"MoE block against the float32 per-token reference on "
+          f"{ref['tokens']} tokens ({ref['with_drops']} with a dropped "
+          f"choice): {ref['err']:.3g} of the largest (tolerance "
+          f"{MOE_REF_TOL}); prefill against the decode path ({nb} prompts "
+          f"of {P} tokens, a capacity that drops none: {lost} dropped), "
+          f"caches {cache_err:.3g} (tolerance 2e-2), last logits by row "
+          f"{', '.join(f'{e:.3g}' for e in row_err)} (tolerance "
+          f"{SERVE_CPU_TOL} on the {len(held)} rows routed alike; flips "
+          f"(row, logit margin, the paths' router-logit gap): "
+          f"{', '.join(f'({b}, {x:.3g}, {y:.3g})' for b, x, y in flips)}; "
+          f"the last tokens' logit margins "
+          f"{', '.join(f'{x:.3g}' for x in margin)}); base draw {init_s:.2f} s ({weight_bytes / 1e9:.2f} GB, draw "
+          f"peak {draw_peak:.2f} GiB); peak memory after it {peak:.2f} GiB;"
+          f" phase {wall:.1f} s")
+    want = family_launches(cfg)
+    for P_, r in runs.items():
+        check_serving_launches(r["launches_prefill"], want["prefill"],
+                               f"{KIMI} prefill {P_}")
+        check_serving_launches(r["launches_steps"], {
+            n: steps * c for n, c in want["serve_step"].items()},
+            f"{KIMI} {steps} serve steps after a {P_}-token prefill")
+        check(r["finite"] and r["logits"].shape == (B, cfg.vocab_size),
+              f"{KIMI} prefill {P_} or its serve steps: logits not finite")
+    check(ref["err"] <= MOE_REF_TOL, f"{KIMI} MoE block against the "
+          f"per-token reference: {ref['err']} > {MOE_REF_TOL}")
+    check(lost == 0, f"{KIMI}: {lost} choices dropped at a capacity of "
+          f"{r32.capacity}")
+    check(cache_err <= 2e-2, f"{KIMI} prefill against the decode path: "
+          f"caches {cache_err} > 2e-2")
+    check(len(held) >= DECODE_CHECK_HELD, f"{KIMI}: only rows {held} of "
+          f"{nb} routed their last token alike in prefill and decode")
+    for b, x, y in flips:
+        check(x <= 2 * y, f"{KIMI} row {b}: its last token took other "
+              f"experts in prefill and decode at a logit margin of {x}, "
+              f"over twice the paths' router-logit gap {y}")
+    for b in held:
+        check(row_err[b] <= SERVE_CPU_TOL, f"{KIMI} prefill against the "
+              f"decode path, row {b}: {row_err[b]} > {SERVE_CPU_TOL}")
+    del model, prompts, dec, logits, caches, dec_cache
+    return dict(wall_s=wall, init_s=init_s, draw_peak_gib=draw_peak,
+                peak_gib=peak, weight_bytes=weight_bytes, routing=routing,
+                moe_ref=ref, decode_gap_rows=row_err, held_rows=held,
+                flips=flips, decode_cache_gap=cache_err,
+                kernel_times=times,
+                runs={P_: {k: v for k, v in r.items()
+                           if k not in ("logits", "caches")}
+                      for P_, r in runs.items()})
+
+
+class HostTensor:
+    """A tensor as a numpy array on the host (bfloat16 as its bits), so a
+    spawned process gets it by value through its pipe: torch would share
+    a tensor through /dev/shm, whose size the smoke does not know."""
+
+    def __init__(self, t):
+        import torch
+        t = t.detach().cpu().contiguous()
+        self.bf16 = t.dtype == torch.bfloat16
+        self.array = (t.view(torch.int16) if self.bf16 else t).numpy()
+
+    def tensor(self):
+        import torch
+        t = torch.from_numpy(self.array)
+        return t.view(torch.bfloat16) if self.bf16 else t
+
+
+def host_tree(tree, to_host: bool = True):
+    """Every tensor of a tree (dicts, lists, tuples) as a ``HostTensor``,
+    or back with ``to_host=False``."""
+    import torch
+    if isinstance(tree, dict):
+        return {k: host_tree(v, to_host) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(host_tree(v, to_host) for v in tree)
+    if to_host and torch.is_tensor(tree):
+        return HostTensor(tree)
+    if not to_host and isinstance(tree, HostTensor):
+        return tree.tensor()
+    return tree
+
+
+def family_half_cpu(cfg, model, prompts, fed, threads: int) -> dict:
+    """``family_half`` in a spawned process, on host trees both ways."""
+    return host_tree(family_half(cfg, *host_tree((model, prompts, fed),
+                                                 False), threads))
+
+
+def family_half(cfg, model, prompts, fed, threads: int = 0) -> dict:
+    """Prefill on ``prompts`` and ``fed.shape[1]`` serve steps fed ``fed``
+    from prefill's cache, and the decode path on the prompts, in bfloat16
+    and on the same weights in float32 (a float32 decode cache): logits
+    and caches on the CPU, and the gaps of the decode path's last logits
+    and caches to prefill's.  Runs on the model's device; phases 12 and
+    14 run it on the card and, in a process of its own, on the CPU."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_map
+    if threads:
+        torch.set_num_threads(threads)
+    t0 = time.perf_counter()
+    dev = prompts.device
+    prefill, serve = M.make_prefill_step(cfg), M.make_serve_step(cfg)
+    cpu = lambda t: t.float().cpu()  # noqa: E731
+    out = {}
+    with torch.no_grad():
+        for label, m, dt in (("bfloat16", model, torch.bfloat16),
+                             ("float32", tree_map(lambda t: t.float(),
+                                                  model), torch.float32)):
+            t1 = time.perf_counter()
+            logits, caches = prefill(*m, {"tokens": prompts})
+            cache = decode_cache(cfg, caches, fed.shape[1], dev)
+            steps = []
+            for s in range(fed.shape[1]):
+                lg, cache = serve(*m, cache, fed[:, s:s + 1],
+                                  prompts.shape[1] + s)
+                steps.append(cpu(lg))
+            dec, dec_cache = decode_path(cfg, m, prompts, dev, dtype=dt)
+            out[label] = dict(prefill=cpu(logits), caches=tree_map(cpu,
+                                                                   caches),
+                              steps=steps, step_caches=tree_map(cpu, cache),
+                              gap=float((dec - logits).abs().max()),
+                              cache_gap=max(cache_errs(dec_cache, caches)),
+                              seconds=time.perf_counter() - t1)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def minicpm_phase(gen) -> dict:
+    """Phase 14: ``minicpm3-4b`` at its published widths (d_model 2560,
+    40 heads, MLA q rank 768, kv rank 256, nope 64, rope 32, v 64, d_ff
+    6400, vocab 73448) and all 62 layers, the bfloat16 base as
+    ``init_params`` draws it; 4 requests, prompts of 32 and 512 tokens,
+    16 serve steps, timed.  Checks: the launches; prefill and 2 serve
+    steps (fed the prompt's next tokens) of the first ``FAMILY_CPU_DEPTH``
+    layers on the card's weights, against the CPU port run on the same in
+    a process of its own beside the card's work (bfloat16: logits within
+    ``SERVE_CPU_TOL``, caches 2e-2; float32 with a float32 decode cache:
+    ``SERVE_F32_TOL``), and prefill against the decode path there within
+    twice the CPU port's own gap; the full model in float32 with
+    ``wkv_b``'s adapter zeroed (the absorbed decode reads ``wkv_b``'s base
+    weight alone), prefill against the decode path within
+    ``SERVE_F32_TOL``; ``flash_attention`` at (96, 64) and
+    ``lora_matmul`` at MLA's five projections against their plain
+    versions.  The card's model is freed at the end."""
+    import dataclasses
+    import torch
+    from repro_torch import random as jr
+    from repro_torch.configs.registry import get
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_map
+    t_phase = time.perf_counter()
+    cfg = get(MINICPM)
+    ml = cfg.mla
+    print(f"phase 14: {MINICPM} at its published widths (d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads, MLA q rank {ml.q_lora_rank},"
+          f" kv rank {ml.kv_lora_rank}, nope {ml.qk_nope_head_dim}, rope "
+          f"{ml.qk_rope_head_dim}, v {ml.v_head_dim}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab_size}), all {cfg.n_layers} layers")
+    model, init_s, draw_peak, weight_bytes = draw_family(cfg)
+    B, steps, key = SERVE_B, SERVE_STEPS, jr.PRNGKey(0)
+    prompts = torch.from_numpy(jr.randint(
+        key, (B, max(SERVE_PROMPTS)), 4, cfg.vocab_size - 4)).long().cuda()
+    P = min(SERVE_PROMPTS)
+    shallow_cfg = dataclasses.replace(cfg, n_layers=FAMILY_CPU_DEPTH)
+    params, adapters = model
+    shallow = (dict(params, layers=params["layers"][:FAMILY_CPU_DEPTH]),
+               adapters[:FAMILY_CPU_DEPTH])
+    fed = prompts[:, P:P + 2]
+    job = CpuJob(f"{MINICPM} at depth {FAMILY_CPU_DEPTH} (cpu, plain)",
+                 family_half_cpu, shallow_cfg, *host_tree(
+                     (shallow, prompts[:, :P], fed)), CPU_JOB_THREADS)
+    torch.cuda.reset_peak_memory_stats()
+    runs = {P_: serve_timed(cfg, model, prompts[:, :P_], steps, key,
+                            weight_bytes) for P_ in SERVE_PROMPTS}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for P_, r in runs.items():
+        print(f"phase 14 ({MINICPM}, bf16, B={B}, prompt {P_}): prefill "
+              f"{r['prefill_s'] * 1e3:.2f} ms; {steps} serve steps "
+              f"{r['decode_s']:.4f} s, {r['step_s'] * 1e3:.3f} ms a step "
+              f"(byte bound {r['bound_step_ms']:.3f} ms: "
+              f"{weight_bytes / 1e9:.3f} GB of weights and "
+              f"{r['cache_bytes'] / 1e6:.1f} MB of compressed cache at 3.35 "
+              f"TB/s), {r['tokens_per_s']:.1f} tokens/s; launches: prefill "
+              f"{json.dumps(r['launches_prefill'])}, serve steps "
+              f"{json.dumps(r['launches_steps'])}")
+    times = kernel_times(
+        gen, [(f"minicpm-{n}-M{M_}", M_, K, N, cfg.lora.rank)
+              for n, (K, N) in (
+                  ("wq_a", (cfg.d_model, ml.q_lora_rank)),
+                  ("wq_b", (ml.q_lora_rank, cfg.n_heads * (
+                      ml.qk_nope_head_dim + ml.qk_rope_head_dim))),
+                  ("wkv_a", (cfg.d_model,
+                             ml.kv_lora_rank + ml.qk_rope_head_dim)),
+                  ("wkv_b", (ml.kv_lora_rank, cfg.n_heads * (
+                      ml.qk_nope_head_dim + ml.v_head_dim))),
+                  ("wo", (cfg.n_heads * ml.v_head_dim, cfg.d_model)))
+              for M_ in (B, B * max(SERVE_PROMPTS))],
+        [(f"minicpm-prefill-{S}", B, S, cfg.n_heads, cfg.n_heads,
+          ml.qk_nope_head_dim + ml.qk_rope_head_dim, ml.v_head_dim)
+         for S in SERVE_PROMPTS])
+    # the whole model in float32, wkv_b's adapter zeroed: prefill and the
+    # absorbed decode compute one function
+    f32 = (tree_map(lambda t: t.float(), params),
+           [{k: torch.zeros_like(v) if k == "wkv_b_lora_b" else v
+             for k, v in a.items()} for a in adapters])
+    with torch.no_grad():
+        f32_logits = M.make_prefill_step(cfg)(
+            *f32, {"tokens": prompts[:, :P]})[0]
+        f32_dec = decode_path(cfg, f32, prompts[:, :P], "cuda",
+                              dtype=torch.float32)[0]
+    f32_gap = rel_err(f32_dec, f32_logits, floor=0.0)
+    del f32, f32_dec
+    card = family_half(shallow_cfg, shallow, prompts[:, :P], fed)
+    t0 = time.perf_counter()
+    cpu = host_tree(job.result(), False)
+    waited = time.perf_counter() - t0
+    errs = {}
+    for label, tol, ctol in (("bfloat16", SERVE_CPU_TOL, 2e-2),
+                             ("float32", SERVE_F32_TOL, SERVE_F32_TOL)):
+        g, w = card[label], cpu[label]
+        errs[label] = dict(
+            prefill=rel_err(g["prefill"], w["prefill"], floor=0.0),
+            steps=[rel_err(a, b, floor=0.0)
+                   for a, b in zip(g["steps"], w["steps"])],
+            caches=max(cache_errs(g["caches"], w["caches"])
+                       + cache_errs(g["step_caches"], w["step_caches"])),
+            gap=g["gap"], cpu_gap=w["gap"], tol=tol, cache_tol=ctol)
+    wall = time.perf_counter() - t_phase
+    e16, e32 = errs["bfloat16"], errs["float32"]
+    print(f"phase 14: depth {FAMILY_CPU_DEPTH} on the card's weights, card "
+          f"against the CPU port (a process of {CPU_JOB_THREADS} threads, "
+          f"{cpu['seconds']:.1f} s, {waited:.1f} s of it waited for), of "
+          f"the largest: bfloat16 prefill logits {e16['prefill']:.3g}, 2 "
+          f"serve steps {', '.join(f'{x:.3g}' for x in e16['steps'])}, "
+          f"caches {e16['caches']:.3g} (tolerances {SERVE_CPU_TOL}, 2e-2); "
+          f"float32 {e32['prefill']:.3g}, "
+          f"{', '.join(f'{x:.3g}' for x in e32['steps'])}, caches "
+          f"{e32['caches']:.3g} (tolerance {SERVE_F32_TOL}); prefill "
+          f"against the decode path {e16['gap']:.3g} on the card, "
+          f"{e16['cpu_gap']:.3g} on the CPU (bfloat16; it holds wkv_b's "
+          f"adapter, which decode does not read); all {cfg.n_layers} layers"
+          f" in float32, wkv_b's adapter zeroed: prefill against the decode"
+          f" path {f32_gap:.3g} of the largest (tolerance {SERVE_F32_TOL});"
+          f" base draw {init_s:.2f} s ({weight_bytes / 1e9:.2f} GB, draw "
+          f"peak {draw_peak:.2f} GiB); peak memory after it {peak:.2f} GiB;"
+          f" phase {wall:.1f} s")
+    want = family_launches(cfg)
+    for P_, r in runs.items():
+        check_serving_launches(r["launches_prefill"], want["prefill"],
+                               f"{MINICPM} prefill {P_}")
+        check_serving_launches(r["launches_steps"], {
+            n: steps * c for n, c in want["serve_step"].items()},
+            f"{MINICPM} {steps} serve steps after a {P_}-token prefill")
+        check(r["finite"] and r["logits"].shape == (B, cfg.vocab_size),
+              f"{MINICPM} prefill {P_} or its serve steps: logits not "
+              "finite")
+    for label, e in errs.items():
+        for what, err, tol in ([("prefill logits", e["prefill"], e["tol"]),
+                                ("caches", e["caches"], e["cache_tol"])]
+                               + [(f"serve step {s}", x, e["tol"])
+                                  for s, x in enumerate(e["steps"])]):
+            check(err <= tol, f"{MINICPM} depth {FAMILY_CPU_DEPTH} {label} "
+                  f"{what}: card against the CPU port {err} > {tol}")
+        check(e["gap"] <= 2 * e["cpu_gap"], f"{MINICPM} {label} prefill "
+              f"against the decode path: {e['gap']} on the card, over twice "
+              f"the CPU port's {e['cpu_gap']}")
+    check(f32_gap <= SERVE_F32_TOL, f"{MINICPM} float32 prefill against "
+          f"the decode path: {f32_gap} > {SERVE_F32_TOL}")
+    del model, params, adapters, shallow, prompts
+    return dict(wall_s=wall, init_s=init_s, draw_peak_gib=draw_peak,
+                peak_gib=peak, weight_bytes=weight_bytes, cpu_s=cpu["seconds"],
+                cpu_waited_s=waited, depth2=errs, float32_decode_gap=f32_gap,
+                kernel_times=times,
+                runs={P_: {k: v for k, v in r.items()
+                           if k not in ("logits", "caches")}
+                      for P_, r in runs.items()})
+
+
+def stablelm_phase(gen) -> dict:
+    """The repair of phase 14: ``stablelm-3b``'s prefill at its published
+    widths (head dim 80; depth cut to 2 layers), 4 prompts of 512 tokens,
+    through ``flash_attention`` (one launch a layer), against the same
+    prefill with every attention taken by the plain version on the card:
+    logits within ``SERVE_CPU_TOL`` of the largest, caches 2e-2 (both
+    bfloat16); ``flash_attention`` at head dim 80 timed."""
+    import dataclasses
+    import torch
+    from repro_torch import random as jr
+    from repro_torch.configs.registry import get
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get(STABLELM), n_layers=2)
+    model, init_s, _, _ = draw_family(cfg)
+    S, B = max(SERVE_PROMPTS), SERVE_B
+    prompts = torch.from_numpy(jr.randint(
+        jr.PRNGKey(0), (B, S), 4, cfg.vocab_size - 4)).long().cuda()
+    prefill = M.make_prefill_step(cfg)
+    zero_counters()
+    logits, caches = prefill(*model, {"tokens": prompts})
+    n = read_counters()
+    kernel = ops.flash_attention
+    ops.flash_attention = ref.flash_attention
+    try:
+        plain, plain_caches = prefill(*model, {"tokens": prompts})
+    finally:
+        ops.flash_attention = kernel
+    err = rel_err(logits, plain, floor=0.0)
+    cerr = max(cache_errs(caches, plain_caches))
+    times = kernel_times(gen, [], [(f"stablelm-prefill-{S}", B, S,
+                                    cfg.n_heads, cfg.n_kv_heads,
+                                    cfg.head_dim, cfg.head_dim)])
+    print(f"phase 14, the head dim 80 repair: {STABLELM} prefill at its "
+          f"published widths (depth cut to {cfg.n_layers} layers, B={B}, "
+          f"{S} tokens): {n['flash_attention']} flash_attention launches; "
+          f"against the plain attention, logits {err:.3g} of the largest, "
+          f"caches {cerr:.3g} (tolerances {SERVE_CPU_TOL}, 2e-2); base "
+          f"draw {init_s:.2f} s")
+    check(n["flash_attention"] == cfg.n_layers,
+          f"{STABLELM} prefill: {n['flash_attention']} attention launches")
+    check(err <= SERVE_CPU_TOL and cerr <= 2e-2, f"{STABLELM} prefill "
+          f"against the plain attention: logits {err}, caches {cerr}")
+    del model
+    return dict(logits_err=err, cache_err=cerr,
+                launches=n["flash_attention"], kernel_times=times)
 
 
 def profile_serving(cfg, model, run: dict):
@@ -3207,10 +3970,17 @@ def main(argv) -> int:
     if argv == ["--serving"]:
         build_kernels()
         serving_kernel_times(torch.Generator(device="cuda").manual_seed(1))
-        serving_phase(profile=True)
+        serving_compare(serving_phase(profile=True))
+        return 0
+    if argv == ["--families"]:
+        build_kernels()
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        kimi_phase(gen)
+        minicpm_phase(gen)
+        stablelm_phase(gen)
         return 0
     check(not argv, f"unknown arguments {argv}; use --profile, --attn, "
-          "--sharded, --serving or none")
+          "--sharded, --serving, --families or none")
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
     builds = build_kernels()
@@ -3250,6 +4020,19 @@ def main(argv) -> int:
     serve_times = serving_kernel_times(gen)
     serving = serving_phase()
     big = serving["runs"][max(SERVE_PROMPTS)]
+    # free what earlier phases hold on the card before the largest models
+    for d in (qfl, llm):
+        for k in ("gpu", "cpu", "llm_outputs", "cpu_rounds"):
+            d.pop(k, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"before phase 13: {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
+          "GiB held on the card")
+    kimi = kimi_phase(gen)
+    minicpm = minicpm_phase(gen)
+    stablelm = stablelm_phase(gen)
+    cli = cli_compare(cli)
+    serving = serving_compare(serving)
     gib = 2 ** 30
     print(f"qlora wide against llm wide: base "
           f"{ql_wide['base_bytes'] / gib:.3f} GiB against "
@@ -3323,6 +4106,12 @@ def main(argv) -> int:
              deepseek=headline(lm_shapes, "deepseek-w_in"),
              launches_serving=serving_counts(big, "lora_matmul"),
              serving=serve_times["lora_matmul"],
+             launches_kimi=serving_counts(kimi["runs"][max(SERVE_PROMPTS)],
+                                          "lora_matmul"),
+             kimi=kimi["kernel_times"]["lora_matmul"],
+             launches_minicpm=serving_counts(
+                 minicpm["runs"][max(SERVE_PROMPTS)], "lora_matmul"),
+             minicpm=minicpm["kernel_times"]["lora_matmul"],
              shapes=lm_shapes,
              waves=[{k: w[k] for k in ("tiles", "lora_graph_ms")}
                     for w in waves],
@@ -3341,6 +4130,14 @@ def main(argv) -> int:
              deepseek=headline(fa_shapes, "deepseek"),
              launches_serving=serving_counts(big, "flash_attention"),
              serving=serve_times["flash_attention"],
+             launches_kimi=serving_counts(kimi["runs"][max(SERVE_PROMPTS)],
+                                          "flash_attention"),
+             kimi=kimi["kernel_times"]["flash_attention"],
+             launches_minicpm=serving_counts(
+                 minicpm["runs"][max(SERVE_PROMPTS)], "flash_attention"),
+             minicpm=minicpm["kernel_times"]["flash_attention"],
+             launches_stablelm=stablelm["launches"],
+             stablelm=stablelm["kernel_times"]["flash_attention"],
              shapes=fa_shapes,
              probe=fa_probe, **build_summary(builds["flash_attention"])),
         dict(name=fa.NAME + "_bwd", route="cuda", source=fa.SOURCE,
@@ -3417,6 +4214,12 @@ def main(argv) -> int:
                           "draw_peak_gib", "weight_bytes", "bound_step_ms",
                           "bf16", "float32", "control", "cpu_gap",
                           "cpu_cache_gap", "runs")},
+                      "kimi": {k: v for k, v in kimi.items()
+                               if k != "kernel_times"},
+                      "minicpm": {k: v for k, v in minicpm.items()
+                                  if k != "kernel_times"},
+                      "stablelm": {k: v for k, v in stablelm.items()
+                                   if k != "kernel_times"},
                       "deepseek": {k: deepseek[k] for k in (
                           "init_s", "init_peak_gib", "stage_s", "batched_s",
                           "step_s", "peak_gib", "seq_peak_gib", "gap",

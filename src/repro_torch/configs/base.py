@@ -1,11 +1,13 @@
-"""Model configuration: the dense fields of ``repro/configs/base.py``.
+"""Model configuration: ``repro/configs/base.py`` for the families the
+port runs.
 
-The port runs dense decoder LLMs only (``pattern == (("attn", "mlp"),)``),
-so ``ModelConfig`` keeps the fields those use, and ``reduced`` derives
-the ``-smoke`` variant of a config as the JAX package does; the
-mixture-of-experts,
-latent-attention, state-space and encoder-decoder fields come with the
-ROADMAP item "the other model families".  ``LoRAConfig.quantize_base``
+The port runs decoder LLMs whose layers mix ``"attn"`` (grouped-query)
+or ``"mla"`` (multi-head latent attention, ``MLAConfig``) with an
+``"mlp"`` or ``"moe"`` (mixture of experts, ``MoEConfig``) feed-forward
+block, so ``ModelConfig`` keeps the fields those use, and ``reduced``
+derives the ``-smoke`` variant of a config as the JAX package does; the
+state-space, xLSTM and encoder-decoder fields come with the ROADMAP
+items that port those families.  ``LoRAConfig.quantize_base``
 selects QLoRA: ``models.model.init_params`` then stores every adapted
 base weight as packed int4 plus scales (``peft.lora.quantize``).  LoRA
 dropout is left out: the JAX package never applies it.
@@ -21,6 +23,27 @@ LayerSpec = Tuple[str, str]
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff: int                      # per-expert hidden dim
+    n_shared_experts: int = 0      # DeepSeek/Kimi-style always-on experts
+    capacity_factor: float = 1.25
+    router_jitter: float = 0.0
+    balance_loss_weight: float = 0.01
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head Latent Attention (DeepSeek-V2 / MiniCPM3)."""
+    q_lora_rank: int = 768
+    kv_lora_rank: int = 256
+    qk_nope_head_dim: int = 64
+    qk_rope_head_dim: int = 32
+    v_head_dim: int = 64
+
+
+@dataclass(frozen=True)
 class LoRAConfig:
     rank: int = 16
     alpha: float = 32.0
@@ -32,7 +55,7 @@ class LoRAConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str                 # "dense" in the port
+    arch_type: str                 # dense|moe
     source: str
     n_layers: int
     d_model: int
@@ -44,6 +67,9 @@ class ModelConfig:
     pattern: Tuple[LayerSpec, ...] = (("attn", "mlp"),)
     rope_theta: float = 500000.0
     sliding_window: int = 0                # 0 = full attention
+    # sub-configs
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     lora: LoRAConfig = field(default_factory=LoRAConfig)
     dtype: str = "bfloat16"
     norm_eps: float = 1e-5
@@ -67,12 +93,12 @@ class ModelConfig:
 def reduced(cfg: ModelConfig, *, d_model: int = 256, n_groups: int = 1,
             vocab: int = 512) -> ModelConfig:
     """Reduced same-family variant for CPU smoke tests, field for field
-    the JAX package's ``reduced`` over the fields the port has."""
+    the JAX package's ``reduced`` over the fields the port has (at most
+    4 experts, top-2, one shared expert; MLA at ranks 64 and 32)."""
     period = len(cfg.pattern)
     n_heads = max(2, min(4, cfg.n_heads))
     n_kv = 1 if cfg.n_kv_heads < cfg.n_heads else n_heads
-    return dataclasses.replace(
-        cfg,
+    kw = dict(
         name=cfg.name + "-smoke",
         n_layers=period * n_groups,
         d_model=d_model,
@@ -85,3 +111,13 @@ def reduced(cfg: ModelConfig, *, d_model: int = 256, n_groups: int = 1,
         else 0,
         long_decode_window=64,
         lora=dataclasses.replace(cfg.lora, rank=4))
+    if cfg.moe:
+        kw["moe"] = dataclasses.replace(
+            cfg.moe, n_experts=4, top_k=min(cfg.moe.top_k, 2),
+            d_ff=d_model * 2,
+            n_shared_experts=min(cfg.moe.n_shared_experts, 1))
+    if cfg.mla:
+        kw["mla"] = MLAConfig(q_lora_rank=64, kv_lora_rank=32,
+                              qk_nope_head_dim=32, qk_rope_head_dim=16,
+                              v_head_dim=32)
+    return dataclasses.replace(cfg, **kw)

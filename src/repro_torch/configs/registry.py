@@ -1,11 +1,14 @@
 """Architecture registry: ``get(name)`` resolves ``--arch`` ids.
 
-The port of ``repro/configs/registry.py`` for the dense family: the
-assigned dense configs (``stablelm-3b``, ``starcoder2-7b``,
-``llama3-405b``), the paper's LLMs, and the ``-smoke`` form of each
-(``base.reduced``).  The other assigned architectures need mixers or
-blocks the port does not have yet, and raise ``NotImplementedError``;
-an unknown name raises ``KeyError``, as in the JAX package.
+The port of ``repro/configs/registry.py`` for the families the port
+runs: the assigned dense configs (``stablelm-3b``, ``starcoder2-7b``,
+``llama3-405b``), the mixture-of-experts ones (``kimi-k2-1t-a32b``,
+``llama4-maverick-400b-a17b``), the latent-attention ``minicpm3-4b``,
+the paper's LLMs, and the ``-smoke`` form of each (``base.reduced``).
+The other assigned architectures need mixers or frontends the port does
+not have yet (Mamba, xLSTM, encoder-decoder and vision frontends), and
+raise ``NotImplementedError`` naming what they wait on; an unknown name
+raises ``KeyError``, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -19,13 +22,20 @@ _ASSIGNED = {
     "starcoder2-7b": "repro_torch.configs.starcoder2_7b",
     "llama3-405b": "repro_torch.configs.llama3_405b",
     "stablelm-3b": "repro_torch.configs.stablelm_3b",
+    "llama4-maverick-400b-a17b":
+        "repro_torch.configs.llama4_maverick_400b_a17b",
+    "minicpm3-4b": "repro_torch.configs.minicpm3_4b",
+    "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
 }
 
-# assigned architectures of the other model families (MoE, MLA, Mamba,
-# xLSTM, encoder-decoder and vision frontends)
-OTHER_FAMILIES = ("llama4-maverick-400b-a17b", "qwen2-vl-72b",
-                  "whisper-large-v3", "xlstm-125m", "minicpm3-4b",
-                  "kimi-k2-1t-a32b", "jamba-1.5-large-398b")
+# assigned architectures of the model families still to port, and what
+# each waits on
+OTHER_FAMILIES = {
+    "qwen2-vl-72b": "the vision frontend and mrope_sections",
+    "whisper-large-v3": "the encoder-decoder and the audio frontend",
+    "xlstm-125m": "the xLSTM mixers (mlstm, slstm)",
+    "jamba-1.5-large-398b": "the Mamba mixer",
+}
 
 _PAPER = {
     "llama3.2-1b": paper_models.LLAMA32_1B,
@@ -46,9 +56,9 @@ def get(name: str) -> ModelConfig:
         return _PAPER[name]
     if name in OTHER_FAMILIES:
         raise NotImplementedError(
-            f"{name!r} is not ported yet (ROADMAP §1, 'the other model "
-            "families'); the port runs the dense family: "
-            f"{ported_names()}")
+            f"{name!r} is not ported yet: it needs "
+            f"{OTHER_FAMILIES[name]} (ROADMAP §1, 'the other model "
+            f"families'); the port runs {ported_names()}")
     if name.endswith("-smoke"):
         return reduced(get(name[: -len("-smoke")]))
     raise KeyError(f"unknown arch {name!r}; known: "

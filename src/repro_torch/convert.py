@@ -10,13 +10,17 @@ JAX.
   - ``params_from_jax`` maps a base LLM: JAX stacks the layers of each
     pattern position along a leading group axis (``params["groups"]``, a
     tuple of dicts of ``(n_groups, …)`` arrays); the port keeps one dict
-    per layer, layer ``g·P + p`` for group ``g`` and position ``p``.
+    per layer, layer ``g·P + p`` for group ``g`` and position ``p``.  A
+    MoE layer's expert stacks stay 3-D ``(E, …)`` and its router
+    float32; an MLA layer's latent projections and norms carry across
+    by name.
   - ``adapters_from_jax`` does the same for LoRA adapters, one client's
     (``(n_groups, …)`` leaves) or client-stacked (``(C, n_groups, …)``).
   - ``adamw_from_jax`` maps an ``AdamWState`` (step, mu, nu) alike.
-  - ``cache_from_jax`` maps a decode cache: JAX's tuple of one ``(k,
-    v)`` a pattern position, each ``(n_groups, B, S, KH, D)``, becomes
-    the port's list of one ``(k, v)`` a layer.
+  - ``cache_from_jax`` maps a decode cache: JAX's tuple of one pair a
+    pattern position (GQA's ``(k, v)``, each ``(n_groups, B, S, KH,
+    D)``; MLA's compressed ``(c_kv, k_rope)``), becomes the port's list
+    of one pair a layer.
 
 A bfloat16 array (numpy's ``ml_dtypes`` bfloat16) is carried bit for
 bit.

@@ -76,6 +76,15 @@
 // slabs in k-tile order: no float atomics, so the backward is bitwise
 // repeatable.  The teams' dK/dV are summed in a fixed order at the end.
 //
+// Head dims.  One template instance a head dim the configs use: 32, 64
+// and 128, stablelm-3b's 80, MLA's 96 (64 + 32 rotary; 48 in the -smoke
+// configs) and kimi-k2's 112, each a multiple of 16, so the D / 8 loops
+// and the 16-byte row copies cover a row exactly.  The backward's dQ pass takes the widest of
+// 64, 48, 32 or 16 columns that divides D.  Two backward teams fit in
+// shared memory up to D = 112 (216,064 bytes in float32), one at 128.
+// q, k and v share the head dim here; a v narrower than q and k (MLA's 64
+// under 96) is zero-padded by the wrapper, which slices the output.
+//
 // C interface for ctypes: each entry returns cudaGetLastError() as int.
 #include "tf32x3.cuh"
 
@@ -318,9 +327,11 @@ __device__ __forceinline__ float quad_sum(float v)
 }
 
 // --------------------------------------------------------------- forward
-// 128 registers a thread (16 warps an SM) below D = 128
+// 128 registers a thread (16 warps an SM) up to D = 64; above, the
+// accumulator of D / 2 floats a thread needs more (and shared memory
+// allows at most two CTAs an SM there)
 template <typename T, int D>
-__global__ void __launch_bounds__(128, D == 128 ? 1 : 4)
+__global__ void __launch_bounds__(128, D == 128 ? 1 : D > 64 ? 2 : 4)
 attn_fwd_kernel(Args p)
 {
     constexpr int NT = 128, PT = pitch<T>(D);
@@ -479,19 +490,29 @@ attn_fwd_kernel(Args p)
 }
 
 // -------------------------------------------------------------- backward
+// columns of dQ = dS K a pass takes: the widest of 64, 48, 32 and 16
+// that divides D (the pass's product loop steps two 8-column blocks)
+__host__ __device__ constexpr int dq_cols(int D)
+{
+    return D % 64 == 0 ? 64 : D % 48 == 0 ? 48 : D % 32 == 0 ? 32 : 16;
+}
+
 template <typename T, int D>
 struct BwdLayout {
     static constexpr int PT = pitch<T>(D);
     static constexpr int TEAMS = D == 128 ? 1 : 2;    // shared memory
+    static_assert(D % 16 == 0 && D >= 32 && D <= 128, "head dim");
     static constexpr int TILE_BYTES = TILE * PT * (int)sizeof(T);
     static constexpr int KV = 2 * TILE_BYTES;           // K, V
     // a team's visit: Q, dO, dS (float, pitch DSP), lse, delta
     static constexpr int Q = 0, DO = TILE_BYTES, DS = 2 * TILE_BYTES;
     static constexpr int LSE = DS + TILE * DSP * 4, DL = LSE + TILE * 4;
     static constexpr int TEAM = DL + TILE * 4;
-    static constexpr int BYTES = KV + TEAMS * TEAM;
-    static_assert(TEAMS == 1 || TEAM >= 4 * D * 32 * 4,
-                  "team 1's area holds its dK and dV for the final sum");
+    // team 1's dK and dV for the final sum (4 warps x D floats x 32 lanes),
+    // from team 1's area on: in bfloat16 at D >= 96 they outgrow it
+    static constexpr int RED = TEAMS > 1 ? 4 * D * 32 * 4 : 0;
+    static constexpr int BYTES = KV + TEAM
+        + (TEAMS > 1 ? (TEAM > RED ? TEAM : RED) : 0);
     static_assert(BYTES <= 232448, "shared memory of one CTA");
 };
 
@@ -708,7 +729,8 @@ attn_bwd_kernel(Args p)
             if (p.causal) khi = min(khi, max(0, floor_div8(qa + 15 - k0) + 1));
             if (p.window > 0)
                 klo = max(0, floor_div8(qa - p.window + 1 - k0));
-            constexpr int NQ = D < 64 ? D : 64;
+            constexpr int NQ = dq_cols(D);
+            static_assert(D % NQ == 0 && NQ % 16 == 0, "dQ column passes");
 #pragma unroll (EX ? 2 : 1)
             for (int dc = 0; dc < D / NQ; ++dc) {
                 float dq[NQ / 8][4];
@@ -916,7 +938,11 @@ int dispatch(const Args& p, int D, int bwd, cudaStream_t s)
 {
     switch (D) {
         case 32: return bwd ? backward<T, 32>(p, s) : forward<T, 32>(p, s);
+        case 48: return bwd ? backward<T, 48>(p, s) : forward<T, 48>(p, s);
         case 64: return bwd ? backward<T, 64>(p, s) : forward<T, 64>(p, s);
+        case 80: return bwd ? backward<T, 80>(p, s) : forward<T, 80>(p, s);
+        case 96: return bwd ? backward<T, 96>(p, s) : forward<T, 96>(p, s);
+        case 112: return bwd ? backward<T, 112>(p, s) : forward<T, 112>(p, s);
         case 128: return bwd ? backward<T, 128>(p, s) : forward<T, 128>(p, s);
         default: return (int)cudaErrorInvalidValue;
     }
@@ -935,7 +961,8 @@ int run(const Args& p, int D, int dtype, int bwd, void* stream)
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16 (q, k, v, o, dO and the gradients share
-// it; lse is float32).  Head dims 32, 64 and 128.  Every row of q, k, v
+// it; lse is float32).  Head dims 32, 48, 64, 80, 96, 112 and 128 (q, k and v
+// share it: the wrapper zero-pads a narrower v).  Every row of q, k, v
 // and dO starts on 16 bytes (the wrapper checks).
 extern "C" int fa_forward(
     const void* q, const void* k, const void* v, void* out, float* lse,

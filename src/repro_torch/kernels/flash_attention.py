@@ -4,8 +4,13 @@ The port of the JAX package's Pallas kernel
 ``repro/kernels/flash_attention.py::flash_attention``.  The source, its
 design and its bound are in ``csrc/flash_attention.cu``; the plain
 version it is held to is ``ref.flash_attention``, with the same
-signature: q ``(B, S, H, D)`` and k/v ``(B, Sk, KH, D)`` in the model's
-layout, q-head ``h`` reading kv-head ``h // (H // KH)``.
+signature: q ``(B, S, H, D)``, k ``(B, Sk, KH, D)`` and v ``(B, Sk, KH,
+Dv)`` in the model's layout, q-head ``h`` reading kv-head ``h // (H //
+KH)``.  The kernel takes the head dims the configs use, ``HEAD_DIMS``;
+a v head dim below q's (multi-head latent attention's 64 under 96) is
+zero-padded to D here and the output sliced back: the zero columns of V
+give exact zeros, the softmax scale stays ``D ** -0.5``, and autograd
+carries the pad and the slice through the backward.
 
 Every product runs on the tensor cores (TF32 ``mma.sync`` with the
 error-compensated split of ``csrc/tf32x3.cuh``, float32-accurate).  The
@@ -38,7 +43,7 @@ from repro_torch.kernels import build
 NAME = "flash_attention"
 SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 REPLACES = "src/repro/kernels/flash_attention.py:68"
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 48, 64, 80, 96, 112, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -74,9 +79,7 @@ def _check(q, k, v, *more):
         raise ValueError(f"{H} q-heads do not group over {KH} kv-heads")
     if D not in HEAD_DIMS:
         raise ValueError(
-            f"head dim {D} not in {HEAD_DIMS}: the kernel takes no other "
-            "(stablelm-3b's head dim 80 waits on ROADMAP §2, "
-            "'flash_attention at head dim 80')")
+            f"head dim {D} not in {HEAD_DIMS}: the kernel takes no other")
     if q.dtype not in DTYPES:
         raise TypeError(f"flash_attention takes float32 or bfloat16, "
                         f"not {q.dtype}")
@@ -191,10 +194,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     scale: float = None) -> torch.Tensor:
     """Attention on the card, differentiable in q, k and v.  Returns a
-    contiguous ``(B, S, H, D)``."""
-    scale = scale or q.shape[-1] ** -0.5
-    return _FlashAttention.apply(q, k, v, bool(causal), int(window),
-                                 float(scale))
+    contiguous ``(B, S, H, Dv)``; a v narrower than q is zero-padded to
+    q's head dim for the kernel."""
+    D, Dv = q.shape[-1], v.shape[-1]
+    scale = scale or D ** -0.5
+    if Dv > D:
+        raise ValueError(f"v head dim {Dv} exceeds q's {D}")
+    if Dv < D:
+        v = torch.nn.functional.pad(v, (0, D - Dv))
+    out = _FlashAttention.apply(q, k, v, bool(causal), int(window),
+                                float(scale))
+    return out if Dv == D else out[..., :Dv].contiguous()
 
 
 flash_attention.launches = 0

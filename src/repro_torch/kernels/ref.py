@@ -192,11 +192,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: float = None) -> torch.Tensor:
     """Reference attention in the model's layout, with grouped heads.
 
-    q ``(B, S, H, D)``, k/v ``(B, Sk, KH, D)``: q-head ``h`` reads
-    kv-head ``h // (H // KH)``, so with ``KH == H`` this is the JAX
-    oracle on GQA-expanded K/V, transposed.  Key ``kpos`` is attendable
+    q ``(B, S, H, D)``, k ``(B, Sk, KH, D)``, v ``(B, Sk, KH, Dv)``:
+    q-head ``h`` reads kv-head ``h // (H // KH)``, so with ``KH == H``
+    this is the JAX oracle on GQA-expanded K/V, transposed; ``Dv`` may
+    differ from ``D``, as in the JAX model's jnp flash.  Key ``kpos`` is attendable
     from ``qpos`` iff ``kpos <= qpos`` (causal) and ``qpos - kpos <
-    window`` (window > 0).  Returns ``(B, S, H, D)``; the gradient is
+    window`` (window > 0).  Returns ``(B, S, H, Dv)``; the gradient is
     plain autograd.
     """
     B, S, H, D = q.shape

@@ -3,7 +3,10 @@
 The port of ``examples/serving.py``: the same flags, defaults and
 printed lines, plus ``--device`` (default: the card; ``--device cpu``
 runs the plain path on the CPU).  It loads the ``-smoke`` form of
-``--arch`` (a dense config: ``configs.registry``), draws the base and
+``--arch`` (any config of ``configs.registry``: the dense ones,
+``kimi-k2-1t-a32b`` and ``llama4-maverick-400b-a17b`` with their
+mixture of experts, ``minicpm3-4b`` with latent attention), draws the
+base and
 adapters from ``PRNGKey(0)`` in the config's dtype, fills the KV cache by
 running the prompt through the serve step one token at a time, then
 decodes ``--steps`` tokens per request, sampled at ``--temperature``.

@@ -29,11 +29,23 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
 
 def init_dense(key, shape, dtype=torch.float32, scale: Optional[float] = None,
                device="cpu") -> torch.Tensor:
-    """Truncated-normal fan-in init, drawn on ``device``."""
+    """Truncated-normal fan-in init, drawn on ``device``.  A leaf of more
+    than ``random.DRAW_SLICE`` values is drawn a slice of its flat index
+    at a time into a tensor of its final dtype: bitwise the whole draw
+    (element ``i`` depends only on ``i``), with the draw's peak memory
+    that of one slice."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-    return (jr.truncated_normal(key, -2.0, 2.0, tuple(shape), device)
-            * std).to(dtype)
+    n = math.prod(shape)
+    if n <= jr.DRAW_SLICE:
+        return (jr.truncated_normal(key, -2.0, 2.0, tuple(shape), device)
+                * std).to(dtype)
+    out = torch.empty(n, dtype=dtype, device=device)
+    for start in range(0, n, jr.DRAW_SLICE):
+        m = min(jr.DRAW_SLICE, n - start)
+        out[start:start + m] = (jr.truncated_normal(
+            key, -2.0, 2.0, (m,), device, start=start) * std).to(dtype)
+    return out.reshape(shape)
 
 
 class QWeight(NamedTuple):
@@ -126,10 +138,13 @@ def rope_freqs(head_dim: int, theta: float, device="cpu") -> torch.Tensor:
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               freqs: torch.Tensor) -> torch.Tensor:
-    """x: ``(..., S, H, D)``; positions: ``(S,)``.  Rotates the two
-    halves of the head dim (not interleaved pairs)."""
-    angles = (positions.float()[:, None] * freqs)[:, None, :]  # (S, 1, D/2)
+               freqs: torch.Tensor, heads: bool = True) -> torch.Tensor:
+    """x: ``(..., S, H, D)``, or ``(..., S, D)`` with ``heads=False``;
+    positions: ``(S,)``.  Rotates the two halves of the last dim (not
+    interleaved pairs)."""
+    angles = positions.float()[:, None] * freqs                # (S, D/2)
+    if heads:
+        angles = angles[:, None, :]                            # (S, 1, D/2)
     cos, sin = torch.cos(angles), torch.sin(angles)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)

@@ -1,11 +1,14 @@
 """Model assembly: init, forward, cross-entropy, the LoRA train step,
 prefill and the one-token serve step.
 
-The port of ``repro/models/model.py`` for the dense family:
+The port of ``repro/models/model.py`` for the families the port runs
+(GQA or MLA mixers, MLP or MoE blocks, any layer period):
 ``init_params``, ``init_adapters``, ``forward`` (no remat, no frontend;
-``collect_cache`` as JAX's ``FwdOptions``), ``chunked_ce``,
-``make_train_step`` (one microbatch), ``logits_last``,
-``make_prefill_step``, ``init_cache`` and ``make_serve_step``.
+``collect_cache`` as JAX's ``FwdOptions``; the MoE balance loss summed
+over layers), ``chunked_ce``, ``make_train_step`` (one microbatch; a
+MoE config's loss adds ``moe.balance_loss_weight`` × the balance, as
+JAX's does), ``logits_last``, ``make_prefill_step``, ``init_cache`` and
+``make_serve_step``.
 
 Layouts.  The base is ``{"embed", "final_norm", "lm_head" (untied
 only), "layers": [layer dict, ...]}``: the JAX package's group-stacked
@@ -21,7 +24,8 @@ Serving runs one adapter set: ``make_prefill_step`` and
 ``make_serve_step`` take one client's adapters (``init_adapters``' list,
 unstacked) and ``(B, S)`` tokens, as the JAX package's steps do, and
 run them on the client axis as ``C = 1``.  The decode cache is a list of
-``(k, v)`` a layer, each ``(B, S, KH, D)``: JAX's group-stacked tuple
+one pair a layer: ``(k, v)``, each ``(B, S, KH, D)``, for GQA, ``(c_kv,
+k_rope)`` for MLA (``layers.cache_struct``): JAX's group-stacked tuple
 unrolled (``convert.cache_from_jax``).  The serve step writes it in
 place and returns it.
 """
@@ -99,22 +103,36 @@ def stack_clients(trees: List):
 # forward
 # ---------------------------------------------------------------------------
 def forward(cfg, params: Dict, adapters: List, tokens: torch.Tensor, *,
-            collect_cache: bool = False):
+            collect_cache: bool = False, with_balance: bool = False):
     """tokens ``(C, B, S)`` → post-norm hidden ``(C, B, S, d)``; with
-    ``collect_cache``, ``(hidden, caches)``, one ``(k, v)`` a layer, each
-    ``(C·B, S, KH, D)`` in the activation dtype."""
+    ``collect_cache``, ``(hidden, caches)``, one pair a layer (GQA's
+    ``(k, v)``, each ``(C·B, S, KH, D)``, MLA's ``(c_kv, k_rope)``) in
+    the activation dtype.  With ``with_balance`` the MoE balance loss
+    ``(C,)`` float32 (zeros without MoE) comes second, as JAX's
+    ``forward`` returns it: ``(hidden, balance[, caches])``.  JAX sums it
+    within each layer group, then over the groups; so does this."""
     x = params["embed"][tokens]
     positions = torch.arange(tokens.shape[-1], device=tokens.device)
     P = len(cfg.pattern)
-    caches = []
+    caches, groups = [], []
     for i, (base, adp) in enumerate(zip(params["layers"], adapters)):
         mixer, ffn = cfg.pattern[i % P]
-        x, cache = L.apply_layer_train(cfg, {**base, **adp}, x, positions,
-                                       mixer, ffn)
+        if i % P == 0:
+            groups.append(torch.zeros(tokens.shape[0], dtype=torch.float32,
+                                      device=tokens.device))
+        x, cache, bal = L.apply_layer_train(cfg, {**base, **adp}, x,
+                                            positions, mixer, ffn)
+        if bal is not None:
+            groups[-1] = groups[-1] + bal
         if collect_cache:
             caches.append(cache)
     hidden = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return (hidden, caches) if collect_cache else hidden
+    out = (hidden,)
+    if with_balance:
+        out += (torch.stack(groups).sum(0),)
+    if collect_cache:
+        out += (caches,)
+    return out if len(out) > 1 else hidden
 
 
 def _head(cfg, params):
@@ -154,11 +172,14 @@ def chunked_ce(cfg, params, hidden, labels, *, chunk: int = 512):
 def loss_and_grads(cfg, params, adapters, batch, *, loss_chunk: int = 512):
     """Per-client losses ``(C,)`` and the adapter gradients (a tree of
     ``adapters``' structure) of their sum: each client's gradient is its
-    own, since clients share only the frozen base."""
+    own, since clients share only the frozen base.  A MoE config's loss
+    adds ``moe.balance_loss_weight`` × its balance loss, as JAX's does."""
     leaves = [t.detach().requires_grad_() for t in tree_leaves(adapters)]
-    hidden = forward(cfg, params, tree_unflatten(adapters, leaves),
-                     batch["tokens"])
+    hidden, balance = forward(cfg, params, tree_unflatten(adapters, leaves),
+                              batch["tokens"], with_balance=True)
     loss = chunked_ce(cfg, params, hidden, batch["labels"], chunk=loss_chunk)
+    if cfg.moe:
+        loss = loss + cfg.moe.balance_loss_weight * balance
     grads = torch.autograd.grad(loss.sum(), leaves)
     return loss.detach(), tree_unflatten(adapters, list(grads))
 
@@ -203,9 +224,9 @@ def _one_client(adapters: List) -> List:
 def make_prefill_step(cfg):
     """``(params, adapters, batch) → (logits (B, V), caches)``: the
     prompt ``batch["tokens"]`` ``(B, S)`` through the full-sequence
-    forward (attention windowed by ``cfg.sliding_window``), its last
-    position's float32 logits, and each layer's ``(k, v)`` ``(B, S, KH,
-    D)`` in the activation dtype."""
+    forward (GQA windowed by ``cfg.sliding_window``), its last position's
+    float32 logits, and each layer's cache pair (GQA's ``(k, v)`` ``(B,
+    S, KH, D)``, MLA's ``(c_kv, k_rope)``) in the activation dtype."""
     def prefill(params, adapters, batch):
         with torch.no_grad():
             hidden, caches = forward(cfg, params, _one_client(adapters),
@@ -217,10 +238,12 @@ def make_prefill_step(cfg):
 
 def init_cache(cfg, batch: int, seq: int, *, window: int = 0,
                dtype=torch.bfloat16, device=None) -> List:
-    """Zero decode caches, one ``(k, v)`` a layer, each ``(batch, s, KH,
-    D)`` with ``s = min(seq, window)`` when ``window`` is set (a rolling
-    cache when the window fits in ``seq``), else ``seq``.  ``device=None``
-    is the card."""
+    """Zero decode caches, one pair a layer (``layers.cache_struct``), of
+    ``s = min(seq, window)`` slots when ``window`` is set (a rolling GQA
+    cache when the window fits in ``seq``; MLA's clamps its writes at the
+    last slot, as JAX's does), else ``seq``.  The window applies to the
+    attention mixers, which are all the port's.  ``device=None`` is the
+    card."""
     device = resolve_device(device)
     P = len(cfg.pattern)
     s = min(seq, window) if window else seq

@@ -5,7 +5,10 @@ The port of ``repro/peft/lora.py``'s ``init_layer_adapters``,
 ``merge_layer``, ``adapter_param_count``, ``weighted_average_stacked``,
 ``blend_adapters`` and its QLoRA int4 quantization.  Adapters attach to
 the 2-D base weights named in ``cfg.lora.targets``: A ``(d_in, r)``
-drawn normal / √d_in, B ``(r, d_out)`` zero, both float32.
+drawn normal / √d_in, B ``(r, d_out)`` zero, both float32.  A MoE
+layer's expert stacks are 3-D and get none (its router and shared
+expert are no targets); MLA's targets are its latent projections
+(``wq_a``, ``wq_b``, ``wkv_a``, ``wkv_b``, ``wo`` in minicpm3-4b).
 
 QLoRA: a target weight ``w`` whose width divides into blocks is stored
 as ``w__q`` (packed int4, ``(d_in, d_out/2)`` uint8: the low nibble the

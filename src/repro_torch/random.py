@@ -29,7 +29,12 @@ same hash on int32 words (uint32 arithmetic's bits), then XLA's float32
 an IEEE operation that rounds the same on any device, so a draw is the
 same on the CPU and on the card.  Against ``jax.random`` they are
 bitwise equal on at least 99.9 % of values and within 2 ulp on all
-(``tests/test_torch_random.py``).  ``gumbel`` and ``categorical`` (the
+(``tests/test_torch_random.py``).  Element ``i`` of a draw depends only
+on the key and ``i`` (its counter is the flat index, split into high
+and low words), so ``truncated_normal(..., start=s)`` draws elements
+``[s, s + n)`` of the whole draw alone, bitwise: a leaf larger than
+memory allows at once is drawn a slice at a time
+(``models.common.init_dense``, slices of ``DRAW_SLICE``).  ``gumbel`` and ``categorical`` (the
 serving entry point's sampler) take the same route: jax 0.9's default
 ``mode="low"`` draw ``-log(-log(u))`` through the same ``log``.
 """
@@ -258,16 +263,25 @@ def _threefry_torch(key, x0: torch.Tensor, x1: torch.Tensor
     return x0, x1
 
 
-def _counters(n: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The (high, low) words of a uint64 iota of ``n``, as int32."""
-    idx = torch.arange(n, dtype=torch.int64, device=device)
+# values a weight draw takes at once: its float64 emulation peaks near
+# 145 bytes a value (PERF.md), so about 4.9 GB a slice
+DRAW_SLICE = 1 << 25
+
+
+def _counters(n: int, device, start: int = 0
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (high, low) words of the uint64 counters ``start`` ..
+    ``start + n - 1``, as int32."""
+    idx = torch.arange(start, start + n, dtype=torch.int64, device=device)
     return (idx >> 32).to(torch.int32), (idx & _M32).to(torch.int32)
 
 
 def _uniform_torch(key: np.ndarray, shape: Tuple[int, ...], lo: np.float32,
-                   hi: np.float32, device) -> torch.Tensor:
-    """``uniform`` computed on ``device``: float32 ``[lo, hi)``."""
-    b0, b1 = _threefry_torch(key, *_counters(math.prod(shape), device))
+                   hi: np.float32, device, start: int = 0) -> torch.Tensor:
+    """``uniform`` computed on ``device``: float32 ``[lo, hi)``, the
+    elements from flat index ``start`` on of a draw that holds them."""
+    b0, b1 = _threefry_torch(key, *_counters(math.prod(shape), device,
+                                              start))
     bits = (((b0 ^ b1) >> 9) & 0x7FFFFF) | 0x3F800000
     floats = bits.view(torch.float32) - 1.0
     span = torch.full_like(floats, float(np.float32(hi) - np.float32(lo)))
@@ -399,15 +413,18 @@ def normal(key: np.ndarray, shape: Tuple[int, ...], device="cpu"
 
 
 def truncated_normal(key: np.ndarray, lower: float, upper: float,
-                     shape: Tuple[int, ...], device="cpu") -> torch.Tensor:
+                     shape: Tuple[int, ...], device="cpu", start: int = 0
+                     ) -> torch.Tensor:
     """float32 normals truncated to ``(lower, upper)``, as
-    ``jax.random.truncated_normal``."""
+    ``jax.random.truncated_normal``.  With ``start``, elements ``start``
+    .. ``start + prod(shape) - 1`` of a flat draw that holds them, bit
+    for bit (the draw's counter is the flat index)."""
     lower, upper = np.float32(lower), np.float32(upper)
     # erf of a float32, rounded once: XLA's float32 erf gives the same
     # values at the bounds the repo uses (tests/test_torch_random.py)
     a = np.float32(math.erf(float(lower / _SQRT2)))
     b = np.float32(math.erf(float(upper / _SQRT2)))
-    u = _uniform_torch(key, tuple(shape), a, b, device)
+    u = _uniform_torch(key, tuple(shape), a, b, device, start)
     out = float(_SQRT2) * erf_inv(u)
     return torch.clamp(out, float(np.nextafter(lower, np.float32(np.inf))),
                        float(np.nextafter(upper, np.float32(-np.inf))))

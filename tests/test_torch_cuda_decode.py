@@ -1,5 +1,6 @@
 """Prefill and the serve step on the card against the port's CPU path, at
-``-smoke`` width, and ``stablelm-3b``'s full-width head dim of 80.  This
+``-smoke`` width, and ``stablelm-3b``'s full-width head dim of 80 (its
+prefill through the kernel).  This
 file imports no JAX, so it runs on a machine with a card and no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_decode.py
@@ -139,18 +140,23 @@ def test_position_as_a_device_tensor_equals_an_int(cuda):
 
 def test_stablelm_full_width_prefill_raises_and_decode_runs(cuda):
     """Head dim 80 (stablelm-3b at its published widths, depth cut to 2
-    layers): prefill raises naming the head dim and the ROADMAP item,
-    with no fallback; the serve step (plain torch attention) runs and
-    matches the CPU port."""
+    layers).  Prefill raised here until ``flash_attention`` took head
+    dim 80; it now runs through the kernel (one launch a layer) and
+    matches the CPU port (logits 3e-2 of the largest, caches 2e-2); the
+    serve step (plain torch attention) runs and matches the CPU port."""
     cfg = dataclasses.replace(get("stablelm-3b"), n_layers=2)
     assert cfg.head_dim == 80
     cpu_model, card_model = _model(cfg, torch.bfloat16, cuda)
     toks = torch.from_numpy(np.random.default_rng(2).integers(
         4, cfg.vocab_size - 4, (B, 4)))
     n_fa = fa.flash_attention.launches
-    with pytest.raises(ValueError, match="head dim 80.*ROADMAP §2"):
-        M.make_prefill_step(cfg)(*card_model, {"tokens": toks.to(cuda)})
-    assert fa.flash_attention.launches == n_fa
+    gl, gc = M.make_prefill_step(cfg)(*card_model,
+                                      {"tokens": toks.to(cuda)})
+    assert fa.flash_attention.launches == n_fa + cfg.n_layers
+    wl, wc = M.make_prefill_step(cfg)(*cpu_model, {"tokens": toks})
+    _check_logits(gl, wl, torch.bfloat16, "prefill")
+    for (gk, gv), (wk, wv) in zip(gc, wc):
+        assert _rel(gk, wk) <= 2e-2 and _rel(gv, wv) <= 2e-2
     got = _decode(cfg, card_model, toks, cuda)
     want = _decode(cfg, cpu_model, toks, "cpu")
     for p, ((g, gcache), (w, wcache)) in enumerate(zip(got, want)):

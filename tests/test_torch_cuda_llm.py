@@ -229,7 +229,7 @@ def test_wrappers_reject_bad_operands(cuda):
         lm.lora_matmul(x, torch.zeros(16, 8, device=cuda),
                        torch.zeros(2, 16, 40, device=cuda),
                        torch.zeros(2, 40, 8, device=cuda), 1.0)  # rank 40
-    q = torch.zeros(1, 8, 4, 48, device=cuda)                    # D = 48
+    q = torch.zeros(1, 8, 4, 72, device=cuda)                    # D = 72
     with pytest.raises(ValueError):
         fa.flash_attention(q, q[:, :, :2], q[:, :, :2])
 

@@ -1,7 +1,9 @@
 """The port's config registry against the JAX package's: ``get`` and
-``reduced`` field by field for every dense name and its ``-smoke`` form;
-every other assigned architecture raises ``NotImplementedError`` naming
-its ROADMAP item."""
+``reduced`` field by field for every ported name (the dense family, the
+mixture-of-experts kimi-k2 and llama4-maverick, the latent-attention
+minicpm3) and its ``-smoke`` form; every other assigned architecture
+raises ``NotImplementedError`` naming its ROADMAP item and what it
+waits on."""
 import dataclasses
 
 import pytest
@@ -13,20 +15,26 @@ from repro_torch.configs import registry as treg
 
 DENSE = ["stablelm-3b", "starcoder2-7b", "llama3-405b", "llama3.2-1b",
          "gpt2", "deepseek-llm-7b-base", "tiny-llm"]
-# JAX fields of the other families, which the port's config leaves out
-LEFT_OUT = ("mrope_sections", "moe", "mla", "mamba", "xlstm",
-            "encoder_decoder", "n_encoder_layers", "n_frontend_tokens",
-            "frontend")
+FAMILIES = ["kimi-k2-1t-a32b", "llama4-maverick-400b-a17b", "minicpm3-4b"]
+PORTED = DENSE + FAMILIES
+# JAX fields of the families still to port, which the port's config
+# leaves out
+LEFT_OUT = ("mrope_sections", "mamba", "xlstm", "encoder_decoder",
+            "n_encoder_layers", "n_frontend_tokens", "frontend")
+# sub-configs, compared field by field (the two packages' classes differ)
+NESTED = ("lora", "moe", "mla")
 
 
 def _same(got, want):
     for f in dataclasses.fields(got):
-        if f.name == "lora":
-            for g in dataclasses.fields(got.lora):
-                assert getattr(got.lora, g.name) == \
-                    getattr(want.lora, g.name), g.name
+        g, w = getattr(got, f.name), getattr(want, f.name)
+        if f.name in NESTED and g is not None:
+            assert w is not None, f.name
+            for sub in dataclasses.fields(g):
+                assert getattr(g, sub.name) == getattr(w, sub.name), \
+                    (f.name, sub.name)
         else:
-            assert getattr(got, f.name) == getattr(want, f.name), f.name
+            assert g == w, f.name
     for f in dataclasses.fields(want):
         if not hasattr(got, f.name):
             assert f.name in LEFT_OUT, f.name
@@ -35,12 +43,12 @@ def _same(got, want):
 
 
 @pytest.mark.parametrize("suffix", ["", "-smoke"])
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", PORTED)
 def test_get_equals_jax_field_for_field(name, suffix):
     _same(treg.get(name + suffix), jreg.get(name + suffix))
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", PORTED)
 @pytest.mark.parametrize("kw", [{}, dict(d_model=128, n_groups=2,
                                         vocab=1024)])
 def test_reduced_equals_jax(name, kw):
@@ -49,12 +57,15 @@ def test_reduced_equals_jax(name, kw):
 
 
 def test_the_dense_names_are_the_jax_dense_names():
-    dense = [n for n in jreg.all_names()
-             if all(m == "attn" and f == "mlp"
-                    for m, f in jreg.get(n).pattern)
-             and not jreg.get(n).encoder_decoder
-             and not jreg.get(n).frontend]
-    assert sorted(treg.ported_names()) == sorted(dense)
+    """Every JAX name whose layers are GQA or MLA with an MLP or MoE block
+    (no frontend, no encoder) is ported, and no other: the dense names
+    and, since the MoE and MLA families were ported, theirs."""
+    ported = [n for n in jreg.all_names()
+              if all(m in ("attn", "mla") and f in ("mlp", "moe")
+                     for m, f in jreg.get(n).pattern)
+              and not jreg.get(n).encoder_decoder
+              and not jreg.get(n).frontend]
+    assert sorted(treg.ported_names()) == sorted(ported) == sorted(PORTED)
     assert sorted(treg.ported_names() + list(treg.OTHER_FAMILIES)) == \
         sorted(jreg.all_names())
 
@@ -64,6 +75,9 @@ def test_the_dense_names_are_the_jax_dense_names():
 def test_other_families_raise(name, suffix):
     jreg.get(name + suffix)            # the JAX package has it
     with pytest.raises(NotImplementedError, match="other model families"):
+        treg.get(name + suffix)
+    with pytest.raises(NotImplementedError,
+                       match=treg.OTHER_FAMILIES[name].split(" (")[0]):
         treg.get(name + suffix)
 
 
