@@ -13,6 +13,8 @@
     python3 chip_smoke.py --families   # phases 13 and 14 only: kimi-k2
                                        # and minicpm3-4b served, and
                                        # stablelm-3b's prefill
+    python3 chip_smoke.py --recurrent  # phases 15 and 16 only: jamba
+                                       # and xlstm-125m served
 
 Run from the root of a checkout, on a machine with a CUDA card and
 ``nvcc``.  It imports nothing of JAX and nothing of the JAX package
@@ -155,7 +157,24 @@ failure, and the script then exits non-zero with no result line.
    112, 96 over 64 and 80, and ``lora_matmul`` at kimi's and MLA's
    projections, are held to their plain versions and timed against SDPA
    and cuBLAS.
-13. Prints the phases' wall times, the card line, one
+13. The recurrent families (printed as phases 15 and 16, after phase
+   14): ``jamba-1.5-large-398b`` at its published widths, its depth cut
+   to a ``("mamba", "mlp")`` and an ``("attn", "mlp")`` layer (2.85 B
+   values), and ``xlstm-125m`` at its published widths and all 12
+   layers, each served as phase 12 serves (xlstm's serve steps go on
+   from the decode path's cache: JAX's mLSTM prefill cache has no
+   convolution state): prefill and serve-step times beside the byte
+   bound (weights and cache read, recurrent states written), tokens/s,
+   peak memory, launches; prefill and 2 serve steps at 32 tokens against
+   the CPU port run on host copies of the card's weights in a process
+   of its own (bf16 logits within 3e-2, caches within 2e-2 or twice the
+   CPU port's own bf16 gap; float32 1e-4); float32 prefill's states
+   against the decode path's (1e-4); xlstm's sequential and chunkwise
+   mLSTM prefills against each other in float32, and each timed with its
+   launches and aten ops; ``lora_matmul`` at jamba's and the mLSTM's
+   projections and ``flash_attention`` at head dim 128, timed against
+   cuBLAS and SDPA.
+14. Prints the phases' wall times, the card line, one
    ``{"kernels": [...]}`` line (``launches_sequential``: the launches of
    phase 7's sequential LLM-QFL Step 1, and for ``statevector_tape`` of
    its batched SPSA QFL run; ``launches_aersim``, ``launches_gpt2``,
@@ -163,7 +182,8 @@ failure, and the script then exits non-zero with no result line.
    ``launches_sharded*``: phase 11's, on one card; ``launches_serving``
    and ``serving``: phase 12's launches and shapes; ``launches_kimi``,
    ``kimi``, ``launches_minicpm``, ``minicpm``, ``launches_stablelm``,
-   ``stablelm``: phases 13 and 14's), and last
+   ``stablelm``: phases 13 and 14's; ``launches_jamba``, ``jamba``,
+   ``launches_xlstm``, ``xlstm``: phases 15 and 16's), and last
    ``{"ok": true, "device": {...}}``.
 
 Each path is driven with every launch counter set to 0 just before it
@@ -2720,10 +2740,13 @@ def serving_kernel_times(gen) -> dict:
         [(f"prefill-{S}", B, S, 32, 8, 64, 64) for S in SERVE_PROMPTS])
 
 
-def kernel_times(gen, lora_shapes, attn_shapes) -> dict:
+def kernel_times(gen, lora_shapes, attn_shapes, lora_iters=(50, 20)
+                 ) -> dict:
     """``lora_matmul`` at ``(name, M, K, N, r)`` (one client) and
     ``flash_attention`` forward at ``(name, B, S, H, KH, D, Dv)`` (causal),
-    in bfloat16: each held to its plain version (2e-2 of the largest
+    in bfloat16 (``lora_iters``: ``time_lora``'s host-loop calls and the
+    calls a graph captures, fewer for shapes of tens of ms): each held to
+    its plain version (2e-2 of the largest
     magnitude) and timed by ``time_lora`` / ``time_attn``, beside its
     bound (bf16 tensor cores, 989 TFLOP/s, or bytes over 3.35 TB/s).  A
     v narrower than q goes through the wrapper's zero pad, as the model
@@ -2743,7 +2766,7 @@ def kernel_times(gen, lora_shapes, attn_shapes) -> dict:
             want = ref.lora_matmul(x, w, a, b, 2.0)
             err = rel_err(got, want, floor=0.0)
             check(err <= 2e-2, f"lora_matmul {name}: error {err}")
-            t = time_lora(x, w, a, b, iters=50)
+            t = time_lora(x, w, a, b, *lora_iters)
             bms, by = bound_ms(*lora_flops_bytes(1, M_, K, N, r, elem=2),
                                BF16_FLOPS_PER_S)
             lora.append(dict(shape=name, C=1, M=M_, K=K, N=N, r=r,
@@ -2780,31 +2803,54 @@ def kernel_times(gen, lora_shapes, attn_shapes) -> dict:
     return dict(lora_matmul=lora, flash_attention=attn)
 
 
-def decode_path(cfg, model, prompts, device, dtype=None):
+def decode_path(cfg, model, prompts, device, dtype=None, slots=None):
     """The serve step fed ``prompts`` one token at a time from an empty
-    cache (the serving example's prefill; bfloat16 unless ``dtype``): its
-    last logits and the cache it filled."""
+    cache of ``slots`` positions (the prompt's length unless given; the
+    serving example's prefill; bfloat16 unless ``dtype``): its last
+    logits and the cache it filled."""
     import torch
     from repro_torch.models import model as M
     serve = M.make_serve_step(cfg)
     B, P = prompts.shape
-    cache = M.init_cache(cfg, B, P, dtype=dtype or torch.bfloat16,
+    cache = M.init_cache(cfg, B, slots or P, dtype=dtype or torch.bfloat16,
                          device=device)
     for p in range(P):
         logits, cache = serve(*model, cache, prompts[:, p:p + 1], p)
     return logits, cache
 
 
+def mixers_of(cfg) -> list:
+    return [cfg.pattern[i % len(cfg.pattern)][0]
+            for i in range(cfg.n_layers)]
+
+
+def seeds_serve(cfg) -> bool:
+    """Whether prefill's caches can seed the serve step: every layer's
+    but an mLSTM one's (its prefill cache ``(C, n, m)`` has no
+    convolution state, as in the JAX package)."""
+    return "mlstm" not in mixers_of(cfg)
+
+
 def decode_cache(cfg, caches, steps: int, device):
-    """A decode cache of ``P + steps`` slots holding prefill's ``P``, in
-    their dtype (the activations')."""
+    """A decode cache of ``P + steps`` slots holding prefill's: an
+    attention layer's ``P`` rows of k and v (MLA's c_kv and k_rope), a
+    recurrent layer's state as it is, in their dtypes (the
+    activations'; Mamba's ``h`` float32)."""
     from repro_torch.models import model as M
-    B, P = caches[0][0].shape[:2]
-    cache = M.init_cache(cfg, B, P + steps, dtype=caches[0][0].dtype,
-                         device=device)
-    for (k, v), (ck, cv) in zip(caches, cache):
-        ck[:, :P] = k
-        cv[:, :P] = v
+    mixers = mixers_of(cfg)
+    check(seeds_serve(cfg), "an mLSTM prefill cache cannot seed the serve "
+          "step")
+    seq = [c for mx, c in zip(mixers, caches) if mx in ("attn", "mla")]
+    B = caches[0][0].shape[0]
+    P = seq[0][0].shape[1] if seq else 0
+    dtype = seq[0][0].dtype if seq else caches[0][-1].dtype
+    cache = M.init_cache(cfg, B, P + steps, dtype=dtype, device=device)
+    for mx, got, dst in zip(mixers, caches, cache):
+        for src, d in zip(got, dst):
+            if mx in ("attn", "mla"):
+                d[:, :P] = src
+            else:
+                d.copy_(src)
     return cache
 
 
@@ -2998,8 +3044,11 @@ def serve_timed(cfg, model, prompts, steps: int, key, weight_bytes: int
                 ) -> dict:
     """One warm ``make_prefill_step`` on ``prompts`` ``(B, P)`` timed, then
     ``steps`` serve steps sampled at ``SERVE_TEMPERATURE`` timed, each
-    with its launches counted; the serve step's byte bound is the
-    weights and the cache once over 3.35 TB/s."""
+    with its launches counted, from prefill's caches (an mLSTM model's
+    from the decode path's over the prompt: its prefill cache cannot seed
+    the serve step); the serve step's byte bound is the weights and the
+    cache read once, and the recurrent states written once, over 3.35
+    TB/s."""
     import torch
     from repro_torch import random as jr
     from repro_torch.models import model as M
@@ -3015,9 +3064,16 @@ def serve_timed(cfg, model, prompts, steps: int, key, weight_bytes: int
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     n_prefill = read_counters()
-    cache = decode_cache(cfg, caches, steps, "cuda")
+    if seeds_serve(cfg):
+        cache = decode_cache(cfg, caches, steps, "cuda")
+    else:           # the cache the decode path fills over the prompt
+        cache = decode_path(cfg, model, prompts, "cuda", slots=P + steps)[1]
     cache_bytes = sum(t.numel() * t.element_size()
                       for t in tree_leaves(cache))
+    # a recurrent layer's state is read and written whole each step
+    state_bytes = sum(t.numel() * t.element_size()
+                      for mx, c in zip(mixers_of(cfg), cache)
+                      if mx not in ("attn", "mla") for t in c)
     tok = torch.argmax(logits, -1)[:, None]
     k = jr.fold_in(key, P)
     zero_counters()
@@ -3032,7 +3088,9 @@ def serve_timed(cfg, model, prompts, steps: int, key, weight_bytes: int
     return dict(
         prefill_s=prefill_s, decode_s=decode_s, step_s=decode_s / steps,
         tokens_per_s=B * steps / decode_s, cache_bytes=cache_bytes,
-        bound_step_ms=(weight_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3,
+        state_bytes=state_bytes,
+        bound_step_ms=(weight_bytes + cache_bytes + state_bytes)
+        / HBM_BYTES_PER_S * 1e3,
         finite=bool(torch.isfinite(logits).all()
                     and torch.isfinite(step_logits).all()),
         launches_prefill=n_prefill, launches_steps=read_counters(),
@@ -3065,23 +3123,38 @@ MOE_REF_TOL = 2e-2
 DECODE_CHECK_B, DECODE_CHECK_HELD = 16, 8
 
 
+# the projections a layer takes through ``common.dense`` with its LoRA
+# pair, by mixer and feed-forward block: one ``lora_matmul`` launch each
+# that the config's ``lora.targets`` name (the MoE block's 3-D experts
+# take none)
+ADAPTABLE = {"attn": ("wq", "wkv", "wo"),
+             "mla": ("wq_a", "wq_b", "wkv_a", "wkv_b", "wo"),
+             "mamba": ("in_proj", "out_proj"),
+             "mlstm": ("up_proj", "wq", "wk", "wv", "down_proj"),
+             "slstm": ("w_gates",), "mlp": ("w_in", "w_out"),
+             "moe": ("shared_w_in", "shared_w_out"), "none": ()}
+
+
 def adapted_launches(cfg, decode: bool) -> int:
     """``lora_matmul`` launches of one pass: every adapted projection a
-    layer (GQA's wq, wkv, wo; MLA's wq_a, wq_b, wkv_a, wkv_b, wo; the
-    MLP's w_in, w_out; the MoE block's experts and shared expert take no
-    adapter), but MLA's ``wkv_b`` in decode, whose absorbed form reads
-    its base weight."""
+    layer (``ADAPTABLE`` named in ``cfg.lora.targets``: GQA's wq, wkv,
+    wo; MLA's five; the MLP's w_in, w_out; in xlstm-125m the mLSTM's wq
+    alone), but MLA's ``wkv_b`` in decode, whose absorbed form reads its
+    base weight."""
     n = 0
     for i in range(cfg.n_layers):
         mixer, ffn = cfg.pattern[i % len(cfg.pattern)]
-        n += 3 if mixer == "attn" else (4 if decode else 5)
-        n += 2 if ffn == "mlp" else 0
+        names = set(ADAPTABLE[mixer] + ADAPTABLE[ffn]) & set(cfg.lora.targets)
+        if decode and mixer == "mla":
+            names.discard("wkv_b")
+        n += len(names)
     return n
 
 
 def family_launches(cfg) -> dict:
+    n_attn = sum(mx in ("attn", "mla") for mx in mixers_of(cfg))
     return {"prefill": {"lora_matmul": adapted_launches(cfg, False),
-                        "flash_attention": cfg.n_layers},
+                        "flash_attention": n_attn},
             "serve_step": {"lora_matmul": adapted_launches(cfg, True),
                            "flash_attention": 0}}
 
@@ -3423,19 +3496,24 @@ def host_tree(tree, to_host: bool = True):
     return tree
 
 
-def family_half_cpu(cfg, model, prompts, fed, threads: int) -> dict:
+def family_half_cpu(cfg, model, prompts, fed, threads: int,
+                    decode: bool = True) -> dict:
     """``family_half`` in a spawned process, on host trees both ways."""
     return host_tree(family_half(cfg, *host_tree((model, prompts, fed),
-                                                 False), threads))
+                                                 False), threads, decode))
 
 
-def family_half(cfg, model, prompts, fed, threads: int = 0) -> dict:
+def family_half(cfg, model, prompts, fed, threads: int = 0,
+                decode: bool = True) -> dict:
     """Prefill on ``prompts`` and ``fed.shape[1]`` serve steps fed ``fed``
-    from prefill's cache, and the decode path on the prompts, in bfloat16
-    and on the same weights in float32 (a float32 decode cache): logits
-    and caches on the CPU, and the gaps of the decode path's last logits
-    and caches to prefill's.  Runs on the model's device; phases 12 and
-    14 run it on the card and, in a process of its own, on the CPU."""
+    from prefill's cache, and (``decode``) the decode path on the
+    prompts, in bfloat16 and on the same weights in float32 (a float32
+    decode cache): logits and caches on the CPU, and the gaps of the
+    decode path's last logits and caches to prefill's (None without
+    it), and the cache the serve steps started from.  A model whose
+    prefill cache cannot seed the serve step (an mLSTM one, with no
+    attention layer) steps on from the decode path's cache.  Runs on the model's device; phases 12 and 14-16 run it on the
+    card and, in a process of its own, on the CPU."""
     import torch
     from repro_torch.models import model as M
     from repro_torch.tree import tree_map
@@ -3452,20 +3530,36 @@ def family_half(cfg, model, prompts, fed, threads: int = 0) -> dict:
                                                   model), torch.float32)):
             t1 = time.perf_counter()
             logits, caches = prefill(*m, {"tokens": prompts})
-            cache = decode_cache(cfg, caches, fed.shape[1], dev)
+            dec = dec_cache = None
+            if decode or not seeds_serve(cfg):
+                dec, dec_cache = decode_path(cfg, m, prompts, dev, dtype=dt)
+            if seeds_serve(cfg):
+                cache = decode_cache(cfg, caches, fed.shape[1], dev)
+            else:
+                check(not {"attn", "mla"} & set(mixers_of(cfg)),
+                      "a decode path's cache has no slots to step on")
+                cache = tree_map(lambda t: t.clone(), dec_cache)
+            start = tree_map(lambda t: cpu(t).clone(), cache)
             steps = []
             for s in range(fed.shape[1]):
                 lg, cache = serve(*m, cache, fed[:, s:s + 1],
                                   prompts.shape[1] + s)
                 steps.append(cpu(lg))
-            dec, dec_cache = decode_path(cfg, m, prompts, dev, dtype=dt)
-            out[label] = dict(prefill=cpu(logits), caches=tree_map(cpu,
-                                                                   caches),
-                              steps=steps, step_caches=tree_map(cpu, cache),
-                              gap=float((dec - logits).abs().max()),
-                              cache_gap=max(cache_errs(dec_cache, caches)),
-                              seconds=time.perf_counter() - t1)
+            gaps = None if dec is None else state_errs(dec_cache, caches,
+                                                       mixers_of(cfg))
+            out[label] = dict(
+                prefill=cpu(logits), caches=tree_map(cpu, caches),
+                steps=steps, step_caches=tree_map(cpu, cache),
+                start_cache=start,
+                gap=None if dec is None else float(
+                    (dec - logits).abs().max()),
+                rel_gap=None if dec is None else rel_err(dec, logits,
+                                                         floor=0.0),
+                cache_gaps=gaps,
+                cache_gap=None if gaps is None else max(gaps),
+                seconds=time.perf_counter() - t1)
     out["seconds"] = time.perf_counter() - t0
+    out["prompt_len"] = prompts.shape[1]
     return out
 
 
@@ -3666,6 +3760,484 @@ def stablelm_phase(gen) -> dict:
     del model
     return dict(logits_err=err, cache_err=cerr,
                 launches=n["flash_attention"], kernel_times=times)
+
+
+# ---------------------------------------------------------------------------
+# phases 15 and 16: the recurrent families
+# ---------------------------------------------------------------------------
+JAMBA, XLSTM = "jamba-1.5-large-398b", "xlstm-125m"
+# phase 15's depth cut: a Mamba layer and the attention layer with their
+# MLPs, from jamba's period of 8 (1:7 attention, MoE every other layer);
+# one ("mamba", "moe") layer alone is 9.66 B values, about a minute of
+# draw, and the MoE block ran at full width in phase 13
+JAMBA_PATTERN = (("mamba", "mlp"), ("attn", "mlp"))
+
+
+class OpCount:
+    """The aten ops dispatched while it is on (``with OpCount() as n:``;
+    ``n.ops``): on the card each launches at most one kernel (a view
+    launches none), so it counts the host's launches of a plain-torch
+    path.  The hand-written kernels' launches are their own counters."""
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        box = self
+        self.ops = 0
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                box.ops += 1
+                return func(*args, **(kwargs or {}))
+        self._mode = Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+
+
+def state_errs(got, want, mixers) -> list:
+    """Each layer's largest error of its cache or state, of its largest
+    magnitude; an mLSTM layer's ``(C, n, m)`` as ``C·e^m`` and ``n·e^m``
+    (two forms, or two paths, may carry different stabilisers ``m``)."""
+    import torch
+    out = []
+    for mx, g, w in zip(mixers, got, want):
+        if mx != "mlstm":
+            out.append(max(rel_err(a, b, floor=0.0) for a, b in zip(g, w)))
+            continue
+        sc = []
+        for Cs, n, m in (g[:3], w[:3]):
+            e = torch.exp(m.double())
+            sc.append((Cs.double() * e[..., None, None],
+                       n.double() * e[..., None]))
+        out.append(max(rel_err(a, b, floor=0.0) for a, b in zip(*sc)))
+    return out
+
+
+def recurrent_compare(cfg, card: dict, cpu: dict, local: dict) -> dict:
+    """The card against the CPU port on the same weights, of the largest
+    magnitude: along the trajectory (``family_half`` on both: prefill,
+    then the serve steps each from its own caches) and locally
+    (``local``: the card's serve steps from the CPU port's own starting
+    cache, against the CPU port's steps), with the bounds of
+    ``recurrent_bounds``."""
+    mixers = mixers_of(cfg)
+    errs = {}
+    for label in ("bfloat16", "float32"):
+        g, w, loc = card[label], cpu[label], local[label]
+        errs[label] = dict(
+            prefill=rel_err(g["prefill"], w["prefill"], floor=0.0),
+            steps=[rel_err(a, b, floor=0.0)
+                   for a, b in zip(g["steps"], w["steps"])],
+            caches=[max(a, b) for a, b in zip(
+                state_errs(g["caches"], w["caches"], mixers),
+                state_errs(g["step_caches"], w["step_caches"], mixers))],
+            local_steps=[rel_err(a, b, floor=0.0)
+                         for a, b in zip(loc["steps"], w["steps"])],
+            local_caches=state_errs(loc["step_caches"], w["step_caches"],
+                                    mixers),
+            seconds=w["seconds"])
+    errs["bounds"] = recurrent_bounds(cfg, cpu)
+    return errs
+
+
+def recurrent_local(cfg, model, cpu: dict, fed) -> dict:
+    """The card's serve steps fed ``fed``, started from the CPU port's
+    own starting cache (its copy on the card), in bfloat16 and on the
+    same weights in float32: the step's function compared at one state,
+    with no amplification along the prompt."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_map
+    serve = M.make_serve_step(cfg)
+    out = {}
+    with torch.no_grad():
+        for label, dt in (("bfloat16", torch.bfloat16),
+                          ("float32", torch.float32)):
+            m = model if dt == torch.bfloat16 else tree_map(
+                lambda t: t.float(), model)
+            start = cpu[label]["start_cache"]
+            B = start[0][0].shape[0]
+            seq = [c for mx, c in zip(mixers_of(cfg), start)
+                   if mx in ("attn", "mla")]
+            slots = seq[0][0].shape[1] if seq else 1
+            cache = M.init_cache(cfg, B, slots, dtype=dt, device="cuda")
+            for got, dst in zip(start, cache):
+                for src, d in zip(got, dst):
+                    d.copy_(src)
+            P = cpu["prompt_len"]
+            steps = []
+            for s in range(fed.shape[1]):
+                lg, cache = serve(*m, cache, fed[:, s:s + 1], P + s)
+                steps.append(lg.float().cpu())
+            out[label] = dict(steps=steps, step_caches=tree_map(
+                lambda t: t.float().cpu(), cache))
+            del m
+    return out
+
+
+# a quantity whose float32 value the CPU port itself computes two ways
+# (prefill and the decode path) more than this far apart, of its largest
+# magnitude, is amplified by the model: a fixed bound cannot tell a fault
+# there from the model's own amplification of rounding
+AMPLIFIED = SERVE_F32_TOL / 10
+
+
+def recurrent_bounds(cfg, cpu: dict) -> dict:
+    """Which trajectory quantities are held, and to what.  The CPU port's
+    own float32 gap between its prefill and its decode path (two orders
+    of the same float32 sums), a layer at a time and at the logits,
+    tells where the model amplifies rounding: xlstm-125m's sLSTM layers
+    at their published widths multiply a difference by about 1.3 a
+    position, so after 32 positions float32 results differ in the 4th
+    digit however the sums are ordered.  A quantity whose own gap is
+    under ``AMPLIFIED`` is held along the trajectory to the fixed bounds
+    (bfloat16: logits ``SERVE_CPU_TOL``, caches 2e-2; float32
+    ``SERVE_F32_TOL``); one above it is printed with its own gap, and the
+    local comparison (one state, no prompt to amplify along) holds the
+    card there.  Without the CPU port's decode path every quantity is
+    held."""
+    f32 = cpu["float32"]
+    own = f32["cache_gaps"] or [0.0] * cfg.n_layers
+    own_logits = f32["rel_gap"] or 0.0
+    return dict(own_f32_caches=own, own_f32_logits=own_logits,
+                held_caches=[x < AMPLIFIED for x in own],
+                held_logits=own_logits < AMPLIFIED)
+
+
+def check_recurrent(name: str, errs: dict):
+    b = errs["bounds"]
+    for label, tol, ctol in (("bfloat16", SERVE_CPU_TOL, 2e-2),
+                             ("float32", SERVE_F32_TOL, SERVE_F32_TOL)):
+        e = errs[label]
+        for what, err in ([(f"local serve step {s}", x)
+                           for s, x in enumerate(e["local_steps"])]
+                          + ([("prefill logits", e["prefill"])]
+                             + [(f"serve step {s}", x)
+                                for s, x in enumerate(e["steps"])]
+                             if b["held_logits"] else [])):
+            check(err <= tol, f"{name} {label} {what}: card against the "
+                  f"CPU port {err} > {tol}")
+        for i, err in enumerate(e["local_caches"]):
+            check(err <= ctol, f"{name} {label} layer {i} caches after the "
+                  f"local serve steps: card against the CPU port {err} > "
+                  f"{ctol}")
+        for i, err in enumerate(e["caches"]):
+            if b["held_caches"][i]:
+                check(err <= ctol, f"{name} {label} layer {i} caches: card "
+                      f"against the CPU port {err} > {ctol}")
+
+
+def recurrent_decode_gap(cfg, model, prompts) -> dict:
+    """Prefill against the decode path fed the same prompts on the card:
+    in float32 (the model's weights widened, a float32 decode cache)
+    every layer's state (the mLSTM's as ``C·e^m``, ``n·e^m``) and the
+    last logits, held by ``check_recurrent_run`` to the float32 bounds of
+    ``recurrent_bounds``; in bfloat16 the gaps are printed, not held (the
+    train paths apply SiLU after the convolution's cast to the
+    activation dtype, the decode paths before it, as JAX's do)."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_map
+    out = {}
+    for label, m, dt in (("bfloat16", model, torch.bfloat16),
+                         ("float32", tree_map(lambda t: t.float(), model),
+                          torch.float32)):
+        with torch.no_grad():
+            logits, caches = M.make_prefill_step(cfg)(*m,
+                                                      {"tokens": prompts})
+            dec, dec_cache = decode_path(cfg, m, prompts, "cuda", dtype=dt)
+        out[label] = dict(logits=rel_err(dec, logits, floor=0.0),
+                          states=state_errs(dec_cache, caches,
+                                            mixers_of(cfg)))
+        del m, caches, dec_cache
+    return out
+
+
+def recurrent_start(name, cfg, cpu_decode: bool) -> dict:
+    """The base of ``cfg`` drawn on the card (``draw_family``), 4 prompts
+    of 512 tokens, and its CPU half (``family_half`` at 32 tokens on host
+    copies of the card's weights, ``cpu_decode`` with the decode path)
+    started in a process of its own."""
+    import torch
+    from repro_torch import random as jr
+    model, init_s, draw_peak, weight_bytes = draw_family(cfg)
+    prompts = torch.from_numpy(jr.randint(
+        jr.PRNGKey(0), (SERVE_B, max(SERVE_PROMPTS)), 4,
+        cfg.vocab_size - 4)).long().cuda()
+    P = min(SERVE_PROMPTS)
+    fed = prompts[:, P:P + 2]
+    t0 = time.perf_counter()
+    job = CpuJob(f"{name} at {P} tokens (cpu, plain)", family_half_cpu,
+                 cfg, *host_tree((model, prompts[:, :P], fed)),
+                 CPU_JOB_THREADS, cpu_decode)
+    return dict(name=name, cfg=cfg, model=model, prompts=prompts, fed=fed,
+                job=job, init_s=init_s, draw_peak=draw_peak,
+                weight_bytes=weight_bytes,
+                handoff=time.perf_counter() - t0)
+
+
+def recurrent_run(started: dict, gen, lora_shapes, attn_shapes,
+                  lora_iters=(50, 20)):
+    """Phases 15 and 16's shared body, on ``recurrent_start``'s model:
+    4 requests served at 32 and 512 tokens (``serve_timed``), prefill
+    against the decode path (``recurrent_decode_gap``), the kernels at
+    the model's shapes (``kernel_times``), then the CPU half collected
+    and compared, along the trajectory and from one state
+    (``recurrent_compare``, ``recurrent_local``).  Returns the model, the
+    prompts and the phase's numbers; the checks are the caller's."""
+    import torch
+    from repro_torch import random as jr
+    name, cfg, model = started["name"], started["cfg"], started["model"]
+    prompts, fed, job = started["prompts"], started["fed"], started["job"]
+    init_s, draw_peak = started["init_s"], started["draw_peak"]
+    weight_bytes, handoff = started["weight_bytes"], started["handoff"]
+    B, steps, key = SERVE_B, SERVE_STEPS, jr.PRNGKey(0)
+    P = min(SERVE_PROMPTS)
+    torch.cuda.reset_peak_memory_stats()
+    runs = {P_: serve_timed(cfg, model, prompts[:, :P_], SERVE_STEPS, key,
+                            weight_bytes) for P_ in SERVE_PROMPTS}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for P_, r in runs.items():
+        print(f"{name} (bf16, B={B}, prompt {P_}): prefill "
+              f"{r['prefill_s'] * 1e3:.2f} ms; {steps} serve steps "
+              f"{r['decode_s']:.4f} s, {r['step_s'] * 1e3:.3f} ms a step "
+              f"(byte bound {r['bound_step_ms']:.3f} ms: "
+              f"{weight_bytes / 1e9:.3f} GB of weights, "
+              f"{r['cache_bytes'] / 1e6:.1f} MB of cache read and "
+              f"{r['state_bytes'] / 1e6:.1f} MB of recurrent state written "
+              f"at 3.35 TB/s), {r['tokens_per_s']:.1f} tokens/s; launches: "
+              f"prefill {json.dumps(r['launches_prefill'])}, serve steps "
+              f"{json.dumps(r['launches_steps'])}")
+    gaps = recurrent_decode_gap(cfg, model, prompts[:, :P])
+    card = family_half(cfg, model, prompts[:, :P], fed, decode=False)
+    times = kernel_times(gen, lora_shapes, attn_shapes, lora_iters)
+    t0 = time.perf_counter()
+    cpu = host_tree(job.result(), False)
+    waited = time.perf_counter() - t0
+    errs = recurrent_compare(cfg, card, cpu,
+                             recurrent_local(cfg, model, cpu, fed))
+    return model, prompts, dict(
+        init_s=init_s, draw_peak_gib=draw_peak, peak_gib=peak,
+        weight_bytes=weight_bytes, cpu_s=cpu["seconds"], cpu_waited_s=waited,
+        cpu_handoff_s=handoff, decode_gap=gaps, cpu_compare=errs,
+        kernel_times=times,
+        runs={P_: {k: v for k, v in r.items() if k not in ("logits",
+                                                            "caches")}
+              for P_, r in runs.items()})
+
+
+def recurrent_text(out: dict) -> str:
+    e16, e32 = out["cpu_compare"]["bfloat16"], out["cpu_compare"]["float32"]
+    g16, g32 = out["decode_gap"]["bfloat16"], out["decode_gap"]["float32"]
+    b = out["cpu_compare"]["bounds"]
+    f = lambda xs: ", ".join(f"{x:.3g}" for x in xs)  # noqa: E731
+    held = [i for i, h in enumerate(b["held_caches"]) if h]
+    return (f"card against the CPU port at {min(SERVE_PROMPTS)} tokens (a "
+            f"process of {CPU_JOB_THREADS} threads, {out['cpu_s']:.1f} s, "
+            f"{out['cpu_waited_s']:.1f} s of it waited for, "
+            f"{out['cpu_handoff_s']:.1f} s to hand it the weights), of the "
+            f"largest; from one state (the card's serve steps from the CPU "
+            f"port's starting cache): bfloat16 logits "
+            f"{f(e16['local_steps'])}, caches by layer "
+            f"{f(e16['local_caches'])} (tolerances {SERVE_CPU_TOL}, 2e-2); "
+            f"float32 {f(e32['local_steps'])}, caches "
+            f"{f(e32['local_caches'])} (tolerance {SERVE_F32_TOL}); along "
+            f"the trajectory (prefill, then each side's serve steps from its "
+            f"own caches): bfloat16 prefill logits {e16['prefill']:.3g}, "
+            f"serve steps {f(e16['steps'])}, caches by layer "
+            f"{f(e16['caches'])}; float32 {e32['prefill']:.3g}, "
+            f"{f(e32['steps'])}, caches {f(e32['caches'])}; held (the CPU "
+            f"port's own float32 prefill-against-decode gap under "
+            f"{AMPLIFIED:.3g}: logits {b['own_f32_logits']:.3g}, caches "
+            f"{f(b['own_f32_caches'])}): logits "
+            f"{'yes' if b['held_logits'] else 'no, amplified'}, caches of "
+            f"layers {held} (tolerances {SERVE_CPU_TOL}, 2e-2; "
+            f"{SERVE_F32_TOL}); prefill against the decode path on the "
+            f"card, float32: logits {g32['logits']:.3g}, states by layer "
+            f"{f(g32['states'])} (tolerance {SERVE_F32_TOL} where held); "
+            f"bfloat16 (printed: SiLU before and after the cast, as in JAX) "
+            f"{g16['logits']:.3g}, {f(g16['states'])}; base draw "
+            f"{out['init_s']:.2f} s ({out['weight_bytes'] / 1e9:.2f} GB, "
+            f"draw peak {out['draw_peak_gib']:.2f} GiB); peak memory after "
+            f"it {out['peak_gib']:.2f} GiB")
+
+
+def check_recurrent_run(name, cfg, out: dict):
+    want = family_launches(cfg)
+    for P_, r in out["runs"].items():
+        check_serving_launches(r["launches_prefill"], want["prefill"],
+                               f"{name} prefill {P_}")
+        check_serving_launches(r["launches_steps"], {
+            n: SERVE_STEPS * c for n, c in want["serve_step"].items()},
+            f"{name} {SERVE_STEPS} serve steps after a {P_}-token prefill")
+        check(r["finite"], f"{name} prefill {P_} or its serve steps: "
+              "logits not finite")
+    check_recurrent(name, out["cpu_compare"])
+    g = out["decode_gap"]["float32"]
+    b = out["cpu_compare"]["bounds"]
+    for what, err, held in ([("logits", g["logits"], b["held_logits"])]
+                            + [(f"layer {i} state", x, b["held_caches"][i])
+                               for i, x in enumerate(g["states"])]):
+        check(not held or err <= SERVE_F32_TOL, f"{name} float32 prefill "
+              f"against the decode path, {what}: {err} > {SERVE_F32_TOL}")
+    check(any(b["held_caches"]), f"{name}: no layer held along the "
+          "trajectory")
+
+
+def jamba_phase(gen) -> dict:
+    """Phase 15: ``jamba-1.5-large-398b`` at its published widths (d_model
+    8192, Mamba ed 16384, d_state 16, d_conv 4, dt_rank 512, 64/8 heads of
+    128, d_ff 24576, vocab 65536, untied), its depth cut from 72 layers to
+    ``JAMBA_PATTERN`` (a Mamba layer and the attention layer, each with
+    its MLP); the bfloat16 base as ``init_params`` draws it; served as
+    phase 12 serves (``recurrent_run``).  Checks: the launches (per
+    prefill 7 ``lora_matmul``, one ``flash_attention`` at head dim 128;
+    per serve step 7 and none); the card against the CPU port; prefill
+    (``mamba_train``'s chunked scan) against the decode path at full
+    width; ``lora_matmul`` at jamba's five adapted projections and
+    ``flash_attention`` at D = 128, S = 512, against their plain
+    versions.  The card's model is freed at the end."""
+    import dataclasses
+    from repro_torch.configs.registry import get
+    t_phase = time.perf_counter()
+    full = get(JAMBA)
+    cfg = dataclasses.replace(full, n_layers=len(JAMBA_PATTERN),
+                              pattern=JAMBA_PATTERN)
+    mc, d = cfg.mamba, cfg.d_model
+    H, KH, D, ff = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
+    print(f"phase 15: {JAMBA} at its published widths (d_model {d}, Mamba "
+          f"ed {mc.expand * d}, d_state {mc.d_state}, d_conv {mc.d_conv}, "
+          f"dt_rank {mc.dt_rank or -(-d // 16)}, {H}/{KH} heads of {D}, "
+          f"d_ff {ff}, vocab {cfg.vocab_size}); depth cut from "
+          f"{full.n_layers} layers to {cfg.n_layers}: {list(cfg.pattern)}")
+    B, S = SERVE_B, max(SERVE_PROMPTS)
+    # tens of ms a call at M = 2048: fewer calls timed (10 in a loop, 4
+    # captured in a graph replayed 5 times)
+    model, _, out = recurrent_run(
+        recurrent_start(f"phase 15 ({JAMBA})", cfg, cpu_decode=False), gen,
+        [(f"jamba-{n}-M{M_}", M_, K, N, cfg.lora.rank)
+         for n, (K, N) in (("wq", (d, H * D)), ("wkv", (d, 2 * KH * D)),
+                           ("wo", (H * D, d)), ("w_in", (d, 2 * ff)),
+                           ("w_out", (ff, d)))
+         for M_ in (B, B * S)],
+        [(f"jamba-prefill-{S}", B, S, H, KH, D, D)], lora_iters=(10, 4))
+    wall = time.perf_counter() - t_phase
+    out["wall_s"] = wall
+    print(f"phase 15: {recurrent_text(out)}; phase {wall:.1f} s")
+    check_recurrent_run(JAMBA, cfg, out)
+    del model
+    return out
+
+
+def xlstm_start() -> dict:
+    """Phase 16's draw and CPU half (``recurrent_start``), started before
+    phase 15 so the CPU half runs beside it."""
+    from repro_torch.configs.registry import get
+    return recurrent_start(f"phase 16 ({XLSTM})", get(XLSTM),
+                           cpu_decode=True)
+
+
+def xlstm_phase(gen, started: dict) -> dict:
+    """Phase 16: ``xlstm-125m`` at its published widths and all 12 layers
+    (d_model 768, 4 heads, mLSTM ed 1536 of head dim 384, sLSTM FFN 1024,
+    vocab 50304, untied), served as phase 12 serves (``recurrent_run``;
+    the serve steps go on from the decode path's cache, since JAX's mLSTM
+    prefill cache has no convolution state); then the sequential and the
+    chunkwise mLSTM prefill at 512 tokens: each timed in bfloat16 with its
+    ``lora_matmul`` launches and its aten ops (``OpCount``); in float32
+    the first mLSTM layer's two forms on the embedded prompts, output and
+    states (as ``C·e^m``, ``n·e^m``) within ``SERVE_F32_TOL``, and the
+    whole model's two prefills against each other, printed.
+    Checks: the launches (6 ``lora_matmul``, the mLSTM's ``wq``, a pass;
+    no attention); the card against the CPU port; prefill against the
+    decode path; ``lora_matmul`` at the mLSTM's ``wq`` against its plain
+    version.  ``started`` is ``xlstm_start``'s (its draw time is in the
+    phase's numbers, not in its wall time)."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models import xlstm
+    from repro_torch.tree import tree_map
+    t_phase = time.perf_counter()
+    cfg = started["cfg"]
+    xc, d, H = cfg.xlstm, cfg.d_model, cfg.n_heads
+    ed = xc.expand * d
+    print(f"phase 16: {XLSTM} at its published widths and all "
+          f"{cfg.n_layers} layers (d_model {d}, {H} heads, mLSTM ed {ed} of "
+          f"head dim {ed // H}, sLSTM FFN "
+          f"{-(-int(d * xc.slstm_ffn_factor) // 128) * 128}, vocab "
+          f"{cfg.vocab_size}): {list(cfg.pattern)} × {cfg.n_groups}")
+    B, S = SERVE_B, max(SERVE_PROMPTS)
+    model, prompts, out = recurrent_run(
+        started, gen,
+        [(f"xlstm-wq-M{M_}", M_, ed, ed, cfg.lora.rank) for M_ in (B, B * S)],
+        [])
+    batch = {"tokens": prompts}
+    forms = {}
+    for form, chunk in (("sequential", False), ("chunkwise", True)):
+        prefill = M.make_prefill_step(cfg, mlstm_chunkwise=chunk)
+        if chunk:           # the sequential one ran warm in serve_timed
+            prefill(*model, batch)
+        zero_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill(*model, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        n = read_counters()
+        with torch.no_grad(), OpCount() as ops:
+            prefill(*model, batch)
+        f32 = tree_map(lambda t: t.float(), model)
+        logits, caches = prefill(*f32, batch)
+        del f32
+        forms[form] = dict(ms=ms, lora_matmul=n["lora_matmul"],
+                           aten_ops=ops.ops, logits=logits, caches=caches)
+    seq, chk = forms["sequential"], forms["chunkwise"]
+    form_logits = rel_err(chk.pop("logits"), seq.pop("logits"), floor=0.0)
+    form_states = state_errs(chk.pop("caches"), seq.pop("caches"),
+                             mixers_of(cfg))
+    # the first mLSTM layer alone, both forms on the same input (the
+    # embedded prompts), in float32: every later layer's input already
+    # carries the other form's rounding, which the sLSTM layers amplify
+    params, adapters = model
+    layer0 = {k: v.float() for k, v in params["layers"][0].items()}
+    layer0.update({k: v[None].float() for k, v in adapters[0].items()})
+    with torch.no_grad():
+        x = params["embed"][prompts][None].float()
+        ys, ss = xlstm.mlstm_train(layer0, cfg, x)
+        yc, sc = xlstm.mlstm_train_chunkwise(layer0, cfg, x)
+    first = dict(out=rel_err(yc, ys, floor=0.0),
+                 states=state_errs([sc], [ss], ["mlstm"])[0])
+    del layer0, x, ys, ss, yc, sc
+    out["forms"] = dict(forms, logits_gap=form_logits,
+                        states_gap=form_states, first_layer=first)
+    wall = time.perf_counter() - t_phase
+    out["wall_s"] = wall
+    print(f"phase 16: {recurrent_text(out)}; the mLSTM prefill at {S} "
+          f"tokens (bf16, B={B}): sequential {seq['ms']:.1f} ms, "
+          f"{seq['lora_matmul']} lora_matmul launches, {seq['aten_ops']} "
+          f"aten ops; chunkwise {chk['ms']:.1f} ms, {chk['lora_matmul']} "
+          f"lora_matmul launches, {chk['aten_ops']} aten ops; chunkwise "
+          f"against sequential in float32, the first mLSTM layer on the "
+          f"embedded prompts: output {first['out']:.3g}, states "
+          f"{first['states']:.3g} (tolerance {SERVE_F32_TOL}; as C·e^m, "
+          f"n·e^m); the whole model (printed: each later layer's input "
+          f"carries the other form's rounding, which the sLSTM layers "
+          f"amplify): logits {form_logits:.3g}, states by layer "
+          f"{', '.join(f'{x:.3g}' for x in form_states)}; phase "
+          f"{wall:.1f} s")
+    check_recurrent_run(XLSTM, cfg, out)
+    want = adapted_launches(cfg, False)
+    for form, f in forms.items():
+        check(f["lora_matmul"] == want, f"{XLSTM} {form} prefill: "
+              f"{f['lora_matmul']} lora_matmul launches, want {want}")
+    for what, err in (("output", first["out"]),
+                      ("states", first["states"])):
+        check(err <= SERVE_F32_TOL, f"{XLSTM} first mLSTM layer, chunkwise "
+              f"against sequential, {what}: {err} > {SERVE_F32_TOL}")
+    del model, prompts
+    return out
 
 
 def profile_serving(cfg, model, run: dict):
@@ -3979,8 +4551,15 @@ def main(argv) -> int:
         minicpm_phase(gen)
         stablelm_phase(gen)
         return 0
+    if argv == ["--recurrent"]:
+        build_kernels()
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        started = xlstm_start()
+        jamba_phase(gen)
+        xlstm_phase(gen, started)
+        return 0
     check(not argv, f"unknown arguments {argv}; use --profile, --attn, "
-          "--sharded, --serving, --families or none")
+          "--sharded, --serving, --families, --recurrent or none")
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
     builds = build_kernels()
@@ -4031,6 +4610,12 @@ def main(argv) -> int:
     kimi = kimi_phase(gen)
     minicpm = minicpm_phase(gen)
     stablelm = stablelm_phase(gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    started = xlstm_start()
+    jamba = jamba_phase(gen)
+    xlstm_ = xlstm_phase(gen, started)
+    del started
     cli = cli_compare(cli)
     serving = serving_compare(serving)
     gib = 2 ** 30
@@ -4112,6 +4697,12 @@ def main(argv) -> int:
              launches_minicpm=serving_counts(
                  minicpm["runs"][max(SERVE_PROMPTS)], "lora_matmul"),
              minicpm=minicpm["kernel_times"]["lora_matmul"],
+             launches_jamba=serving_counts(
+                 jamba["runs"][max(SERVE_PROMPTS)], "lora_matmul"),
+             jamba=jamba["kernel_times"]["lora_matmul"],
+             launches_xlstm=serving_counts(
+                 xlstm_["runs"][max(SERVE_PROMPTS)], "lora_matmul"),
+             xlstm=xlstm_["kernel_times"]["lora_matmul"],
              shapes=lm_shapes,
              waves=[{k: w[k] for k in ("tiles", "lora_graph_ms")}
                     for w in waves],
@@ -4138,6 +4729,11 @@ def main(argv) -> int:
              minicpm=minicpm["kernel_times"]["flash_attention"],
              launches_stablelm=stablelm["launches"],
              stablelm=stablelm["kernel_times"]["flash_attention"],
+             launches_jamba=serving_counts(
+                 jamba["runs"][max(SERVE_PROMPTS)], "flash_attention"),
+             jamba=jamba["kernel_times"]["flash_attention"],
+             launches_xlstm=serving_counts(
+                 xlstm_["runs"][max(SERVE_PROMPTS)], "flash_attention"),
              shapes=fa_shapes,
              probe=fa_probe, **build_summary(builds["flash_attention"])),
         dict(name=fa.NAME + "_bwd", route="cuda", source=fa.SOURCE,
@@ -4220,6 +4816,10 @@ def main(argv) -> int:
                                   if k != "kernel_times"},
                       "stablelm": {k: v for k, v in stablelm.items()
                                    if k != "kernel_times"},
+                      "jamba": {k: v for k, v in jamba.items()
+                                if k != "kernel_times"},
+                      "xlstm": {k: v for k, v in xlstm_.items()
+                                if k != "kernel_times"},
                       "deepseek": {k: deepseek[k] for k in (
                           "init_s", "init_peak_gib", "stage_s", "batched_s",
                           "step_s", "peak_gib", "seq_peak_gib", "gap",

@@ -1,13 +1,15 @@
 """Model configuration: ``repro/configs/base.py`` for the families the
 port runs.
 
-The port runs decoder LLMs whose layers mix ``"attn"`` (grouped-query)
-or ``"mla"`` (multi-head latent attention, ``MLAConfig``) with an
-``"mlp"`` or ``"moe"`` (mixture of experts, ``MoEConfig``) feed-forward
+The port runs decoder LLMs whose layers mix ``"attn"`` (grouped-query),
+``"mla"`` (multi-head latent attention, ``MLAConfig``), ``"mamba"`` (the
+selective state-space mixer, ``MambaConfig``) or ``"mlstm"`` /
+``"slstm"`` (the xLSTM mixers, ``XLSTMConfig``) with an ``"mlp"``,
+``"moe"`` (mixture of experts, ``MoEConfig``) or ``"none"`` feed-forward
 block, so ``ModelConfig`` keeps the fields those use, and ``reduced``
-derives the ``-smoke`` variant of a config as the JAX package does; the
-state-space, xLSTM and encoder-decoder fields come with the ROADMAP
-items that port those families.  ``LoRAConfig.quantize_base``
+derives the ``-smoke`` variant of a config as the JAX package does (it
+leaves ``mamba`` and ``xlstm`` as they are); the encoder-decoder and
+frontend fields come with the ROADMAP item that ports those families.  ``LoRAConfig.quantize_base``
 selects QLoRA: ``models.model.init_params`` then stores every adapted
 base weight as packed int4 plus scales (``peft.lora.quantize``).  LoRA
 dropout is left out: the JAX package never applies it.
@@ -44,6 +46,21 @@ class MLAConfig:
 
 
 @dataclass(frozen=True)
+class MambaConfig:
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: Optional[int] = None  # default ceil(d_model/16)
+
+
+@dataclass(frozen=True)
+class XLSTMConfig:
+    expand: int = 2                # mLSTM inner expansion
+    slstm_ffn_factor: float = 4 / 3
+    conv_width: int = 4
+
+
+@dataclass(frozen=True)
 class LoRAConfig:
     rank: int = 16
     alpha: float = 32.0
@@ -55,7 +72,7 @@ class LoRAConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str                 # dense|moe
+    arch_type: str                 # dense|moe|ssm|hybrid
     source: str
     n_layers: int
     d_model: int
@@ -70,6 +87,8 @@ class ModelConfig:
     # sub-configs
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
+    mamba: Optional[MambaConfig] = None
+    xlstm: Optional[XLSTMConfig] = None
     lora: LoRAConfig = field(default_factory=LoRAConfig)
     dtype: str = "bfloat16"
     norm_eps: float = 1e-5

@@ -4,11 +4,12 @@ The port of ``repro/configs/registry.py`` for the families the port
 runs: the assigned dense configs (``stablelm-3b``, ``starcoder2-7b``,
 ``llama3-405b``), the mixture-of-experts ones (``kimi-k2-1t-a32b``,
 ``llama4-maverick-400b-a17b``), the latent-attention ``minicpm3-4b``,
-the paper's LLMs, and the ``-smoke`` form of each (``base.reduced``).
-The other assigned architectures need mixers or frontends the port does
-not have yet (Mamba, xLSTM, encoder-decoder and vision frontends), and
-raise ``NotImplementedError`` naming what they wait on; an unknown name
-raises ``KeyError``, as in the JAX package.
+the Mamba hybrid ``jamba-1.5-large-398b``, the recurrent
+``xlstm-125m``, the paper's LLMs, and the ``-smoke`` form of each
+(``base.reduced``).  The other assigned architectures need the
+encoder-decoder or the vision frontend, which the port does not have
+yet, and raise ``NotImplementedError`` naming what they wait on; an
+unknown name raises ``KeyError``, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -26,6 +27,8 @@ _ASSIGNED = {
         "repro_torch.configs.llama4_maverick_400b_a17b",
     "minicpm3-4b": "repro_torch.configs.minicpm3_4b",
     "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
+    "jamba-1.5-large-398b": "repro_torch.configs.jamba_1_5_large_398b",
+    "xlstm-125m": "repro_torch.configs.xlstm_125m",
 }
 
 # assigned architectures of the model families still to port, and what
@@ -33,8 +36,6 @@ _ASSIGNED = {
 OTHER_FAMILIES = {
     "qwen2-vl-72b": "the vision frontend and mrope_sections",
     "whisper-large-v3": "the encoder-decoder and the audio frontend",
-    "xlstm-125m": "the xLSTM mixers (mlstm, slstm)",
-    "jamba-1.5-large-398b": "the Mamba mixer",
 }
 
 _PAPER = {

@@ -13,14 +13,19 @@ JAX.
     per layer, layer ``g·P + p`` for group ``g`` and position ``p``.  A
     MoE layer's expert stacks stay 3-D ``(E, …)`` and its router
     float32; an MLA layer's latent projections and norms carry across
-    by name.
+    by name; the float32 leaves of a recurrent layer (Mamba's ``dt_b``,
+    ``A_log``, ``D``; the mLSTM's ``w_if``, ``b_if``; the sLSTM's
+    ``r_gates``, ``b_gates``) stay float32 under a bfloat16 base.
   - ``adapters_from_jax`` does the same for LoRA adapters, one client's
-    (``(n_groups, …)`` leaves) or client-stacked (``(C, n_groups, …)``).
+    (``(n_groups, …)`` leaves) or client-stacked (``(C, n_groups, …)``);
+    a pattern position with no adapter target (an sLSTM layer) gives
+    ``{}`` a layer.
   - ``adamw_from_jax`` maps an ``AdamWState`` (step, mu, nu) alike.
-  - ``cache_from_jax`` maps a decode cache: JAX's tuple of one pair a
-    pattern position (GQA's ``(k, v)``, each ``(n_groups, B, S, KH,
-    D)``; MLA's compressed ``(c_kv, k_rope)``), becomes the port's list
-    of one pair a layer.
+  - ``cache_from_jax`` maps a decode or prefill cache: JAX's tuple of
+    one tuple a pattern position (GQA's ``(k, v)``, each ``(n_groups, B,
+    S, KH, D)``; MLA's compressed ``(c_kv, k_rope)``; the recurrent
+    states, Mamba's 2, the mLSTM's 3 (prefill) or 4 (decode), the
+    sLSTM's 4) becomes the port's list of one tuple a layer.
 
 A bfloat16 array (numpy's ``ml_dtypes`` bfloat16) is carried bit for
 bit.

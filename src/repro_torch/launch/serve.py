@@ -5,14 +5,18 @@ printed lines, plus ``--device`` (default: the card; ``--device cpu``
 runs the plain path on the CPU).  It loads the ``-smoke`` form of
 ``--arch`` (any config of ``configs.registry``: the dense ones,
 ``kimi-k2-1t-a32b`` and ``llama4-maverick-400b-a17b`` with their
-mixture of experts, ``minicpm3-4b`` with latent attention), draws the
-base and
-adapters from ``PRNGKey(0)`` in the config's dtype, fills the KV cache by
-running the prompt through the serve step one token at a time, then
-decodes ``--steps`` tokens per request, sampled at ``--temperature``.
+mixture of experts, ``minicpm3-4b`` with latent attention,
+``jamba-1.5-large-398b`` with its Mamba layers, ``xlstm-125m`` with its
+mLSTM and sLSTM layers), draws the base and adapters from
+``PRNGKey(0)`` in the config's dtype, fills the cache (the attention
+layers' k and v, the recurrent layers' states) by running the prompt
+through the serve step one token at a time, then decodes ``--steps``
+tokens per request, sampled at ``--temperature``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b \\
       --batch 4 --steps 16 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch jamba-1.5-large-398b --device cpu
 """
 from __future__ import annotations
 

@@ -2,32 +2,35 @@
 prefill and the one-token serve step.
 
 The port of ``repro/models/model.py`` for the families the port runs
-(GQA or MLA mixers, MLP or MoE blocks, any layer period):
-``init_params``, ``init_adapters``, ``forward`` (no remat, no frontend;
-``collect_cache`` as JAX's ``FwdOptions``; the MoE balance loss summed
-over layers), ``chunked_ce``, ``make_train_step`` (one microbatch; a
-MoE config's loss adds ``moe.balance_loss_weight`` × the balance, as
-JAX's does), ``logits_last``, ``make_prefill_step``, ``init_cache`` and
-``make_serve_step``.
+(every mixer of ``layers.MIXERS``: GQA, MLA, Mamba, mLSTM, sLSTM; MLP,
+MoE or no feed-forward block; any layer period): ``init_params``,
+``init_adapters``, ``forward`` (no remat, no frontend;
+``collect_cache`` and ``mlstm_chunkwise`` as JAX's ``FwdOptions``; the
+MoE balance loss summed over layers), ``chunked_ce``, ``make_train_step``
+(one microbatch; a MoE config's loss adds ``moe.balance_loss_weight`` ×
+the balance, as JAX's does), ``logits_last``, ``make_prefill_step``,
+``init_cache`` and ``make_serve_step``.
 
 Layouts.  The base is ``{"embed", "final_norm", "lm_head" (untied
 only), "layers": [layer dict, ...]}``: the JAX package's group-stacked
 ``params["groups"]`` unrolled into one dict per layer
 (``convert.params_from_jax``).  Adapters are ``[layer dict, ...]`` of
-``{name}_lora_a`` / ``{name}_lora_b``; in the batched engine every leaf
+``{name}_lora_a`` / ``{name}_lora_b`` (``{}`` for a layer with no
+target, such as an sLSTM one); in the batched engine every leaf
 carries a leading client axis ``(C, …)``, while the base is shared and
 never stacked.  A QLoRA base (``cfg.lora.quantize_base``) holds
-``{name}__q``/``{name}__s`` in place of each adapted weight.
+``{name}__q``/``{name}__s`` in place of each adapted 2-D weight.
 Activations are ``(C, B, S, d)``.
 
 Serving runs one adapter set: ``make_prefill_step`` and
 ``make_serve_step`` take one client's adapters (``init_adapters``' list,
 unstacked) and ``(B, S)`` tokens, as the JAX package's steps do, and
 run them on the client axis as ``C = 1``.  The decode cache is a list of
-one pair a layer: ``(k, v)``, each ``(B, S, KH, D)``, for GQA, ``(c_kv,
-k_rope)`` for MLA (``layers.cache_struct``): JAX's group-stacked tuple
-unrolled (``convert.cache_from_jax``).  The serve step writes it in
-place and returns it.
+one tuple a layer (``layers.cache_struct``): GQA's ``(k, v)``, each
+``(B, S, KH, D)``, MLA's ``(c_kv, k_rope)``, or a recurrent mixer's
+state (Mamba's 2, the mLSTM's 4, the sLSTM's 4 tensors): JAX's
+group-stacked tuple unrolled (``convert.cache_from_jax``).  The serve
+step writes it in place, recurrent states included, and returns it.
 """
 from __future__ import annotations
 
@@ -103,11 +106,14 @@ def stack_clients(trees: List):
 # forward
 # ---------------------------------------------------------------------------
 def forward(cfg, params: Dict, adapters: List, tokens: torch.Tensor, *,
-            collect_cache: bool = False, with_balance: bool = False):
+            collect_cache: bool = False, with_balance: bool = False,
+            mlstm_chunkwise: bool = False):
     """tokens ``(C, B, S)`` → post-norm hidden ``(C, B, S, d)``; with
-    ``collect_cache``, ``(hidden, caches)``, one pair a layer (GQA's
-    ``(k, v)``, each ``(C·B, S, KH, D)``, MLA's ``(c_kv, k_rope)``) in
-    the activation dtype.  With ``with_balance`` the MoE balance loss
+    ``collect_cache``, ``(hidden, caches)``, one tuple a layer (GQA's
+    ``(k, v)``, each ``(C·B, S, KH, D)``, MLA's ``(c_kv, k_rope)``, in
+    the activation dtype; a recurrent mixer's last state,
+    ``layers.apply_layer_train``).  ``mlstm_chunkwise`` runs the mLSTM
+    layers in their chunkwise form.  With ``with_balance`` the MoE balance loss
     ``(C,)`` float32 (zeros without MoE) comes second, as JAX's
     ``forward`` returns it: ``(hidden, balance[, caches])``.  JAX sums it
     within each layer group, then over the groups; so does this."""
@@ -120,8 +126,9 @@ def forward(cfg, params: Dict, adapters: List, tokens: torch.Tensor, *,
         if i % P == 0:
             groups.append(torch.zeros(tokens.shape[0], dtype=torch.float32,
                                       device=tokens.device))
-        x, cache, bal = L.apply_layer_train(cfg, {**base, **adp}, x,
-                                            positions, mixer, ffn)
+        x, cache, bal = L.apply_layer_train(
+            cfg, {**base, **adp}, x, positions, mixer, ffn,
+            mlstm_chunkwise=mlstm_chunkwise)
         if bal is not None:
             groups[-1] = groups[-1] + bal
         if collect_cache:
@@ -221,43 +228,53 @@ def _one_client(adapters: List) -> List:
     return tree_map(lambda t: t[None], adapters)
 
 
-def make_prefill_step(cfg):
+def make_prefill_step(cfg, *, mlstm_chunkwise: bool = False):
     """``(params, adapters, batch) → (logits (B, V), caches)``: the
     prompt ``batch["tokens"]`` ``(B, S)`` through the full-sequence
-    forward (GQA windowed by ``cfg.sliding_window``), its last position's
-    float32 logits, and each layer's cache pair (GQA's ``(k, v)`` ``(B,
-    S, KH, D)``, MLA's ``(c_kv, k_rope)``) in the activation dtype."""
+    forward (GQA windowed by ``cfg.sliding_window``; the mLSTM layers in
+    their chunkwise form with ``mlstm_chunkwise``), its last position's
+    float32 logits, and each layer's cache (GQA's ``(k, v)`` ``(B, S, KH,
+    D)``, MLA's ``(c_kv, k_rope)``, in the activation dtype; a recurrent
+    mixer's last state, as the JAX package's prefill returns it: the
+    mLSTM's ``(C, n, m)`` has no convolution state, so it cannot seed
+    the serve step)."""
     def prefill(params, adapters, batch):
         with torch.no_grad():
             hidden, caches = forward(cfg, params, _one_client(adapters),
                                      batch["tokens"][None],
-                                     collect_cache=True)
+                                     collect_cache=True,
+                                     mlstm_chunkwise=mlstm_chunkwise)
             return logits_last(cfg, params, hidden)[0], caches
     return prefill
 
 
 def init_cache(cfg, batch: int, seq: int, *, window: int = 0,
                dtype=torch.bfloat16, device=None) -> List:
-    """Zero decode caches, one pair a layer (``layers.cache_struct``), of
-    ``s = min(seq, window)`` slots when ``window`` is set (a rolling GQA
-    cache when the window fits in ``seq``; MLA's clamps its writes at the
-    last slot, as JAX's does), else ``seq``.  The window applies to the
-    attention mixers, which are all the port's.  ``device=None`` is the
+    """Zero decode caches, one tuple a layer (``layers.cache_struct``).
+    An attention mixer's holds ``s = min(seq, window)`` slots when
+    ``window`` is set (a rolling GQA cache when the window fits in
+    ``seq``; MLA's clamps its writes at the last slot, as JAX's does),
+    else ``seq``; a recurrent mixer's state has no sequence axis.
+    ``dtype`` is that of the sequence caches and the convolution states
+    (the other recurrent states are float32).  ``device=None`` is the
     card."""
     device = resolve_device(device)
     P = len(cfg.pattern)
-    s = min(seq, window) if window else seq
-    return [L.cache_struct(cfg, cfg.pattern[i % P][0], batch, s, dtype,
-                           device) for i in range(cfg.n_layers)]
+    out = []
+    for i in range(cfg.n_layers):
+        mixer = cfg.pattern[i % P][0]
+        s = min(seq, window) if window and mixer in ("attn", "mla") else seq
+        out.append(L.cache_struct(cfg, mixer, batch, s, dtype, device))
+    return out
 
 
 def make_serve_step(cfg, *, window: int = 0):
     """One-token decode: ``(params, adapters, cache, token (B, 1), pos)
     → (logits (B, V), cache)``.  ``pos`` is the token's position, an int
     or a 0-dim int tensor on the device; ``window`` masks attention to
-    the last ``window`` positions (0: the whole cache).  As in the JAX
-    package, the window is this argument's and ``cfg.sliding_window`` is
-    not read."""
+    the last ``window`` positions (0: the whole cache) in the attention
+    layers; the recurrent layers take none.  As in the JAX package, the
+    window is this argument's and ``cfg.sliding_window`` is not read."""
     P = len(cfg.pattern)
 
     def serve(params, adapters, cache, token, pos):
@@ -267,9 +284,9 @@ def make_serve_step(cfg, *, window: int = 0):
             for i, (base, adp) in enumerate(zip(params["layers"],
                                                 _one_client(adapters))):
                 mixer, ffn = cfg.pattern[i % P]
+                w = window if mixer in ("attn", "mla") else 0
                 x, c = L.apply_layer_decode(cfg, {**base, **adp}, x, pos,
-                                            cache[i], mixer, ffn,
-                                            window=window)
+                                            cache[i], mixer, ffn, window=w)
                 new_cache.append(c)
             x = rms_norm(x, params["final_norm"], cfg.norm_eps)
             return logits_last(cfg, params, x)[0], new_cache

@@ -184,15 +184,26 @@ def test_adamw_state_carried_across(setup):
 
 
 def test_unported_mixers_raise():
-    """The Mamba and xLSTM mixers are still to port: each raises naming
-    its ROADMAP item, in init and in the cache's shapes."""
+    """Every mixer and feed-forward block of the JAX package is ported
+    (``layers.MIXERS``, ``layers.FFNS`` are JAX's); a name outside them
+    raises ``ValueError``, as in the JAX package, in init, in the cache's
+    shapes and in both applications."""
+    from repro.models import layers as jlayers
     from repro_torch.models import layers
+    assert layers.MIXERS == jlayers.MIXERS and layers.FFNS == jlayers.FFNS
     cfg = tpm.TINY_LLM
-    for mixer, item in (("mamba", "Mamba"), ("mlstm", "xLSTM"),
-                        ("slstm", "xLSTM")):
-        with pytest.raises(NotImplementedError,
-                           match=f"other model families.*{item}"):
-            layers.init_layer_params(np.zeros(2, np.uint32), cfg, mixer,
-                                     "mlp", torch.float32)
-        with pytest.raises(NotImplementedError, match=item):
-            layers.cache_struct(cfg, mixer, 1, 4)
+    key = np.zeros(2, np.uint32)
+    for mixer, ffn in (("retnet", "mlp"), ("attn", "glu")):
+        with pytest.raises(ValueError):
+            layers.init_layer_params(key, cfg, mixer, ffn, torch.float32)
+    with pytest.raises(ValueError):
+        layers.cache_struct(cfg, "retnet", 1, 4)
+    p = layers.init_layer_params(key, cfg, "attn", "mlp", torch.float32)
+    x = torch.zeros((1, 1, 2, cfg.d_model))
+    with pytest.raises(ValueError):
+        layers.apply_layer_train(cfg, p, x, torch.arange(2), "retnet",
+                                 "mlp")
+    with pytest.raises(ValueError):
+        layers.apply_layer_decode(cfg, p, x[:, :, :1], 0,
+                                  layers.cache_struct(cfg, "attn", 1, 4),
+                                  "attn", "glu")

@@ -1,7 +1,8 @@
 """The port's config registry against the JAX package's: ``get`` and
 ``reduced`` field by field for every ported name (the dense family, the
 mixture-of-experts kimi-k2 and llama4-maverick, the latent-attention
-minicpm3) and its ``-smoke`` form; every other assigned architecture
+minicpm3, the Mamba hybrid jamba-1.5-large-398b and the recurrent
+xlstm-125m) and its ``-smoke`` form; every other assigned architecture
 raises ``NotImplementedError`` naming its ROADMAP item and what it
 waits on."""
 import dataclasses
@@ -16,13 +17,14 @@ from repro_torch.configs import registry as treg
 DENSE = ["stablelm-3b", "starcoder2-7b", "llama3-405b", "llama3.2-1b",
          "gpt2", "deepseek-llm-7b-base", "tiny-llm"]
 FAMILIES = ["kimi-k2-1t-a32b", "llama4-maverick-400b-a17b", "minicpm3-4b"]
-PORTED = DENSE + FAMILIES
+RECURRENT = ["jamba-1.5-large-398b", "xlstm-125m"]
+PORTED = DENSE + FAMILIES + RECURRENT
 # JAX fields of the families still to port, which the port's config
 # leaves out
-LEFT_OUT = ("mrope_sections", "mamba", "xlstm", "encoder_decoder",
-            "n_encoder_layers", "n_frontend_tokens", "frontend")
+LEFT_OUT = ("mrope_sections", "encoder_decoder", "n_encoder_layers",
+            "n_frontend_tokens", "frontend")
 # sub-configs, compared field by field (the two packages' classes differ)
-NESTED = ("lora", "moe", "mla")
+NESTED = ("lora", "moe", "mla", "mamba", "xlstm")
 
 
 def _same(got, want):
@@ -57,11 +59,13 @@ def test_reduced_equals_jax(name, kw):
 
 
 def test_the_dense_names_are_the_jax_dense_names():
-    """Every JAX name whose layers are GQA or MLA with an MLP or MoE block
-    (no frontend, no encoder) is ported, and no other: the dense names
-    and, since the MoE and MLA families were ported, theirs."""
+    """Every JAX name whose layers are GQA, MLA, Mamba or xLSTM with an
+    MLP, MoE or no block (no frontend, no encoder) is ported, and no
+    other: the dense names and, since each family was ported, the MoE,
+    MLA, Mamba and xLSTM ones."""
     ported = [n for n in jreg.all_names()
-              if all(m in ("attn", "mla") and f in ("mlp", "moe")
+              if all(m in ("attn", "mla", "mamba", "mlstm", "slstm")
+                     and f in ("mlp", "moe", "none")
                      for m, f in jreg.get(n).pattern)
               and not jreg.get(n).encoder_decoder
               and not jreg.get(n).frontend]
@@ -79,6 +83,25 @@ def test_other_families_raise(name, suffix):
     with pytest.raises(NotImplementedError,
                        match=treg.OTHER_FAMILIES[name].split(" (")[0]):
         treg.get(name + suffix)
+
+
+@pytest.mark.parametrize("suffix", ["", "-smoke"])
+@pytest.mark.parametrize("name", RECURRENT)
+def test_recurrent_families_resolve(name, suffix):
+    """jamba-1.5-large-398b and xlstm-125m, once among the names that
+    raised, resolve with their sub-configs: Mamba's at d_state 16, d_conv
+    4, expand 2 (dt_rank ceil(d_model/16)), the xLSTM's at expand 2,
+    conv width 4; ``-smoke`` leaves both as they are."""
+    assert name not in treg.OTHER_FAMILIES and name in treg.ported_names()
+    cfg = treg.get(name + suffix)
+    assert cfg.name == name + suffix
+    if name.startswith("jamba"):
+        assert cfg.mamba == tbase.MambaConfig(16, 4, 2, None)
+        assert cfg.xlstm is None and cfg.moe.n_experts == (
+            4 if suffix else 16)
+    else:
+        assert cfg.xlstm == tbase.XLSTMConfig(2, 4 / 3, 4)
+        assert cfg.mamba is None and cfg.d_ff == 0
 
 
 def test_unknown_names_raise_key_error():

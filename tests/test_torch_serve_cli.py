@@ -4,9 +4,14 @@ same weights the same sampled tokens; ``--device`` defaults to the card
 and never falls back to the CPU.  For the mixture-of-experts archs the
 sampled tokens are compared up to the first serve step at which request
 0 routed a token within ``FLIP_MARGIN`` of a tie (a bfloat16 routing
-flip, ``tests/torch_families.py``), which is reported: in these configs
-the MoE block is the stack's last, so a step's routing moves that
-step's logits alone."""
+flip, ``tests/torch_families.py``), which is reported: in kimi-k2 and
+maverick the MoE block is the stack's last, so a step's routing moves
+that step's logits alone.  In jamba-1.5-large-398b four MoE layers feed
+later recurrent states, so a step near a tie moves every later token:
+its tokens are compared up to the first step from the prompt's start at
+which any of them routed request 0 near a tie (possibly none), and the
+number of equal leading tokens is reported.  xlstm-125m has no MoE
+layer: all its tokens are compared."""
 import os
 import re
 import runpy
@@ -57,9 +62,20 @@ def _comparable(calls, argv) -> int:
     cfg = get(argv[argv.index("--arch") + 1] + "-smoke")
     P = int(argv[argv.index("--prompt-len") + 1]) if "--prompt-len" in \
         argv else 32
-    assert cfg.pattern[-1][1] == "moe" and cfg.n_groups == 1 and sum(
-        f == "moe" for _, f in cfg.pattern) == 1
-    steps = [float(token_margins(r, cfg.moe.top_k)[0]) for r in calls]
+    n_moe = sum(f == "moe" for _, f in cfg.pattern) * cfg.n_groups
+    margins = [float(token_margins(r, cfg.moe.top_k)[0]) for r in calls]
+    steps = [min(margins[i:i + n_moe])
+             for i in range(0, len(margins), n_moe)]
+    if n_moe > 1:
+        for p, m in enumerate(steps):
+            if m < FLIP_MARGIN:
+                n = max(p - (P - 1), 0)
+                print(f"{cfg.name}: request 0 routed within {m:.3g} of a "
+                      f"tie at serve step {p} ({P} of them the prompt's); "
+                      f"its tokens from {n} on are not compared")
+                return n
+        return 12
+    assert cfg.pattern[-1][1] == "moe" and cfg.n_groups == 1
     for n, m in enumerate(steps[P - 1:]):      # n - 1: the decode step
         if m < FLIP_MARGIN:
             print(f"{cfg.name}: request 0 routed within {m:.3g} of a tie "
@@ -69,7 +85,8 @@ def _comparable(calls, argv) -> int:
     return 12
 
 
-FAMILIES = ["kimi-k2-1t-a32b", "llama4-maverick-400b-a17b", "minicpm3-4b"]
+FAMILIES = ["kimi-k2-1t-a32b", "llama4-maverick-400b-a17b", "minicpm3-4b",
+            "jamba-1.5-large-398b", "xlstm-125m"]
 
 
 @pytest.mark.parametrize("argv", [[], ["--arch", "starcoder2-7b",
@@ -88,7 +105,14 @@ def test_prints_the_examples_lines(argv, capsys):
     ids = [re.findall(r"\d+", line) for line in (got[3], want[3])]
     assert got[3].startswith("sample token ids: [")
     assert len(ids[0]) == len(ids[1]) and ids[0][:n] == ids[1][:n]
-    assert n >= 3
+    lead = next((i for i, (a, b) in enumerate(zip(*ids)) if a != b),
+                len(ids[0]))
+    print(f"{argv}: {lead} leading tokens equal to the example's, "
+          f"{n} held")
+    if sum(f == "moe" for _, f in get(
+            (argv[argv.index("--arch") + 1] if argv else "stablelm-3b")
+            + "-smoke").pattern) <= 1:
+        assert n >= 3
     for line, pattern in zip(got[1:3], TIMED):
         assert pattern.fullmatch(line), line
     B = int(argv[argv.index("--batch") + 1]) if "--batch" in argv else 4

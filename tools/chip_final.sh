@@ -53,7 +53,7 @@ step pytest env PYTHONPATH=src python3 -m pytest -q -m cuda \
     tests/test_torch_cuda_qlora.py tests/test_torch_cuda_sequential.py \
     tests/test_torch_cuda_shots.py tests/test_torch_cuda_fused.py \
     tests/test_torch_cuda_sharding.py tests/test_torch_cuda_decode.py \
-    tests/test_torch_cuda_families.py
+    tests/test_torch_cuda_families.py tests/test_torch_cuda_recurrent.py
 step profile python3 chip_smoke.py --profile
 step variants python3 tools/attn_variants.py
 step pairs probe
