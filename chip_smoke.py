@@ -15,6 +15,10 @@
                                        # stablelm-3b's prefill
     python3 chip_smoke.py --recurrent  # phases 15 and 16 only: jamba
                                        # and xlstm-125m served
+    python3 chip_smoke.py --frontends  # phases 17 and 18 only: whisper
+                                       # and qwen2-vl served, and
+                                       # flash_attention_bwd timed at
+                                       # the other families' head dims
 
 Run from the root of a checkout, on a machine with a CUDA card and
 ``nvcc``.  It imports nothing of JAX and nothing of the JAX package
@@ -147,8 +151,9 @@ failure, and the script then exits non-zero with no result line.
    recount from the read-back router logits, the MoE block's update
    against a float32 per-token reference (``MOE_REF_TOL``), prefill
    against the decode path for the rows that lost no choice to the
-   capacity.  Phase 14: ``minicpm3-4b`` at its published widths and all
-   62 layers, served alike; its first 2 layers on the card against the
+   capacity.  Phase 14: ``minicpm3-4b`` at its published widths, its
+   depth cut to ``MINICPM_SMOKE_LAYERS`` (all 62 with ``--families``),
+   served alike; its first 2 layers on the card against the
    CPU port on the same weights (bf16, and float32 with a float32 decode
    cache), the CPU half in a process of its own beside the card's work;
    the whole model in float32 prefill against the absorbed-matrix decode
@@ -174,7 +179,30 @@ failure, and the script then exits non-zero with no result line.
    launches and aten ops; ``lora_matmul`` at jamba's and the mLSTM's
    projections and ``flash_attention`` at head dim 128, timed against
    cuBLAS and SDPA.
-14. Prints the phases' wall times, the card line, one
+14. The encoder-decoder and the vision frontend (printed as phases 17
+   and 18; both models drawn while phase 14 waits for its CPU half, and
+   run after phase 14, before phases 15-16, whose draws and CPU halves
+   start first; ``stamp`` prints each phase's start in seconds from the
+   run's start): ``whisper-large-v3``
+   at its published widths and all 32 encoder and 32 decoder layers, and
+   ``qwen2-vl-72b`` at its published widths with its depth cut from 80
+   layers to 1 (3.44 B values), each served behind its stub frontend's
+   seeded embeddings (1500 audio frames; 1024 vision patches prepended to
+   the prompt) as phase 12 serves: prefill and serve-step times beside
+   the byte bound of what a step reads (the decoder's weights, the LM
+   head, the self and cross caches), tokens/s, peak memory, launches
+   (whisper a prefill 320 ``lora_matmul`` and 96 ``flash_attention``:
+   encoder, causal self, cross; qwen2-vl 5 and 1; a serve step every
+   adapted projection and no attention); float32 prefill against
+   prefill over one token fewer and a serve step (1e-4); prefill and 2
+   serve steps at 32 tokens against the CPU port on host copies of the
+   card's weights in a process of its own (whisper's first 2 encoder and
+   decoder layers, qwen2-vl's one layer, one request each; bf16 logits
+   3e-2, caches 2e-2; float32 1e-4); ``lora_matmul`` at both models'
+   projections and ``flash_attention`` non-causal over the 1500 frames
+   (self, and cross with ``Sq != Sk``) and causal at head dim 128 over
+   1024 + P rows, timed against cuBLAS and SDPA.
+15. Prints the phases' wall times, the card line, one
    ``{"kernels": [...]}`` line (``launches_sequential``: the launches of
    phase 7's sequential LLM-QFL Step 1, and for ``statevector_tape`` of
    its batched SPSA QFL run; ``launches_aersim``, ``launches_gpt2``,
@@ -754,29 +782,35 @@ def wave_probe(gen):
     return rows
 
 
-def attn_pairs(S: int, causal: bool = True, window: int = 0) -> int:
-    """Attendable (query, key) pairs of one head: what the data needs."""
+def attn_pairs(S: int, causal: bool = True, window: int = 0,
+               Sk: int = None) -> int:
+    """Attendable (query, key) pairs of one head: what the data needs
+    (``Sk`` keys, ``S`` by default, for non-causal attention)."""
+    if not causal and not window:
+        return S * (Sk or S)
     q = [min(S, i + 1) if causal else S for i in range(S)]
     if window:
         q = [min(n, window) if causal else n for n in q]
     return sum(q)
 
 
-def attn_flops_bytes(B, S, H, KH, D, backward=False, elem=4, Dv=None):
-    """Operations and bytes of causal attention over ``S`` keys: the
-    forward reads q, k and v and writes o (of v's head dim ``Dv``) and
-    the row logsumexp."""
-    pairs = B * H * attn_pairs(S)
+def attn_flops_bytes(B, S, H, KH, D, backward=False, elem=4, Dv=None,
+                     Sk=None, causal=True):
+    """Operations and bytes of attention of ``S`` query rows over ``Sk``
+    keys (``S`` by default; causal unless stated): the forward reads q, k
+    and v and writes o (of v's head dim ``Dv``) and the row logsumexp;
+    the backward reads q, k, v, o, dO and the logsumexp and writes dq, dk
+    and dv."""
+    Dv, Sk = Dv or D, Sk or S
+    pairs = B * H * attn_pairs(S, causal, Sk=Sk)
     if not backward:     # S = QK^T (D) and PV (Dv), 2 flops a product
-        Dv = Dv or D
         return (2 * (D + Dv) * pairs,
-                elem * (B * S * (H * D + KH * D + KH * Dv + H * Dv))
+                elem * (B * S * H * (D + Dv) + B * Sk * KH * (D + Dv))
                 + 4 * B * H * S)
-    q = B * S * H * D
-    kv = 2 * B * S * KH * D
-    # S, dP, dV, dK, dQ: 10 D flops per pair; read q k v o dO lse, write
-    # dq dk dv
-    return 10 * D * pairs, elem * (4 * q + 2 * kv) + 4 * B * H * S
+    # S and dK, dQ (D); dP and dV (Dv): 2 flops a product
+    return ((6 * D + 4 * Dv) * pairs,
+            elem * (B * S * H * 2 * (D + Dv) + B * Sk * KH * 2 * (D + Dv))
+            + 4 * B * H * S)
 
 
 # tile edges of the 64-row / 64-key tiles: (B, S, H, KH, D, causal,
@@ -841,25 +875,26 @@ def attn_check(gen, name, B, S, H, KH, D, causal, window, dtype, Dv=None):
     return abs_err(got, want), max(abs_err(u, w) for u, w in zip(g, gw))
 
 
-def time_attn(q, k, v) -> dict:
-    """One causal flash_attention forward timed: the kernel, its plain
-    version and SDPA with grouped heads, in a host loop (``*ms``) and the
-    kernel and SDPA in a CUDA graph (``*graph_ms``).  SDPA takes a v
-    narrower than q as it is."""
+def time_attn(q, k, v, causal: bool = True, iters: int = 100) -> dict:
+    """One flash_attention forward timed (causal unless stated): the
+    kernel, its plain version and SDPA with grouped heads, in a host loop
+    (``*ms``, ``iters`` calls) and the kernel and SDPA in a CUDA graph
+    (``*graph_ms``).  SDPA takes a v narrower than q as it is."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa, ref
     scale = q.shape[-1] ** -0.5
     if v.shape[-1] == q.shape[-1]:
-        kern = lambda: fa._forward(q, k, v, True, 0, scale)  # noqa: E731
+        kern = lambda: fa._forward(q, k, v, causal, 0, scale)  # noqa: E731
     else:           # a narrower v: the wrapper's zero pad is in the call
-        kern = lambda: fa.flash_attention(q, k, v)  # noqa: E731
+        kern = lambda: fa.flash_attention(q, k, v,  # noqa: E731
+                                          causal=causal)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, is_causal=True, enable_gqa=True)
-    return dict(ms=cuda_ms(kern, iters=100), graph_ms=graph_ms(kern),
-                plain_ms=cuda_ms(lambda: ref.flash_attention(q, k, v),
-                                 iters=50),
-                library_ms=cuda_ms(sdpa, iters=100),
+        qt, kt, vt, is_causal=causal, enable_gqa=True)
+    return dict(ms=cuda_ms(kern, iters=iters), graph_ms=graph_ms(kern),
+                plain_ms=cuda_ms(lambda: ref.flash_attention(
+                    q, k, v, causal=causal), iters=max(iters // 2, 1)),
+                library_ms=cuda_ms(sdpa, iters=iters),
                 library_graph_ms=graph_ms(sdpa))
 
 
@@ -2740,17 +2775,19 @@ def serving_kernel_times(gen) -> dict:
         [(f"prefill-{S}", B, S, 32, 8, 64, 64) for S in SERVE_PROMPTS])
 
 
-def kernel_times(gen, lora_shapes, attn_shapes, lora_iters=(50, 20)
-                 ) -> dict:
+def kernel_times(gen, lora_shapes, attn_shapes, lora_iters=(50, 20),
+                 attn_iters: int = 100) -> dict:
     """``lora_matmul`` at ``(name, M, K, N, r)`` (one client) and
-    ``flash_attention`` forward at ``(name, B, S, H, KH, D, Dv)`` (causal),
-    in bfloat16 (``lora_iters``: ``time_lora``'s host-loop calls and the
-    calls a graph captures, fewer for shapes of tens of ms): each held to
-    its plain version (2e-2 of the largest
-    magnitude) and timed by ``time_lora`` / ``time_attn``, beside its
-    bound (bf16 tensor cores, 989 TFLOP/s, or bytes over 3.35 TB/s).  A
-    v narrower than q goes through the wrapper's zero pad, as the model
-    calls it; it is timed padded (the pad is part of the call)."""
+    ``flash_attention`` forward at ``(name, B, S, H, KH, D, Dv)`` (causal,
+    ``S`` keys) or ``(name, B, S, H, KH, D, Dv, Sk, causal)``, in
+    bfloat16 (``lora_iters``: ``time_lora``'s host-loop calls and the
+    calls a graph captures, fewer for shapes of tens of ms;
+    ``attn_iters``: ``time_attn``'s): each held to its plain version
+    (2e-2 of the largest magnitude) and timed by ``time_lora`` /
+    ``time_attn``, beside its bound (bf16 tensor cores, 989 TFLOP/s, or
+    bytes over 3.35 TB/s).  A v narrower than q goes through the
+    wrapper's zero pad, as the model calls it; it is timed padded (the
+    pad is part of the call)."""
     import torch
     from repro_torch.kernels import flash_attention as fa, lora_matmul as lm
     from repro_torch.kernels import ref
@@ -2776,29 +2813,34 @@ def kernel_times(gen, lora_shapes, attn_shapes, lora_iters=(50, 20)
             print(f"  lora_matmul {name} (M={M_} K={K} N={N} r={r} "
                   f"bf16): {times_text(t, 'cuBLAS')}, bound "
                   f"{bms * 1e3:.2f} us ({by}); rel err {err:.3g}")
-        for name, B, S, H, KH, D, Dv in attn_shapes:
+        for name, B, S, H, KH, D, Dv, *rest in attn_shapes:
+            Sk, causal = rest or (S, True)
             q = _randn(gen, (B, S, H, D), dtype=bf)
-            k = _randn(gen, (B, S, KH, D), dtype=bf)
-            v = _randn(gen, (B, S, KH, Dv), dtype=bf)
-            got = fa.flash_attention(q, k, v)
-            want = ref.flash_attention(q, k, v)
+            k = _randn(gen, (B, Sk, KH, D), dtype=bf)
+            v = _randn(gen, (B, Sk, KH, Dv), dtype=bf)
+            got = fa.flash_attention(q, k, v, causal=causal)
+            want = ref.flash_attention(q, k, v, causal=causal)
             err = rel_err(got, want, floor=0.0)
             check(err <= 2e-2, f"flash_attention {name}: {err}")
-            t = time_attn(q, k, v)
+            t = time_attn(q, k, v, causal, attn_iters)
             if Dv < D:      # the kernel alone on a v padded beforehand
                 vp = torch.nn.functional.pad(v, (0, D - Dv))
                 t["padded_kernel_graph_ms"] = graph_ms(
-                    lambda: fa._forward(q, k, vp, True, 0, D ** -0.5))
-            bms, by = bound_ms(*attn_flops_bytes(B, S, H, KH, D, elem=2,
-                                                 Dv=Dv), BF16_FLOPS_PER_S)
-            attn.append(dict(shape=name, B=B, S=S, H=H, KH=KH, D=D, Dv=Dv,
-                             dtype="bfloat16", max_abs_err=abs_err(got, want),
-                             **t, bound_ms=bms, bound_by=by))
+                    lambda: fa._forward(q, k, vp, causal, 0, D ** -0.5))
+            bms, by = bound_ms(*attn_flops_bytes(
+                B, S, H, KH, D, elem=2, Dv=Dv, Sk=Sk, causal=causal),
+                BF16_FLOPS_PER_S)
+            attn.append(dict(shape=name, B=B, S=S, Sk=Sk, causal=causal,
+                             H=H, KH=KH, D=D, Dv=Dv, dtype="bfloat16",
+                             max_abs_err=abs_err(got, want), **t,
+                             bound_ms=bms, bound_by=by))
             pad = (f"; the kernel alone on v padded beforehand (graph) "
                    f"{t['padded_kernel_graph_ms'] * 1e3:.2f} us"
                    if Dv < D else "")
-            print(f"  flash_attention {name} (B={B} S={S} H={H} KH={KH} "
-                  f"D={D} Dv={Dv} bf16): {times_text(t, 'SDPA')}, bound "
+            mask = "causal" if causal else "not causal"
+            print(f"  flash_attention {name} (B={B} S={S} Sk={Sk} H={H} "
+                  f"KH={KH} D={D} Dv={Dv} {mask} bf16): "
+                  f"{times_text(t, 'SDPA')}, bound "
                   f"{bms * 1e3:.2f} us ({by}); rel err {err:.3g}{pad}")
     return dict(lora_matmul=lora, flash_attention=attn)
 
@@ -2833,25 +2875,39 @@ def seeds_serve(cfg) -> bool:
 
 def decode_cache(cfg, caches, steps: int, device):
     """A decode cache of ``P + steps`` slots holding prefill's: an
-    attention layer's ``P`` rows of k and v (MLA's c_kv and k_rope), a
-    recurrent layer's state as it is, in their dtypes (the
-    activations'; Mamba's ``h`` float32)."""
+    attention layer's ``P`` rows of k and v (MLA's c_kv and k_rope; ``P``
+    counts a vision model's patch rows), a recurrent layer's state as it
+    is, in their dtypes (the activations'; Mamba's ``h`` float32); an
+    encoder-decoder's cross caches are prefill's ``(xk, xv)``."""
     from repro_torch.models import model as M
     mixers = mixers_of(cfg)
     check(seeds_serve(cfg), "an mLSTM prefill cache cannot seed the serve "
           "step")
-    seq = [c for mx, c in zip(mixers, caches) if mx in ("attn", "mla")]
-    B = caches[0][0].shape[0]
+    own = [c[0] for c in caches] if cfg.encoder_decoder else caches
+    seq = [c for mx, c in zip(mixers, own) if mx in ("attn", "mla")]
+    B = own[0][0].shape[0]
     P = seq[0][0].shape[1] if seq else 0
-    dtype = seq[0][0].dtype if seq else caches[0][-1].dtype
+    dtype = seq[0][0].dtype if seq else own[0][-1].dtype
     cache = M.init_cache(cfg, B, P + steps, dtype=dtype, device=device)
-    for mx, got, dst in zip(mixers, caches, cache):
+    for mx, got, dst in zip(mixers, own,
+                            cache[0] if cfg.encoder_decoder else cache):
         for src, d in zip(got, dst):
             if mx in ("attn", "mla"):
                 d[:, :P] = src
             else:
                 d.copy_(src)
+    if cfg.encoder_decoder:
+        for got, dst in zip(caches, cache[1]):
+            for src, d in zip(got[1], dst):
+                d.copy_(src)
     return cache
+
+
+def patch_rows(cfg) -> int:
+    """The rows a vision model's prefill puts before the prompt: its
+    projected patches (none for any other model)."""
+    return 0 if cfg.encoder_decoder or not cfg.frontend \
+        else cfg.n_frontend_tokens
 
 
 def cache_errs(got, want) -> list:
@@ -3040,15 +3096,16 @@ def serving_compare(serving: dict) -> dict:
                 cpu_cache_gap=cpu_cache_gap)
 
 
-def serve_timed(cfg, model, prompts, steps: int, key, weight_bytes: int
-                ) -> dict:
-    """One warm ``make_prefill_step`` on ``prompts`` ``(B, P)`` timed, then
-    ``steps`` serve steps sampled at ``SERVE_TEMPERATURE`` timed, each
-    with its launches counted, from prefill's caches (an mLSTM model's
-    from the decode path's over the prompt: its prefill cache cannot seed
-    the serve step); the serve step's byte bound is the weights and the
-    cache read once, and the recurrent states written once, over 3.35
-    TB/s."""
+def serve_timed(cfg, model, prompts, steps: int, key, weight_bytes: int,
+                frontend=None) -> dict:
+    """One warm ``make_prefill_step`` on ``prompts`` ``(B, P)`` (behind
+    the stub ``frontend`` ``(B, F, d)`` when given) timed, then ``steps``
+    serve steps sampled at ``SERVE_TEMPERATURE`` timed, each with its
+    launches counted, from prefill's caches (an mLSTM model's from the
+    decode path's over the prompt: its prefill cache cannot seed the
+    serve step), at the positions after the cache's rows; the serve
+    step's byte bound is ``weight_bytes`` and the cache read once, and
+    the recurrent states written once, over 3.35 TB/s."""
     import torch
     from repro_torch import random as jr
     from repro_torch.models import model as M
@@ -3056,6 +3113,8 @@ def serve_timed(cfg, model, prompts, steps: int, key, weight_bytes: int
     prefill, serve = M.make_prefill_step(cfg), M.make_serve_step(cfg)
     B, P = prompts.shape
     batch = {"tokens": prompts}
+    if frontend is not None:
+        batch["frontend"] = frontend
     prefill(*model, batch)                                      # warm
     zero_counters()
     torch.cuda.synchronize()
@@ -3074,6 +3133,7 @@ def serve_timed(cfg, model, prompts, steps: int, key, weight_bytes: int
     state_bytes = sum(t.numel() * t.element_size()
                       for mx, c in zip(mixers_of(cfg), cache)
                       if mx not in ("attn", "mla") for t in c)
+    rows = patch_rows(cfg) + P
     tok = torch.argmax(logits, -1)[:, None]
     k = jr.fold_in(key, P)
     zero_counters()
@@ -3081,7 +3141,7 @@ def serve_timed(cfg, model, prompts, steps: int, key, weight_bytes: int
     t0 = time.perf_counter()
     for s in range(steps):
         k, sub = jr.split(k)
-        step_logits, cache = serve(*model, cache, tok, P + s)
+        step_logits, cache = serve(*model, cache, tok, rows + s)
         tok = jr.categorical(sub, step_logits / SERVE_TEMPERATURE)[:, None]
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
@@ -3101,6 +3161,11 @@ def serve_timed(cfg, model, prompts, steps: int, key, weight_bytes: int
 # phases 13 and 14: the mixture-of-experts and latent-attention families
 # ---------------------------------------------------------------------------
 KIMI, MINICPM, STABLELM = "kimi-k2-1t-a32b", "minicpm3-4b", "stablelm-3b"
+# phase 14's depth in the whole smoke run, cut from 62 layers to keep the
+# run inside its time limit once phases 17-18 came (about 0.8 s a layer:
+# its draw, serve steps and the float32 decode path); ``--families`` runs
+# all 62
+MINICPM_SMOKE_LAYERS = 8
 # phase 14's CPU half: minicpm3-4b's first layers at this depth, on the
 # card's weights
 FAMILY_CPU_DEPTH = 2
@@ -3163,22 +3228,32 @@ def draw_family(cfg) -> tuple:
     """The base of ``cfg`` as ``init_params`` draws it on the card (its
     config's bfloat16, each leaf a slice at a time) and its adapters with
     ``lora_b`` + 0.01: ((params, adapters), draw seconds, the draw's peak
-    GiB, the model's bytes)."""
+    GiB above what the card held before it, the model's bytes)."""
     import torch
     from repro_torch import random as jr
     from repro_torch.models import model as M
     from repro_torch.tree import tree_leaves
+    held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     key = jr.PRNGKey(0)
     t0 = time.perf_counter()
     params = M.init_params(cfg, key)
-    adapters = [{k: v + 0.01 if "lora_b" in k else v for k, v in a.items()}
-                for a in M.init_adapters(cfg, key, params)]
+    adapters = bump_lora_b(M.init_adapters(cfg, key, params))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     model = (params, adapters)
-    return (model, init_s, torch.cuda.max_memory_allocated() / 2 ** 30,
+    return (model, init_s,
+            (torch.cuda.max_memory_allocated() - held) / 2 ** 30,
             sum(t.numel() * t.element_size() for t in tree_leaves(model)))
+
+
+def bump_lora_b(adapters):
+    """An adapter set (a list of layer dicts, or an encoder-decoder's
+    ``{"layers", "enc_layers"}``) with every ``lora_b`` + 0.01."""
+    if isinstance(adapters, dict):
+        return {k: bump_lora_b(v) for k, v in adapters.items()}
+    return [{k: v + 0.01 if "lora_b" in k else v for k, v in a.items()}
+            for a in adapters]
 
 
 @contextlib.contextmanager
@@ -3563,10 +3638,11 @@ def family_half(cfg, model, prompts, fed, threads: int = 0,
     return out
 
 
-def minicpm_phase(gen) -> dict:
+def minicpm_phase(gen, n_layers: int = None, idle=None) -> dict:
     """Phase 14: ``minicpm3-4b`` at its published widths (d_model 2560,
     40 heads, MLA q rank 768, kv rank 256, nope 64, rope 32, v 64, d_ff
-    6400, vocab 73448) and all 62 layers, the bfloat16 base as
+    6400, vocab 73448) and all 62 layers, or the first ``n_layers`` (the
+    smoke run's ``MINICPM_SMOKE_LAYERS``), the bfloat16 base as
     ``init_params`` draws it; 4 requests, prompts of 32 and 512 tokens,
     16 serve steps, timed.  Checks: the launches; prefill and 2 serve
     steps (fed the prompt's next tokens) of the first ``FAMILY_CPU_DEPTH``
@@ -3579,7 +3655,9 @@ def minicpm_phase(gen) -> dict:
     weight alone), prefill against the decode path within
     ``SERVE_F32_TOL``; ``flash_attention`` at (96, 64) and
     ``lora_matmul`` at MLA's five projections against their plain
-    versions.  The card's model is freed at the end."""
+    versions.  ``idle``, when given, is called once the card's work is
+    done and before the CPU half is collected (later phases' draws fill
+    the wait).  The card's model is freed at the end."""
     import dataclasses
     import torch
     from repro_torch import random as jr
@@ -3587,13 +3665,15 @@ def minicpm_phase(gen) -> dict:
     from repro_torch.models import model as M
     from repro_torch.tree import tree_map
     t_phase = time.perf_counter()
-    cfg = get(MINICPM)
+    full = get(MINICPM)
+    cfg = dataclasses.replace(full, n_layers=n_layers or full.n_layers)
     ml = cfg.mla
     print(f"phase 14: {MINICPM} at its published widths (d_model "
           f"{cfg.d_model}, {cfg.n_heads} heads, MLA q rank {ml.q_lora_rank},"
           f" kv rank {ml.kv_lora_rank}, nope {ml.qk_nope_head_dim}, rope "
           f"{ml.qk_rope_head_dim}, v {ml.v_head_dim}, d_ff {cfg.d_ff}, "
-          f"vocab {cfg.vocab_size}), all {cfg.n_layers} layers")
+          f"vocab {cfg.vocab_size}), {cfg.n_layers} of its {full.n_layers} "
+          "layers")
     model, init_s, draw_peak, weight_bytes = draw_family(cfg)
     B, steps, key = SERVE_B, SERVE_STEPS, jr.PRNGKey(0)
     prompts = torch.from_numpy(jr.randint(
@@ -3649,6 +3729,11 @@ def minicpm_phase(gen) -> dict:
     f32_gap = rel_err(f32_dec, f32_logits, floor=0.0)
     del f32, f32_dec
     card = family_half(shallow_cfg, shallow, prompts[:, :P], fed)
+    idle_s = 0.0
+    if idle is not None:
+        t0 = time.perf_counter()
+        idle()
+        idle_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     cpu = host_tree(job.result(), False)
     waited = time.perf_counter() - t0
@@ -3663,7 +3748,7 @@ def minicpm_phase(gen) -> dict:
             caches=max(cache_errs(g["caches"], w["caches"])
                        + cache_errs(g["step_caches"], w["step_caches"])),
             gap=g["gap"], cpu_gap=w["gap"], tol=tol, cache_tol=ctol)
-    wall = time.perf_counter() - t_phase
+    wall = time.perf_counter() - t_phase - idle_s
     e16, e32 = errs["bfloat16"], errs["float32"]
     print(f"phase 14: depth {FAMILY_CPU_DEPTH} on the card's weights, card "
           f"against the CPU port (a process of {CPU_JOB_THREADS} threads, "
@@ -3676,7 +3761,7 @@ def minicpm_phase(gen) -> dict:
           f"{e32['caches']:.3g} (tolerance {SERVE_F32_TOL}); prefill "
           f"against the decode path {e16['gap']:.3g} on the card, "
           f"{e16['cpu_gap']:.3g} on the CPU (bfloat16; it holds wkv_b's "
-          f"adapter, which decode does not read); all {cfg.n_layers} layers"
+          f"adapter, which decode does not read); the {cfg.n_layers} layers"
           f" in float32, wkv_b's adapter zeroed: prefill against the decode"
           f" path {f32_gap:.3g} of the largest (tolerance {SERVE_F32_TOL});"
           f" base draw {init_s:.2f} s ({weight_bytes / 1e9:.2f} GB, draw "
@@ -4086,7 +4171,25 @@ def check_recurrent_run(name, cfg, out: dict):
           "trajectory")
 
 
-def jamba_phase(gen) -> dict:
+def jamba_start() -> dict:
+    """Phase 15's config (``JAMBA_PATTERN``), draw and CPU half
+    (``recurrent_start``)."""
+    import dataclasses
+    from repro_torch.configs.registry import get
+    full = get(JAMBA)
+    cfg = dataclasses.replace(full, n_layers=len(JAMBA_PATTERN),
+                              pattern=JAMBA_PATTERN)
+    mc, d = cfg.mamba, cfg.d_model
+    print(f"phase 15: {JAMBA} at its published widths (d_model {d}, Mamba "
+          f"ed {mc.expand * d}, d_state {mc.d_state}, d_conv {mc.d_conv}, "
+          f"dt_rank {mc.dt_rank or -(-d // 16)}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab_size}); depth cut from {full.n_layers} layers "
+          f"to {cfg.n_layers}: {list(cfg.pattern)}")
+    return recurrent_start(f"phase 15 ({JAMBA})", cfg, cpu_decode=False)
+
+
+def jamba_phase(gen, started: dict = None) -> dict:
     """Phase 15: ``jamba-1.5-large-398b`` at its published widths (d_model
     8192, Mamba ed 16384, d_state 16, d_conv 4, dt_rank 512, 64/8 heads of
     128, d_ff 24576, vocab 65536, untied), its depth cut from 72 layers to
@@ -4098,25 +4201,19 @@ def jamba_phase(gen) -> dict:
     (``mamba_train``'s chunked scan) against the decode path at full
     width; ``lora_matmul`` at jamba's five adapted projections and
     ``flash_attention`` at D = 128, S = 512, against their plain
-    versions.  The card's model is freed at the end."""
-    import dataclasses
-    from repro_torch.configs.registry import get
+    versions.  ``started`` is ``jamba_start``'s when the draw ran
+    earlier (its time is then in the phase's numbers, not in its wall
+    time).  The card's model is freed at the end."""
     t_phase = time.perf_counter()
-    full = get(JAMBA)
-    cfg = dataclasses.replace(full, n_layers=len(JAMBA_PATTERN),
-                              pattern=JAMBA_PATTERN)
-    mc, d = cfg.mamba, cfg.d_model
-    H, KH, D, ff = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
-    print(f"phase 15: {JAMBA} at its published widths (d_model {d}, Mamba "
-          f"ed {mc.expand * d}, d_state {mc.d_state}, d_conv {mc.d_conv}, "
-          f"dt_rank {mc.dt_rank or -(-d // 16)}, {H}/{KH} heads of {D}, "
-          f"d_ff {ff}, vocab {cfg.vocab_size}); depth cut from "
-          f"{full.n_layers} layers to {cfg.n_layers}: {list(cfg.pattern)}")
+    started = started or jamba_start()
+    cfg = started["cfg"]
+    d, H, KH = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    D, ff = cfg.head_dim, cfg.d_ff
     B, S = SERVE_B, max(SERVE_PROMPTS)
     # tens of ms a call at M = 2048: fewer calls timed (10 in a loop, 4
     # captured in a graph replayed 5 times)
     model, _, out = recurrent_run(
-        recurrent_start(f"phase 15 ({JAMBA})", cfg, cpu_decode=False), gen,
+        started, gen,
         [(f"jamba-{n}-M{M_}", M_, K, N, cfg.lora.rank)
          for n, (K, N) in (("wq", (d, H * D)), ("wkv", (d, 2 * KH * D)),
                            ("wo", (H * D, d)), ("w_in", (d, 2 * ff)),
@@ -4238,6 +4335,490 @@ def xlstm_phase(gen, started: dict) -> dict:
               f"against sequential, {what}: {err} > {SERVE_F32_TOL}")
     del model, prompts
     return out
+
+
+# ---------------------------------------------------------------------------
+# phases 17 and 18: the encoder-decoder and the vision frontend
+# ---------------------------------------------------------------------------
+WHISPER, QWEN_VL = "whisper-large-v3", "qwen2-vl-72b"
+# phase 18's depth cut: qwen2-vl-72b's 80 layers to one, its whole period
+# (3.44 B values; each further layer is 0.88 B)
+QWEN_VL_LAYERS = 1
+# requests of the CPU halves (a prompt of min(SERVE_PROMPTS) tokens behind
+# every frame or patch): whisper's first FAMILY_CPU_DEPTH encoder and
+# decoder layers, qwen2-vl's one layer (1056 rows of 8192, the heaviest
+# CPU half of the smoke), one request each
+FRONTEND_CPU_B = {WHISPER: 1, QWEN_VL: 1}
+
+
+def frontend_cfg(name: str):
+    """The config a phase serves: the published one, qwen2-vl's depth cut
+    to ``QWEN_VL_LAYERS``."""
+    import dataclasses
+    from repro_torch.configs.registry import get
+    cfg = get(name)
+    if name == QWEN_VL:
+        cfg = dataclasses.replace(cfg, n_layers=QWEN_VL_LAYERS)
+    return cfg
+
+
+def frontend_launches(cfg) -> dict:
+    """Launches of one prefill and one serve step: every adapted
+    projection of the decoder, and in prefill of the encoder (the cross
+    projections and ``proj_frontend`` are no LoRA target, so plain
+    products); attention once a decoder layer in prefill, and for an
+    encoder-decoder once an encoder layer and once a cross-attention;
+    none in a serve step (decode attention, cross included, is plain
+    torch, as JAX's is jnp)."""
+    import dataclasses
+    n = family_launches(cfg)
+    if cfg.encoder_decoder:
+        enc = dataclasses.replace(cfg, n_layers=cfg.n_encoder_layers)
+        n["prefill"]["lora_matmul"] += adapted_launches(enc, False)
+        n["prefill"]["flash_attention"] += cfg.n_encoder_layers + cfg.n_layers
+    return n
+
+
+def step_weight_bytes(cfg, model) -> int:
+    """The weights a serve step reads: the decoder's layers and their
+    adapters, the final norm and the LM head (the embedding table only
+    when it is the head); not the encoder, its norm, ``proj_frontend``,
+    nor the embedding table's rows."""
+    from repro_torch.tree import tree_leaves
+    params, adapters = model
+    dec = adapters["layers"] if cfg.encoder_decoder else adapters
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    return sum(t.numel() * t.element_size() for t in (
+        tree_leaves(params["layers"]) + tree_leaves(dec)
+        + [params["final_norm"], head]))
+
+
+def frontend_shallow(cfg, model, tokens):
+    """The CPU half's model, and its tokens: whisper's first
+    ``FAMILY_CPU_DEPTH`` encoder and decoder layers of the card's weights
+    (qwen2-vl's one layer as it is), with the embedding table cut to the
+    rows of ``tokens`` (an untied table is read only there) and the tokens
+    renumbered into it, so that the CPU process receives a few rows of the
+    table, not all of it."""
+    import dataclasses
+    import torch
+    params, adapters = model
+    check(not cfg.tie_embeddings, "a tied table is the LM head: keep it")
+    ids = torch.unique(tokens)
+    params = dict(params, embed=params["embed"][ids])
+    tokens = torch.searchsorted(ids, tokens.contiguous())
+    if not cfg.encoder_decoder:
+        return cfg, (params, adapters), tokens
+    d = FAMILY_CPU_DEPTH
+    return (dataclasses.replace(cfg, n_layers=d, n_encoder_layers=d),
+            (dict(params, layers=params["layers"][:d],
+                  enc_layers=params["enc_layers"][:d]),
+             {k: v[:d] for k, v in adapters.items()}), tokens)
+
+
+def frontend_half_cpu(cfg, model, batch, fed, threads: int) -> dict:
+    """``frontend_half`` in a spawned process, on host trees both ways."""
+    return host_tree(frontend_half(cfg, *host_tree((model, batch, fed),
+                                                   False), threads))
+
+
+def frontend_half(cfg, model, batch, fed, threads: int = 0) -> dict:
+    """Prefill on ``batch`` (tokens, and the float32 stub frontend, cast
+    to bfloat16 for the bfloat16 run) and ``fed.shape[1]`` serve steps fed
+    ``fed`` from prefill's cache, in bfloat16 and on the same weights in
+    float32 (a float32 cache): logits and caches on the CPU.  Runs on the
+    model's device; phases 17 and 18 run it on the card and, in a process
+    of its own, on the CPU."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_map
+    if threads:
+        torch.set_num_threads(threads)
+    t0 = time.perf_counter()
+    dev = batch["tokens"].device
+    prefill, serve = M.make_prefill_step(cfg), M.make_serve_step(cfg)
+    rows = patch_rows(cfg) + batch["tokens"].shape[1]
+    cpu = lambda t: t.float().cpu()  # noqa: E731
+    out = {}
+    with torch.no_grad():
+        for label, dt in (("bfloat16", torch.bfloat16),
+                          ("float32", torch.float32)):
+            t1 = time.perf_counter()
+            m = model if dt == torch.bfloat16 else tree_map(
+                lambda t: t.float(), model)
+            logits, caches = prefill(*m, dict(
+                batch, frontend=batch["frontend"].to(dt)))
+            cache = decode_cache(cfg, caches, fed.shape[1], dev)
+            steps = []
+            for s in range(fed.shape[1]):
+                lg, cache = serve(*m, cache, fed[:, s:s + 1], rows + s)
+                steps.append(cpu(lg))
+            out[label] = dict(prefill=cpu(logits),
+                              caches=tree_map(cpu, caches), steps=steps,
+                              step_caches=tree_map(cpu, cache),
+                              seconds=time.perf_counter() - t1)
+            del m, caches, cache
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def prefill_step_gaps(cfg, model, prompts, frames) -> dict:
+    """Prefill over each prompt length of ``SERVE_PROMPTS`` against
+    prefill over all but its last token followed by one serve step at the
+    last position, seeded from that prefill's cache (an encoder-decoder's
+    cross caches too): the logits' gap of the largest, in bfloat16 and on
+    the same weights in float32 with a float32 cache."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_map
+    prefill, serve = M.make_prefill_step(cfg), M.make_serve_step(cfg)
+    out = {}
+    for label, dt in (("bfloat16", torch.bfloat16),
+                      ("float32", torch.float32)):
+        m = model if dt == torch.bfloat16 else tree_map(lambda t: t.float(),
+                                                        model)
+        out[label] = {}
+        for P in SERVE_PROMPTS:
+            fe = frames.to(dt)
+            with torch.no_grad():
+                full = prefill(*m, {"tokens": prompts[:, :P],
+                                    "frontend": fe})[0]
+                _, caches = prefill(*m, {"tokens": prompts[:, :P - 1],
+                                         "frontend": fe})
+                cache = decode_cache(cfg, caches, 1, "cuda")
+                step = serve(*m, cache, prompts[:, P - 1:P],
+                             patch_rows(cfg) + P - 1)[0]
+            out[label][P] = rel_err(step, full, floor=0.0)
+            del caches, cache
+        del m
+    return out
+
+
+FRONTEND_PHASE = {WHISPER: 17, QWEN_VL: 18}
+
+
+def frontend_start(name: str) -> dict:
+    """The base of ``name`` (``frontend_cfg``) drawn on the card
+    (``draw_family``), 4 prompts of 512 tokens from the seed, the stub
+    frontend's float32 embeddings ``(4, F, d)`` from a card generator
+    seeded 0, and the card's and the CPU's halves of the comparison at 32
+    tokens on ``frontend_shallow``'s model (``FRONTEND_CPU_B[name]``
+    requests and the 2 tokens fed after the prompt): the CPU's, on host
+    copies, started in a process of its own."""
+    import torch
+    from repro_torch import random as jr
+    from repro_torch.configs.registry import get
+    cfg, full = frontend_cfg(name), get(name)
+    print(f"phase {FRONTEND_PHASE[name]}: {name} at its published widths "
+          f"(d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{cfg.n_frontend_tokens} {cfg.frontend} embeddings"
+          + (f", M-RoPE sections {cfg.mrope_sections}"
+             if cfg.mrope_sections else "")
+          + f"), {cfg.n_encoder_layers} encoder and {cfg.n_layers} decoder "
+          f"layers (published: {full.n_encoder_layers} and {full.n_layers})")
+    model, init_s, draw_peak, weight_bytes = draw_family(cfg)
+    prompts = torch.from_numpy(jr.randint(
+        jr.PRNGKey(0), (SERVE_B, max(SERVE_PROMPTS)), 4,
+        cfg.vocab_size - 4)).long().cuda()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    frames = torch.randn(SERVE_B, cfg.n_frontend_tokens, cfg.d_model,
+                         generator=gen, device="cuda")
+    P, b = min(SERVE_PROMPTS), FRONTEND_CPU_B[name]
+    cpu_cfg, cpu_model, tokens = frontend_shallow(cfg, model,
+                                                  prompts[:b, :P + 2])
+    batch = {"tokens": tokens[:, :P], "frontend": frames[:b]}
+    fed = tokens[:, P:]
+    t0 = time.perf_counter()
+    job = CpuJob(f"{name} at {P} tokens (cpu, plain)", frontend_half_cpu,
+                 cpu_cfg, *host_tree((cpu_model, batch, fed)),
+                 CPU_JOB_THREADS)
+    return dict(name=name, cfg=cfg, model=model, prompts=prompts,
+                frames=frames, cpu_cfg=cpu_cfg, cpu_model=cpu_model,
+                batch=batch, fed=fed, job=job, init_s=init_s,
+                draw_peak=draw_peak, weight_bytes=weight_bytes,
+                handoff=time.perf_counter() - t0)
+
+
+def tree_err(got, want) -> float:
+    """The largest error of a tree's leaves, each of its largest
+    magnitude."""
+    from repro_torch.tree import tree_leaves
+    gl, wl = tree_leaves(got), tree_leaves(want)
+    check(len(gl) == len(wl) and all(g.shape == w.shape
+                                     for g, w in zip(gl, wl)),
+          "the card's and the CPU's caches differ in layout")
+    return max(rel_err(g, w, floor=0.0) for g, w in zip(gl, wl))
+
+
+def frontend_run(started: dict, gen, lora_shapes, attn_shapes,
+                 lora_iters=(50, 20), attn_iters: int = 100) -> dict:
+    """Phases 17 and 18's shared body, on ``frontend_start``'s model: 4
+    requests served at 32 and 512 tokens behind the bf16 frontend
+    (``serve_timed``, the byte bound the weights a step reads,
+    ``step_weight_bytes``), prefill against its own serve step
+    (``prefill_step_gaps``), the card's half of the CPU comparison, the
+    kernels at the model's shapes (``kernel_times``), then the CPU half
+    collected and compared.  Returns the phase's numbers; the checks are
+    ``check_frontend_run``'s."""
+    import torch
+    from repro_torch import random as jr
+    cfg, model, prompts = started["cfg"], started["model"], started["prompts"]
+    name, frames = started["name"], started["frames"]
+    B, steps = SERVE_B, SERVE_STEPS
+    step_bytes = step_weight_bytes(cfg, model)
+    # other phases' models may lie on the card: the peak is this model's
+    held = torch.cuda.memory_allocated() - started["weight_bytes"]
+    torch.cuda.reset_peak_memory_stats()
+    runs = {P_: serve_timed(cfg, model, prompts[:, :P_], steps,
+                            jr.PRNGKey(0), step_bytes,
+                            frontend=frames.to(torch.bfloat16))
+            for P_ in SERVE_PROMPTS}
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    for P_, r in runs.items():
+        print(f"{name} (bf16, B={B}, prompt {P_} behind "
+              f"{cfg.n_frontend_tokens} {cfg.frontend} embeddings): prefill "
+              f"{r['prefill_s'] * 1e3:.2f} ms; {steps} serve steps "
+              f"{r['decode_s']:.4f} s, {r['step_s'] * 1e3:.3f} ms a step "
+              f"(byte bound {r['bound_step_ms']:.3f} ms: "
+              f"{step_bytes / 1e9:.3f} GB of weights read a step and "
+              f"{r['cache_bytes'] / 1e6:.1f} MB of cache at 3.35 TB/s), "
+              f"{r['tokens_per_s']:.1f} tokens/s; launches: prefill "
+              f"{json.dumps(r['launches_prefill'])}, serve steps "
+              f"{json.dumps(r['launches_steps'])}")
+    marks = [time.perf_counter()]
+    gaps = prefill_step_gaps(cfg, model, prompts, frames)
+    marks.append(time.perf_counter())
+    cpu_cfg = started["cpu_cfg"]
+    card = frontend_half(cpu_cfg, started["cpu_model"], started["batch"],
+                         started["fed"])
+    marks.append(time.perf_counter())
+    times = kernel_times(gen, lora_shapes, attn_shapes, lora_iters,
+                         attn_iters)
+    marks.append(time.perf_counter())
+    cpu = host_tree(started["job"].result(), False)
+    marks.append(time.perf_counter())
+    waited = marks[-1] - marks[-2]
+    split = dict(zip(("prefill_step_gaps", "card_half", "kernel_times",
+                      "cpu_wait"), (b - a for a, b in zip(marks,
+                                                           marks[1:]))))
+    errs = {}
+    for label in ("bfloat16", "float32"):
+        g, w = card[label], cpu[label]
+        errs[label] = dict(
+            prefill=rel_err(g["prefill"], w["prefill"], floor=0.0),
+            steps=[rel_err(a, b, floor=0.0)
+                   for a, b in zip(g["steps"], w["steps"])],
+            caches=max(tree_err(g["caches"], w["caches"]),
+                       tree_err(g["step_caches"], w["step_caches"])),
+            seconds=w["seconds"])
+    return dict(init_s=started["init_s"], draw_peak_gib=started["draw_peak"],
+                peak_gib=peak, weight_bytes=started["weight_bytes"],
+                step_weight_bytes=step_bytes, cpu_s=cpu["seconds"],
+                cpu_waited_s=waited, cpu_handoff_s=started["handoff"],
+                cpu_requests=started["batch"]["tokens"].shape[0],
+                cpu_layers=cpu_cfg.n_layers + cpu_cfg.n_encoder_layers,
+                prefill_step_gap=gaps, cpu_compare=errs, kernel_times=times,
+                seconds=split,
+                runs={P_: {k: v for k, v in r.items()
+                           if k not in ("logits", "caches")}
+                      for P_, r in runs.items()})
+
+
+def frontend_text(out: dict) -> str:
+    e16, e32 = out["cpu_compare"]["bfloat16"], out["cpu_compare"]["float32"]
+    g16, g32 = (out["prefill_step_gap"][k] for k in ("bfloat16", "float32"))
+    f = lambda xs: ", ".join(f"{x:.3g}" for x in xs)  # noqa: E731
+    return (f"card against the CPU port ({out['cpu_layers']} layers, "
+            f"{out['cpu_requests']} request(s) of {min(SERVE_PROMPTS)} "
+            f"tokens behind every frame or patch; a process of "
+            f"{CPU_JOB_THREADS} threads, {out['cpu_s']:.1f} s: bfloat16 "
+            f"{e16['seconds']:.1f} s, float32 {e32['seconds']:.1f} s; "
+            f"{out['cpu_waited_s']:.1f} s waited for, "
+            f"{out['cpu_handoff_s']:.1f} s to hand it the weights), of the "
+            f"largest: bfloat16 prefill logits {e16['prefill']:.3g}, 2 serve "
+            f"steps {f(e16['steps'])}, caches {e16['caches']:.3g} "
+            f"(tolerances {SERVE_CPU_TOL}, 2e-2); float32 "
+            f"{e32['prefill']:.3g}, {f(e32['steps'])}, caches "
+            f"{e32['caches']:.3g} (tolerance {SERVE_F32_TOL}); prefill "
+            f"against prefill over one token fewer and a serve step, on the "
+            f"card: float32 {f(g32.values())} at {list(g32)} tokens "
+            f"(tolerance {SERVE_F32_TOL}), bfloat16 {f(g16.values())}; base "
+            f"draw {out['init_s']:.2f} s ({out['weight_bytes'] / 1e9:.2f} "
+            f"GB, draw peak {out['draw_peak_gib']:.2f} GiB); peak memory "
+            f"after it {out['peak_gib']:.2f} GiB; seconds: "
+            + ", ".join(f"{k} {v:.1f}" for k, v in out["seconds"].items()))
+
+
+def check_frontend_run(name: str, cfg, out: dict):
+    want = frontend_launches(cfg)
+    for P_, r in out["runs"].items():
+        check_serving_launches(r["launches_prefill"], want["prefill"],
+                               f"{name} prefill {P_}")
+        check_serving_launches(r["launches_steps"], {
+            n: SERVE_STEPS * c for n, c in want["serve_step"].items()},
+            f"{name} {SERVE_STEPS} serve steps after a {P_}-token prefill")
+        check(r["finite"], f"{name} prefill {P_} or its serve steps: "
+              "logits not finite")
+    for P_, gap in out["prefill_step_gap"]["float32"].items():
+        check(gap <= SERVE_F32_TOL, f"{name} float32 prefill over {P_} "
+              f"tokens against prefill over {P_ - 1} and a serve step: "
+              f"{gap} > {SERVE_F32_TOL}")
+    for label, tol, ctol in (("bfloat16", SERVE_CPU_TOL, 2e-2),
+                             ("float32", SERVE_F32_TOL, SERVE_F32_TOL)):
+        e = out["cpu_compare"][label]
+        for what, err, t in ([("prefill logits", e["prefill"], tol),
+                              ("caches", e["caches"], ctol)]
+                             + [(f"serve step {s}", x, tol)
+                                for s, x in enumerate(e["steps"])]):
+            check(err <= t, f"{name} {label} {what}: card against the CPU "
+                  f"port {err} > {t}")
+
+
+def whisper_phase(gen, started: dict) -> dict:
+    """Phase 17: ``whisper-large-v3`` at its published widths and all 32
+    encoder and 32 decoder layers (d_model 1280, 20 heads of 64, d_ff
+    5120, vocab 51866, 1500 stub audio frames), the bfloat16 base as
+    ``init_params`` draws it (``frontend_start``'s, whose time is in the
+    phase's numbers, not in its wall time); served as ``frontend_run``
+    serves.  Checks: the launches (per prefill 320 ``lora_matmul`` and 96
+    ``flash_attention``: 32 encoder, 32 causal decoder, 32 cross; per
+    serve step 160 and none); prefill against its own serve step; the
+    first 2 encoder and decoder layers on the card against the CPU port;
+    ``lora_matmul`` at the five projections at M = 4, 2048 and 6000 and
+    ``flash_attention`` non-causal over the 1500 frames (self and cross)
+    and causal at the prompts, against their plain versions."""
+    t_phase = time.perf_counter()
+    cfg = started["cfg"]
+    d, H, KH, D, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                      cfg.n_frontend_tokens)
+    B, S = SERVE_B, max(SERVE_PROMPTS)
+    out = frontend_run(
+        started, gen,
+        [(f"whisper-{n}-M{M_}", M_, K, N, cfg.lora.rank)
+         for n, (K, N) in projections(d, H, KH, D, cfg.d_ff).items()
+         for M_ in (B, B * S, B * F)],
+        [(f"whisper-encoder-{F}", B, F, H, KH, D, D, F, False)]
+        + [(f"whisper-self-{P_}", B, P_, H, KH, D, D)
+           for P_ in SERVE_PROMPTS]
+        + [(f"whisper-cross-{P_}", B, P_, H, KH, D, D, F, False)
+           for P_ in SERVE_PROMPTS], lora_iters=(20, 8), attn_iters=20)
+    wall = time.perf_counter() - t_phase
+    out["wall_s"] = wall
+    print(f"phase 17: {frontend_text(out)}; phase {wall:.1f} s")
+    check_frontend_run(WHISPER, cfg, out)
+    return out
+
+
+def qwen_vl_phase(gen, started: dict) -> dict:
+    """Phase 18: ``qwen2-vl-72b`` at its published widths (d_model 8192,
+    64/8 heads of 128, d_ff 29568, vocab 152064, M-RoPE sections (16,
+    24, 24), 1024 stub patch embeddings), its depth cut from 80 layers to
+    ``QWEN_VL_LAYERS``, the bfloat16 base as ``init_params`` draws it
+    (``frontend_start``'s); served as ``frontend_run`` serves.  Checks:
+    the launches (per prefill 5 ``lora_matmul`` and 1 ``flash_attention``
+    over 1024 + P rows; per serve step 5 and none); prefill against its
+    own serve step at position 1024 + P - 1; the card against the CPU
+    port (one request); ``lora_matmul`` at the five projections at M = 4
+    and 4 × (1024 + P) and ``flash_attention`` causal at D = 128 over
+    1024 + P rows."""
+    t_phase = time.perf_counter()
+    cfg = started["cfg"]
+    d, H, KH, D, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                      cfg.n_frontend_tokens)
+    B = SERVE_B
+    # 10 to 140 ms a call at M = 4 × (1024 + P): few calls timed
+    out = frontend_run(
+        started, gen,
+        [(f"qwen2-vl-{n}-M{M_}", M_, K, N, cfg.lora.rank)
+         for n, (K, N) in projections(d, H, KH, D, cfg.d_ff).items()
+         for M_ in (B,) + tuple(B * (F + P_) for P_ in SERVE_PROMPTS)],
+        [(f"qwen2-vl-prefill-{F + P_}", B, F + P_, H, KH, D, D)
+         for P_ in SERVE_PROMPTS], lora_iters=(2, 1), attn_iters=10)
+    wall = time.perf_counter() - t_phase
+    out["wall_s"] = wall
+    print(f"phase 18: {frontend_text(out)}; phase {wall:.1f} s")
+    check_frontend_run(QWEN_VL, cfg, out)
+    return out
+
+
+def frontend_phases(gen) -> tuple:
+    """Phases 17 and 18, both models drawn first, so that whisper's CPU
+    half runs beside qwen2-vl's draw and qwen2-vl's beside phase 17; each
+    model is freed after its phase."""
+    started = [frontend_start(n) for n in (WHISPER, QWEN_VL)]
+    whisper = whisper_phase(gen, started.pop(0))
+    return whisper, qwen_vl_phase(gen, started.pop(0))
+
+
+# flash_attention_bwd at the other families' head dims, at the forward's
+# shapes of phases 13-15: (name, B, S, H, KH, D, Dv)
+OTHER_HEAD_DIM_SHAPES = (
+    [(f"kimi-{S}", 4, S, 64, 8, 112, 112) for S in SERVE_PROMPTS]
+    + [(f"minicpm-{S}", 4, S, 40, 40, 96, 64) for S in SERVE_PROMPTS]
+    + [("stablelm-512", 4, 512, 32, 32, 80, 80),
+       ("jamba-512", 4, 512, 64, 8, 128, 128)])
+
+
+def attn_bwd_times(gen) -> list:
+    """``flash_attention_bwd`` at ``OTHER_HEAD_DIM_SHAPES`` (causal), bf16
+    and float32, as the model's autograd calls it (a v narrower than q
+    and its output gradient zero-padded to q's head dim): held to plain
+    autograd (2e-2 / 2e-5 of the largest magnitude) and timed in a host
+    loop and a CUDA graph, beside its plain version (autograd of
+    ``ref.flash_attention``), SDPA's backward (v as it is) and its bound
+    (the bytes of the function at v's head dim, or its operations on the
+    tensor cores at 989 bf16 / 495 TF32 TFLOP/s with 3 products for
+    float32)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa, ref
+    rows = []
+    for name, B, S, H, KH, D, Dv in OTHER_HEAD_DIM_SHAPES:
+        for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-5)):
+            q = _randn(gen, (B, S, H, D), dtype=dt).requires_grad_()
+            k = _randn(gen, (B, S, KH, D), dtype=dt).requires_grad_()
+            v = _randn(gen, (B, S, KH, Dv), dtype=dt).requires_grad_()
+            do = _randn(gen, (B, S, H, Dv), dtype=dt)
+            pad = lambda t: F.pad(t, (0, D - Dv))  # noqa: E731
+            with torch.no_grad():
+                vp, dop = pad(v), pad(do)
+                out, lse = fa._forward(q, k, vp, True, 0, D ** -0.5)
+            kern = lambda: fa.flash_attention_bwd(  # noqa: E731
+                q, k, vp, out, lse, dop)
+            got = kern()
+            y = ref.flash_attention(q, k, v)
+            want = torch.autograd.grad(y, (q, k, v), do, retain_graph=True)
+            err = max(rel_err(g[..., :w.shape[-1]], w)
+                      for g, w in zip(got, want))
+            check(err <= tol, f"flash_attention_bwd {name} {dt}: {err}")
+            ys = F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, enable_gqa=True)
+            dos = do.transpose(1, 2)
+            elem = 2 if dt == torch.bfloat16 else 4
+            flops, nbytes = attn_flops_bytes(B, S, H, KH, D, True, elem,
+                                             Dv=Dv)
+            bms, by = (bound_ms(flops, nbytes, BF16_FLOPS_PER_S)
+                       if dt == torch.bfloat16
+                       else tc_bound_ms(3, flops, nbytes))
+            t = dict(ms=cuda_ms(kern, iters=20),
+                     graph_ms=graph_ms(kern, iters=5, replays=4),
+                     plain_ms=cuda_ms(lambda: torch.autograd.grad(
+                         y, (q, k, v), do, retain_graph=True), iters=5),
+                     library_ms=cuda_ms(lambda: torch.autograd.grad(
+                         ys, (q, k, v), dos, retain_graph=True), iters=20))
+            rows.append(dict(shape=name, B=B, S=S, H=H, KH=KH, D=D, Dv=Dv,
+                             dtype=str(dt).split(".")[1], rel_err=err, **t,
+                             bound_ms=bms, bound_by=by))
+            print(f"  flash_attention_bwd {name} (B={B} S={S} H={H} KH={KH}"
+                  f" D={D} Dv={Dv} {str(dt).split('.')[1]}): loop "
+                  f"{t['ms'] * 1e3:.2f} us, graph {t['graph_ms'] * 1e3:.2f} "
+                  f"us, plain {t['plain_ms'] * 1e3:.1f} us, SDPA backward "
+                  f"{t['library_ms'] * 1e3:.2f} us, bound "
+                  f"{bms * 1e3:.2f} us ({by}); rel err {err:.3g}")
+            del q, k, v, do, vp, dop, out, lse, got, y, want, ys
+    return rows
 
 
 def profile_serving(cfg, model, run: dict):
@@ -4517,7 +5098,13 @@ def headline(rows, shape):
             if k in row}
 
 
+def stamp(t_start: float, what: str):
+    """The smoke's elapsed seconds as ``what`` begins."""
+    print(f"[{time.perf_counter() - t_start:.1f} s] {what}")
+
+
 def main(argv) -> int:
+    t_start = time.perf_counter()
     check((ROOT / "src" / "repro_torch").is_dir(),
           "src/repro_torch not found beside chip_smoke.py")
     sys.path.insert(0, str(ROOT / "src"))
@@ -4558,8 +5145,15 @@ def main(argv) -> int:
         jamba_phase(gen)
         xlstm_phase(gen, started)
         return 0
+    if argv == ["--frontends"]:
+        build_kernels()
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        frontend_phases(gen)
+        attn_bwd_times(gen)
+        return 0
     check(not argv, f"unknown arguments {argv}; use --profile, --attn, "
-          "--sharded, --serving, --families, --recurrent or none")
+          "--sharded, --serving, --families, --recurrent, --frontends or "
+          "none")
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
     builds = build_kernels()
@@ -4570,6 +5164,7 @@ def main(argv) -> int:
     from repro_torch.kernels import lora_matmul as lm
     from repro_torch.kernels import statevector_gates as svg
     from repro_torch.kernels import statevector_tape as svt
+    stamp(t_start, "the kernel phases")
     max_err, gate_share, shapes = kernel_phase()
     tape_err, tape_share, tape_shapes = tape_phase(shapes)
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -4579,24 +5174,32 @@ def main(argv) -> int:
     i4_err, i4_t_err, i4_shapes, i4_t_shapes = int4_phase(gen)
     waves = wave_probe(gen)
     kl_err, kl_shapes = kl_phase(gen)
+    stamp(t_start, "phase 3")
     qfl = main_phase()
     size_rule = size_rule_phase()
     llm = llm_phase()
+    stamp(t_start, "phase 10")
     fused = fused_phase(qfl, llm)
     sharded = sharded_phase(qfl, llm, fused)
+    stamp(t_start, "phase 7")
     seq = sequential_phase()
+    stamp(t_start, "phase 5")
     nwq = wide_phase()
     llm_wide = llm_wide_phase()
     seq_wide = llm_wide_sequential_phase()
+    stamp(t_start, "phase 6")
     ql = qlora_phase()
     ql_wide = llm_wide_phase(quantized=True)
+    stamp(t_start, "phase 9")
     shots = sample_phase()
     cli = cli_phase()
+    stamp(t_start, "phase 9c")
     gpt2 = gpt2_phase()
     deepseek = llm_wide_sequential_phase("deepseek-llm-7b-base",
                                          DEEPSEEK_TASK, "deepseek sequential")
     llm_rounds(llm)
     serve_times = serving_kernel_times(gen)
+    stamp(t_start, "phase 12")
     serving = serving_phase()
     big = serving["runs"][max(SERVE_PROMPTS)]
     # free what earlier phases hold on the card before the largest models
@@ -4607,15 +5210,31 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     print(f"before phase 13: {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
           "GiB held on the card")
+    stamp(t_start, "phase 13")
     kimi = kimi_phase(gen)
-    minicpm = minicpm_phase(gen)
+    # each later model is drawn, and its CPU half started, while an
+    # earlier phase waits for its own CPU half: phases 17-18's during
+    # phase 14's wait, phases 15-16's before phase 17
+    started = {}
+
+    def draw_frontends():
+        started.update((n, frontend_start(n)) for n in (WHISPER, QWEN_VL))
+        stamp(t_start, "phases 17-18 drawn")
+    stamp(t_start, "phase 14")
+    minicpm = minicpm_phase(gen, MINICPM_SMOKE_LAYERS, idle=draw_frontends)
     stablelm = stablelm_phase(gen)
     gc.collect()
     torch.cuda.empty_cache()
-    started = xlstm_start()
-    jamba = jamba_phase(gen)
-    xlstm_ = xlstm_phase(gen, started)
-    del started
+    started[XLSTM], started[JAMBA] = xlstm_start(), jamba_start()
+    stamp(t_start, "phase 17")
+    whisper = whisper_phase(gen, started.pop(WHISPER))
+    qwen_vl = qwen_vl_phase(gen, started.pop(QWEN_VL))
+    gc.collect()
+    torch.cuda.empty_cache()
+    stamp(t_start, "phase 15")
+    jamba = jamba_phase(gen, started.pop(JAMBA))
+    xlstm_ = xlstm_phase(gen, started.pop(XLSTM))
+    stamp(t_start, "the comparisons")
     cli = cli_compare(cli)
     serving = serving_compare(serving)
     gib = 2 ** 30
@@ -4703,6 +5322,12 @@ def main(argv) -> int:
              launches_xlstm=serving_counts(
                  xlstm_["runs"][max(SERVE_PROMPTS)], "lora_matmul"),
              xlstm=xlstm_["kernel_times"]["lora_matmul"],
+             launches_whisper=serving_counts(
+                 whisper["runs"][max(SERVE_PROMPTS)], "lora_matmul"),
+             whisper=whisper["kernel_times"]["lora_matmul"],
+             launches_qwen2_vl=serving_counts(
+                 qwen_vl["runs"][max(SERVE_PROMPTS)], "lora_matmul"),
+             qwen2_vl=qwen_vl["kernel_times"]["lora_matmul"],
              shapes=lm_shapes,
              waves=[{k: w[k] for k in ("tiles", "lora_graph_ms")}
                     for w in waves],
@@ -4734,6 +5359,12 @@ def main(argv) -> int:
              jamba=jamba["kernel_times"]["flash_attention"],
              launches_xlstm=serving_counts(
                  xlstm_["runs"][max(SERVE_PROMPTS)], "flash_attention"),
+             launches_whisper=serving_counts(
+                 whisper["runs"][max(SERVE_PROMPTS)], "flash_attention"),
+             whisper=whisper["kernel_times"]["flash_attention"],
+             launches_qwen2_vl=serving_counts(
+                 qwen_vl["runs"][max(SERVE_PROMPTS)], "flash_attention"),
+             qwen2_vl=qwen_vl["kernel_times"]["flash_attention"],
              shapes=fa_shapes,
              probe=fa_probe, **build_summary(builds["flash_attention"])),
         dict(name=fa.NAME + "_bwd", route="cuda", source=fa.SOURCE,
@@ -4820,10 +5451,16 @@ def main(argv) -> int:
                                 if k != "kernel_times"},
                       "xlstm": {k: v for k, v in xlstm_.items()
                                 if k != "kernel_times"},
+                      "whisper": {k: v for k, v in whisper.items()
+                                  if k != "kernel_times"},
+                      "qwen2_vl": {k: v for k, v in qwen_vl.items()
+                                   if k != "kernel_times"},
                       "deepseek": {k: deepseek[k] for k in (
                           "init_s", "init_peak_gib", "stage_s", "batched_s",
                           "step_s", "peak_gib", "seq_peak_gib", "gap",
                           "gap0", "gap1", "spread", "n_params")}}))
+    print(f"the smoke run took {time.perf_counter() - t_start:.1f} s, the "
+          "build included")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

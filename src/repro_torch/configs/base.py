@@ -1,19 +1,25 @@
 """Model configuration: ``repro/configs/base.py`` for the families the
 port runs.
 
-The port runs decoder LLMs whose layers mix ``"attn"`` (grouped-query),
-``"mla"`` (multi-head latent attention, ``MLAConfig``), ``"mamba"`` (the
-selective state-space mixer, ``MambaConfig``) or ``"mlstm"`` /
-``"slstm"`` (the xLSTM mixers, ``XLSTMConfig``) with an ``"mlp"``,
-``"moe"`` (mixture of experts, ``MoEConfig``) or ``"none"`` feed-forward
-block, so ``ModelConfig`` keeps the fields those use, and ``reduced``
-derives the ``-smoke`` variant of a config as the JAX package does (it
-leaves ``mamba`` and ``xlstm`` as they are); the encoder-decoder and
-frontend fields come with the ROADMAP item that ports those families.  ``LoRAConfig.quantize_base``
-selects QLoRA: ``models.model.init_params`` then stores every adapted
-base weight as packed int4 plus scales (``peft.lora.quantize``).  LoRA
-dropout is left out: the JAX package never applies it.
-Field names, defaults and ``head_dim`` inference are the JAX package's.
+The port runs LLMs whose layers mix ``"attn"`` (grouped-query), ``"mla"``
+(multi-head latent attention, ``MLAConfig``), ``"mamba"`` (the selective
+state-space mixer, ``MambaConfig``) or ``"mlstm"`` / ``"slstm"`` (the
+xLSTM mixers, ``XLSTMConfig``) with an ``"mlp"``, ``"moe"`` (mixture of
+experts, ``MoEConfig``) or ``"none"`` feed-forward block; a decoder may
+sit behind an encoder stack (``encoder_decoder``, ``n_encoder_layers``:
+whisper) and read stub frontend embeddings (``frontend`` ``"audio"`` or
+``"vision"``, ``n_frontend_tokens`` of them a request), and its rotary
+embeddings may be sectioned (``mrope_sections``: qwen2-vl's M-RoPE).
+So ``ModelConfig`` keeps every field of the JAX package's, and
+``reduced`` derives the ``-smoke`` variant of a config as the JAX
+package does (it leaves ``mamba`` and ``xlstm`` as they are; an
+encoder-decoder's encoder gets the decoder's depth, a frontend 16
+tokens, and M-RoPE sections are rescaled to the reduced head dim).
+``LoRAConfig.quantize_base`` selects QLoRA: ``models.model.init_params``
+then stores every adapted base weight as packed int4 plus scales
+(``peft.lora.quantize``).  LoRA dropout is left out: the JAX package
+never applies it.  Field names, defaults and ``head_dim`` inference are
+the JAX package's.
 """
 from __future__ import annotations
 
@@ -72,7 +78,7 @@ class LoRAConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str                 # dense|moe|ssm|hybrid
+    arch_type: str                 # dense|moe|ssm|hybrid|vlm|audio
     source: str
     n_layers: int
     d_model: int
@@ -83,6 +89,7 @@ class ModelConfig:
     head_dim: Optional[int] = None
     pattern: Tuple[LayerSpec, ...] = (("attn", "mlp"),)
     rope_theta: float = 500000.0
+    mrope_sections: Tuple[int, ...] = ()   # qwen2-vl sectioned rotary
     sliding_window: int = 0                # 0 = full attention
     # sub-configs
     moe: Optional[MoEConfig] = None
@@ -90,6 +97,11 @@ class ModelConfig:
     mamba: Optional[MambaConfig] = None
     xlstm: Optional[XLSTMConfig] = None
     lora: LoRAConfig = field(default_factory=LoRAConfig)
+    # enc-dec (whisper)
+    encoder_decoder: bool = False
+    n_encoder_layers: int = 0
+    n_frontend_tokens: int = 0     # frames/patches of the stub frontend
+    frontend: str = ""             # ""|"audio"|"vision"
     dtype: str = "bfloat16"
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
@@ -113,7 +125,9 @@ def reduced(cfg: ModelConfig, *, d_model: int = 256, n_groups: int = 1,
             vocab: int = 512) -> ModelConfig:
     """Reduced same-family variant for CPU smoke tests, field for field
     the JAX package's ``reduced`` over the fields the port has (at most
-    4 experts, top-2, one shared expert; MLA at ranks 64 and 32)."""
+    4 experts, top-2, one shared expert; MLA at ranks 64 and 32; the
+    encoder as deep as the decoder, 16 frontend tokens, M-RoPE sections
+    rescaled in proportion to the reduced head dim)."""
     period = len(cfg.pattern)
     n_heads = max(2, min(4, cfg.n_heads))
     n_kv = 1 if cfg.n_kv_heads < cfg.n_heads else n_heads
@@ -126,6 +140,8 @@ def reduced(cfg: ModelConfig, *, d_model: int = 256, n_groups: int = 1,
         head_dim=d_model // n_heads,
         d_ff=d_model * 2 if cfg.d_ff else 0,
         vocab_size=vocab,
+        n_encoder_layers=period * n_groups if cfg.encoder_decoder else 0,
+        n_frontend_tokens=16 if cfg.frontend else 0,
         sliding_window=min(cfg.sliding_window, 64) if cfg.sliding_window
         else 0,
         long_decode_window=64,
@@ -139,4 +155,10 @@ def reduced(cfg: ModelConfig, *, d_model: int = 256, n_groups: int = 1,
         kw["mla"] = MLAConfig(q_lora_rank=64, kv_lora_rank=32,
                               qk_nope_head_dim=32, qk_rope_head_dim=16,
                               v_head_dim=32)
+    if cfg.mrope_sections:
+        half = (d_model // n_heads) // 2
+        tot = sum(cfg.mrope_sections)
+        secs = [max(1, s * half // tot) for s in cfg.mrope_sections]
+        secs[-1] += half - sum(secs)
+        kw["mrope_sections"] = tuple(secs)
     return dataclasses.replace(cfg, **kw)

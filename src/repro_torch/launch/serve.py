@@ -7,16 +7,22 @@ runs the plain path on the CPU).  It loads the ``-smoke`` form of
 ``kimi-k2-1t-a32b`` and ``llama4-maverick-400b-a17b`` with their
 mixture of experts, ``minicpm3-4b`` with latent attention,
 ``jamba-1.5-large-398b`` with its Mamba layers, ``xlstm-125m`` with its
-mLSTM and sLSTM layers), draws the base and adapters from
+mLSTM and sLSTM layers, the encoder-decoder ``whisper-large-v3`` and
+the vision-language ``qwen2-vl-72b``), draws the base and adapters from
 ``PRNGKey(0)`` in the config's dtype, fills the cache (the attention
 layers' k and v, the recurrent layers' states) by running the prompt
 through the serve step one token at a time, then decodes ``--steps``
-tokens per request, sampled at ``--temperature``.
+tokens per request, sampled at ``--temperature``.  As in the example,
+no frontend is fed: whisper's cross caches stay the zeros of
+``init_cache`` (so its cross-attention adds nothing) and qwen2-vl sees
+no patches.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b \\
       --batch 4 --steps 16 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch jamba-1.5-large-398b --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch whisper-large-v3 --device cpu
 """
 from __future__ import annotations
 
@@ -39,7 +45,8 @@ def _sync(device: torch.device):
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="stablelm-3b")
+    ap.add_argument("--arch", default="stablelm-3b",
+                    help="any name of configs.registry.all_names()")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--steps", type=int, default=16)

@@ -3,14 +3,25 @@ attention (MLA), for training, prefill and decode.
 
 The port of ``repro/models/attention.py``'s GQA layer (``gqa_params``,
 ``gqa_qkv``, ``gqa_out``, ``attn_train``, ``decode_attention``,
-``attn_decode``) and its MLA layer (``mla_params``, ``mla_train``,
-``mla_decode``).  The JAX package's chunked jnp flash becomes one
-launch of ``kernels.ops.flash_attention`` per layer, which reads q
-``(N, S, H, D)`` and the un-expanded k/v ``(N, S, KH, D)`` in place:
-q-head ``h = kh·G + g`` reads kv-head ``kh = h // G``, the JAX grouping.
-Decode attention is plain torch, as the JAX package's is jnp: one query
-row a sequence against the cache, with JAX's rounding points.
-Cross-attention comes with the ROADMAP item "the other model families".
+``attn_decode``), its cross-attention (``cross_attn_train``,
+``cross_kv``, ``cross_attn_decode``) and its MLA layer (``mla_params``,
+``mla_train``, ``mla_decode``).  The JAX package's chunked jnp flash
+becomes one launch of ``kernels.ops.flash_attention`` per layer, which
+reads q ``(N, S, H, D)`` and the un-expanded k/v ``(N, Sk, KH, D)`` in
+place: q-head ``h = kh·G + g`` reads kv-head ``kh = h // G``, the JAX
+grouping.  Decode attention is plain torch, as the JAX package's is
+jnp: one query row a sequence against the cache, with JAX's rounding
+points.  Rotary embeddings take ``cfg.mrope_sections`` (M-RoPE).
+
+Cross-attention (the encoder-decoder's decoder layers).  Its weights
+carry an ``x`` prefix (``xln``, ``xwq``, ``xwkv``, ``xwo``), which no
+LoRA target names, so its projections are plain products
+(``common.matmul``), as JAX's ``dense`` takes them.  Its queries come
+from the decoder stream with no rotary embedding; its keys and values
+are ``cross_kv`` of the encoder's output, ``(N, F, KH, D)`` over the
+``F`` frames.  Prefill runs one non-causal ``flash_attention`` launch
+over them (``Sq`` prompt rows against ``Sk = F`` keys); decode reads
+the same ``(xk, xv)`` from the cross cache, every slot valid.
 
 MLA (DeepSeek-V2 / MiniCPM3).  Queries come through a low-rank latent
 (``wq_a``, RMS norm, ``wq_b``); keys and values through a compressed
@@ -45,15 +56,19 @@ from repro_torch.models.common import (apply_rope, dense, init_dense,
 NEG_INF = -1e30
 
 
-def gqa_params(key, cfg, dtype, device="cpu"):
+def gqa_params(key, cfg, dtype, device="cpu", cross: bool = False):
+    """GQA's weights under the JAX package's ``split(key, 4)``;
+    ``cross`` names them with cross-attention's ``x`` prefix."""
     H, KH, D, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
     ks = jr.split(key, 4)
+    pre = "x" if cross else ""
     return {
-        "ln": torch.ones((d,), dtype=dtype, device=device),
-        "wq": init_dense(ks[0], (d, H * D), dtype, device=device),
-        "wkv": init_dense(ks[1], (d, 2 * KH * D), dtype, device=device),
-        "wo": init_dense(ks[2], (H * D, d), dtype, device=device,
-                         scale=0.5 / (d ** 0.5 * cfg.n_layers ** 0.5)),
+        f"{pre}ln": torch.ones((d,), dtype=dtype, device=device),
+        f"{pre}wq": init_dense(ks[0], (d, H * D), dtype, device=device),
+        f"{pre}wkv": init_dense(ks[1], (d, 2 * KH * D), dtype,
+                                device=device),
+        f"{pre}wo": init_dense(ks[2], (H * D, d), dtype, device=device,
+                               scale=0.5 / (d ** 0.5 * cfg.n_layers ** 0.5)),
     }
 
 
@@ -69,26 +84,71 @@ def gqa_qkv(params, cfg, x, positions):
                lora_pair(params, "wkv", cfg.lora)
                ).reshape(C * B, S, 2, KH, D)
     k, v = kv[:, :, 0], kv[:, :, 1]
-    freqs = rope_freqs(D, cfg.rope_theta, x.device)
+    freqs = rope_freqs(D, cfg.rope_theta, cfg.mrope_sections,
+                       device=x.device)
     return xn, apply_rope(q, positions, freqs), \
         apply_rope(k, positions, freqs), v
 
 
-def gqa_out(params, cfg, x, attn_out):
+def gqa_out(params, cfg, x, attn_out, pre: str = ""):
+    """``x`` plus the output projection (``{pre}wo``) of ``attn_out``."""
     C, B, S, _ = x.shape
-    o = dense(attn_out.reshape(C, B, S, -1), weight(params, "wo"),
-              lora_pair(params, "wo", cfg.lora))
+    o = dense(attn_out.reshape(C, B, S, -1), weight(params, f"{pre}wo"),
+              lora_pair(params, f"{pre}wo", cfg.lora))
     return x + o
 
 
-def attn_train(params, cfg, x, positions):
-    """Full-sequence causal GQA layer (sliding window from the config).
-    Returns ``(y, (k, v))``: k (rotary applied) and v ``(N, S, KH, D)``
-    in the activation dtype, the layer's prefill cache."""
+def attn_train(params, cfg, x, positions, *, causal: bool = True):
+    """Full-sequence GQA layer (sliding window from the config; the
+    encoder runs it with ``causal=False``).  Returns ``(y, (k, v))``: k
+    (rotary applied) and v ``(N, S, KH, D)`` in the activation dtype,
+    the layer's prefill cache."""
     _, q, k, v = gqa_qkv(params, cfg, x, positions)
-    out = ops.flash_attention(q, k, v, causal=True,
+    out = ops.flash_attention(q, k, v, causal=causal,
                               window=cfg.sliding_window)
     return gqa_out(params, cfg, x, out), (k, v)
+
+
+def _cross_q(params, cfg, x):
+    """Cross-attention's queries, ``(C·B, S, H, D)``, no rotary."""
+    C, B, S, _ = x.shape
+    xn = rms_norm(x, params["xln"], cfg.norm_eps)
+    return dense(xn, weight(params, "xwq"),
+                 lora_pair(params, "xwq", cfg.lora)).reshape(
+        C * B, S, cfg.n_heads, cfg.head_dim)
+
+
+def cross_attn_train(params, cfg, x, enc_kv):
+    """Decoder cross-attention over the encoder's ``(k, v)``, each ``(C·B,
+    F, KH, D)``: one non-causal ``flash_attention`` launch.  Where the
+    encoder's stream is wider than the decoder's (float32 frames under a
+    bfloat16 model), the attention runs in the wider dtype and its output
+    is rounded to the decoder's, as JAX's einsums promote."""
+    q = _cross_q(params, cfg, x)
+    k, v = enc_kv
+    dt = torch.promote_types(q.dtype, k.dtype)
+    out = ops.flash_attention(q.to(dt), k.to(dt), v.to(dt), causal=False)
+    return gqa_out(params, cfg, x, out.to(x.dtype), pre="x")
+
+
+def cross_kv(params, cfg, enc_out):
+    """Cross-attention's keys and values from the encoder's output
+    ``(C, B, F, d)``: ``(k, v)``, each ``(C·B, F, KH, D)`` in its
+    dtype (the prefill's cross cache)."""
+    C, B, F, _ = enc_out.shape
+    kv = dense(enc_out, weight(params, "xwkv"),
+               lora_pair(params, "xwkv", cfg.lora)).reshape(
+        C * B, F, 2, cfg.n_kv_heads, cfg.head_dim)
+    return kv[:, :, 0], kv[:, :, 1]
+
+
+def cross_attn_decode(params, cfg, x, xk, xv):
+    """One-token cross-attention, x ``(C, B, 1, d)``, over the cross
+    cache ``xk``, ``xv`` ``(C·B, F, KH, D)``, every slot valid (``pos =
+    F - 1``), in plain torch as ``decode_attention``."""
+    q = _cross_q(params, cfg, x)
+    out = decode_attention(q, xk, xv, xk.shape[1] - 1)
+    return gqa_out(params, cfg, x, out, pre="x")
 
 
 def decode_attention(q, k_cache, v_cache, pos, *, window: int = 0):
@@ -182,7 +242,7 @@ def _mla_q(params, cfg, xn, positions):
                                                            qk_dim)
     q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions,
                         rope_freqs(m.qk_rope_head_dim, cfg.rope_theta,
-                                   xn.device))
+                                   device=xn.device))
     return q[..., :m.qk_nope_head_dim], q_rope
 
 
@@ -198,7 +258,7 @@ def _mla_ckv(params, cfg, xn, positions):
                     cfg.norm_eps)
     k_rope = apply_rope(ckv_full[..., m.kv_lora_rank:], positions,
                         rope_freqs(m.qk_rope_head_dim, cfg.rope_theta,
-                                   xn.device), heads=False)
+                                   device=xn.device), heads=False)
     return c_kv, k_rope
 
 

@@ -129,12 +129,25 @@ def lora_pair(params: dict, name: str, lora_cfg) -> Optional[Tuple]:
     return (a, params[f"{name}_lora_b"], lora_cfg.alpha / lora_cfg.rank)
 
 
-def rope_freqs(head_dim: int, theta: float, device="cpu") -> torch.Tensor:
+def rope_freqs(head_dim: int, theta: float, sections: Tuple[int, ...] = (),
+               device="cpu") -> torch.Tensor:
     """Per-pair inverse frequencies, shape (head_dim//2,).  Computed on
-    the CPU, so every device sees the same values."""
+    the CPU, so every device sees the same values.
+
+    With ``sections`` (M-RoPE, qwen2-vl) the pairs are split into
+    temporal/height/width sections, each with its own ladder
+    ``1/θ^(i·2/(2·sec))``, concatenated; with the scalar (text)
+    positions the model gives, all three sections share the position
+    index, as in the JAX package."""
     half = head_dim // 2
-    ex = torch.arange(half, dtype=torch.float32) * 2 / head_dim
-    return (1.0 / (theta ** ex)).to(device)
+    if not sections:
+        ex = torch.arange(half, dtype=torch.float32) * 2 / head_dim
+        return (1.0 / (theta ** ex)).to(device)
+    out = torch.cat([1.0 / (theta ** (torch.arange(sec, dtype=torch.float32)
+                                      * 2 / (2 * sec)))
+                     for sec in sections])
+    assert out.shape[0] == half, (sections, head_dim)
+    return out.to(device)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

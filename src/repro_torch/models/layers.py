@@ -4,8 +4,9 @@ The port of ``repro/models/layers.py``: every mixer of the JAX package
 (``"attn"`` GQA, ``"mla"`` multi-head latent attention, ``"mamba"``,
 ``"mlstm"``, ``"slstm"``) and feed-forward block (``"mlp"``, ``"moe"``,
 ``"none"``): full-sequence (train and prefill) and one-token (decode)
-application, and the decode cache's shapes.  Cross-attention comes with
-the encoder-decoder (ROADMAP §1).
+application, and the decode cache's shapes.  An encoder-decoder's
+decoder layer adds cross-attention (``cross=True``: the ``x``-prefixed
+GQA weights) after its mixer, over the encoder's ``(k, v)``.
 """
 from __future__ import annotations
 
@@ -34,11 +35,16 @@ def _mlp_width(cfg) -> int:
 
 
 def init_layer_params(key, cfg, mixer: str, ffn: str, dtype,
-                      device="cpu") -> Dict:
-    k1, k2, _ = jr.split(key, 3)
+                      device="cpu", cross: bool = False) -> Dict:
+    """One layer's weights under the JAX package's ``split(key, 3)``: the
+    mixer's from the first key, the feed-forward block's from the second
+    and, with ``cross``, cross-attention's from the third."""
+    k1, k2, k3 = jr.split(key, 3)
     if mixer not in _INIT:
         raise ValueError(mixer)
     p = _INIT[mixer](k1, cfg, dtype, device=device)
+    if cross:
+        p.update(attn.gqa_params(k3, cfg, dtype, device=device, cross=True))
     if ffn == "mlp":
         p.update(ffn_mod.mlp_params(k2, cfg, dtype, d_ff=_mlp_width(cfg),
                                     device=device))
@@ -62,16 +68,20 @@ def _ffn(cfg, p, x, ffn: str):
 
 
 def apply_layer_train(cfg, p: Dict, x, positions, mixer: str, ffn: str, *,
+                      causal: bool = True, enc_kv=None,
                       mlstm_chunkwise: bool = False):
     """Full-sequence layer.  Returns ``(x, cache, balance)``: the cache
     the attention's ``(k, v)``, MLA's ``(c_kv, k_rope)``, or the
     recurrent mixer's state at the last position (``mamba``: ``(h,
     conv)``; ``mlstm``: ``(C, n, m)``; ``slstm``: ``(c, n, h, m)``);
     ``balance`` the MoE block's load-balance loss a client ``(C,)``, else
-    None.  ``mlstm_chunkwise`` takes the mLSTM's chunkwise form (JAX's
+    None.  ``causal=False`` (the encoder) reaches the GQA mixer only, as
+    in the JAX package; ``enc_kv`` (the encoder's ``(k, v)``,
+    ``attention.cross_kv``) adds cross-attention after the mixer.
+    ``mlstm_chunkwise`` takes the mLSTM's chunkwise form (JAX's
     ``FwdOptions.mlstm_chunkwise``)."""
     if mixer == "attn":
-        x, cache = attn.attn_train(p, cfg, x, positions)
+        x, cache = attn.attn_train(p, cfg, x, positions, causal=causal)
     elif mixer == "mla":
         x, cache = attn.mla_train(p, cfg, x, positions)
     elif mixer == "mamba":
@@ -84,14 +94,18 @@ def apply_layer_train(cfg, p: Dict, x, positions, mixer: str, ffn: str, *,
         x, cache = xlstm.slstm_train(p, cfg, x)
     else:
         raise ValueError(mixer)
+    if enc_kv is not None:
+        x = attn.cross_attn_train(p, cfg, x, enc_kv)
     x, balance = _ffn(cfg, p, x, ffn)
     return x, cache, balance
 
 
 def apply_layer_decode(cfg, p: Dict, x, pos, cache, mixer: str, ffn: str,
-                       *, window: int = 0):
+                       *, window: int = 0, cross_kv=None):
     """One-token layer step.  Returns ``(x, new_cache)``; the cache is
-    written in place.  ``window`` reaches the attention mixers only."""
+    written in place.  ``window`` reaches the attention mixers only;
+    ``cross_kv`` (the layer's cross cache ``(xk, xv)``) adds
+    cross-attention after the mixer."""
     if mixer == "attn":
         x, cache = attn.attn_decode(p, cfg, x, pos, *cache, window=window)
     elif mixer == "mla":
@@ -104,6 +118,8 @@ def apply_layer_decode(cfg, p: Dict, x, pos, cache, mixer: str, ffn: str,
         x, cache = xlstm.slstm_decode(p, cfg, x, cache)
     else:
         raise ValueError(mixer)
+    if cross_kv is not None:
+        x = attn.cross_attn_decode(p, cfg, x, *cross_kv)
     return _ffn(cfg, p, x, ffn)[0], cache
 
 

@@ -10,8 +10,10 @@ that step's logits alone.  In jamba-1.5-large-398b four MoE layers feed
 later recurrent states, so a step near a tie moves every later token:
 its tokens are compared up to the first step from the prompt's start at
 which any of them routed request 0 near a tie (possibly none), and the
-number of equal leading tokens is reported.  xlstm-125m has no MoE
-layer: all its tokens are compared."""
+number of equal leading tokens is reported.  xlstm-125m, whisper-large-v3
+and qwen2-vl-72b have no MoE layer: all their tokens are compared (as in
+the example, whisper decodes over the zero cross caches of
+``init_cache`` and qwen2-vl sees no patches)."""
 import os
 import re
 import runpy
@@ -86,7 +88,8 @@ def _comparable(calls, argv) -> int:
 
 
 FAMILIES = ["kimi-k2-1t-a32b", "llama4-maverick-400b-a17b", "minicpm3-4b",
-            "jamba-1.5-large-398b", "xlstm-125m"]
+            "jamba-1.5-large-398b", "xlstm-125m", "whisper-large-v3",
+            "qwen2-vl-72b"]
 
 
 @pytest.mark.parametrize("argv", [[], ["--arch", "starcoder2-7b",
