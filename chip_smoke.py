@@ -19,6 +19,9 @@
                                        # and qwen2-vl served, and
                                        # flash_attention_bwd timed at
                                        # the other families' head dims
+    python3 chip_smoke.py --training   # phase 19 only: the six models
+                                       # drawn and trained, and the
+                                       # train_lm entry point
 
 Run from the root of a checkout, on a machine with a CUDA card and
 ``nvcc``.  It imports nothing of JAX and nothing of the JAX package
@@ -52,8 +55,8 @@ failure, and the script then exits non-zero with no result line.
    The card's Step 1 is held to the CPU's (plain path) within the
    batched-LLM tolerances, and the CPU's quantum rounds, run on the
    card's Step 1 outputs, to the card's rounds exactly on the integer
-   accounting.  The CPU's rounds run in a process of their own beside
-   phases 5-11 and are collected before phase 12.
+   accounting.  The CPU's Step 1 and its rounds run in processes of
+   their own beside phases 4-11 and are collected before phase 12.
 5. Wide phases: a 10-qubit VQC (485 gates, 40 params), 8 clients, one
    round; and the LLM stage alone at ``llama3.2-1b`` widths (16 layers,
    d_model 2048, 4 clients × 16 rows × 64 tokens, 2 steps, float32 base).
@@ -61,7 +64,9 @@ failure, and the script then exits non-zero with no result line.
    base packed int4, consumed by ``int4_matmul`` forward and dx): the
    LLM stage of the quickstart (``BatchedLLMEngine``, 5 clients, 30
    steps, ``tiny-llm``) on the card, held to the same stage on the CPU
-   (plain path); then the stage at ``llama3.2-1b`` widths as in 5.
+   (plain path; run in a process of its own beside the later phases and
+   held at the end of the run); then the stage at ``llama3.2-1b``
+   widths as in 5.
 7. The sequential engine and SPSA (after phase 4), at the quickstart's
    width with the rounds cut to 3 (the sequential engine reads every
    objective evaluation back to the host): QFL and LLM-QFL with
@@ -71,7 +76,9 @@ failure, and the script then exits non-zero with no result line.
    evaluation forwards a client) held to the batched Step 1 on the same
    base, its launches to ``llm_launch_formula(clients=5, evals=3)``;
    SPSA in both engines, QFL and LLM-QFL, batched on the card held to
-   sequential on the card and to batched on the CPU.  After phase 5,
+   sequential on the card and to batched on the CPU.  The CPU runs go
+   in a process of their own beside the card's and are held at the end
+   of the run.  After phase 5,
    ``run_sequential_stage`` at ``llama3.2-1b`` widths against
    ``BatchedLLMEngine`` on one base, with each client's step time.
 8. Finite shots, the training CLI and the paper's LLMs (printed as
@@ -202,7 +209,32 @@ failure, and the script then exits non-zero with no result line.
    projections and ``flash_attention`` non-causal over the 1500 frames
    (self, and cross with ``Sq != Sk``) and causal at head dim 128 over
    1024 + P rows, timed against cuBLAS and SDPA.
-15. Prints the phases' wall times, the card line, one
+15. LoRA fine-tuning of every family (printed as phase 19, on each
+   model of phases 13-18 before it is freed; xlstm-125m's, drawn anew
+   from the same seed, with the train_lm run in a process of its own on
+   the card beside phase 7, whose step times are therefore taken under
+   contention): ``flash_attention_bwd`` and ``lora_matmul``'s dx at the
+   step's shapes (causal, non-causal over 1500 keys, ``Sq != Sk``), in
+   bfloat16 and float32, against autograd of their plain versions
+   (``TRAIN_KERNEL_TOL``); 4 requests of 128 tokens
+   (behind the bfloat16 frames or patches), ``make_train_step(
+   n_microbatches=2)`` on the bf16 base with float32 adapters, 2 steps
+   under remat and 2 without, which must agree bit for bit (loss,
+   gradient norm, adapters, both AdamW moments); peak memory above the
+   held model with and without remat (whisper's with remat at most half
+   of its without); one step of 1 microbatch against 2 (not kimi-k2:
+   the MoE capacity is a microbatch's; not xlstm-125m: its sLSTM
+   outgrows a rounding) within ``TRAIN_NM_TOL``; the launches of each
+   run against ``train_launch_formula``; the warm step beside
+   ``train_bound`` of the remat step and of the function; on the CPU
+   halves' float32 models (not kimi-k2's, which has none), one step on
+   the card against the CPU port's in the same process as the half
+   (loss 1e-5, first moment 1e-5 of its largest; xlstm-125m on 8 tokens
+   at ``TRAIN_SLSTM_TOL``, and its bfloat16 step too, within
+   ``TRAIN_BF16_TOL``); and ``repro_torch.launch.train_lm`` with
+   ``--full --arch xlstm-125m``, its losses and gradient norms finite,
+   the first near ln(vocab).
+16. Prints the phases' wall times, the card line, one
    ``{"kernels": [...]}`` line (``launches_sequential``: the launches of
    phase 7's sequential LLM-QFL Step 1, and for ``statevector_tape`` of
    its batched SPSA QFL run; ``launches_aersim``, ``launches_gpt2``,
@@ -211,7 +243,10 @@ failure, and the script then exits non-zero with no result line.
    and ``serving``: phase 12's launches and shapes; ``launches_kimi``,
    ``kimi``, ``launches_minicpm``, ``minicpm``, ``launches_stablelm``,
    ``stablelm``: phases 13 and 14's; ``launches_jamba``, ``jamba``,
-   ``launches_xlstm``, ``xlstm``: phases 15 and 16's), and last
+   ``launches_xlstm``, ``xlstm``: phases 15 and 16's;
+   ``launches_training``, ``training_shapes``: phase 19's, a train step
+   under remat a model, and the train_lm run's; ``training_checks``,
+   ``training_dx_checks``: phase 19's kernel checks), and last
    ``{"ok": true, "device": {...}}``.
 
 Each path is driven with every launch counter set to 0 just before it
@@ -258,6 +293,10 @@ LLM_WIDE = dict(task=dict(n_clients=4, train_size=64, test_size=16,
 # CPU beside the later phases (the costliest CPU comparison of the smoke,
 # 230-258 s on 8 threads, most of it the host's own loop)
 CPU_JOB_THREADS = 4
+# torch threads of the processes that run a CPU half beside the card's
+# phases 4-9 (phase 4's Step 1, phase 6's QLoRA stage, phase 7's runs),
+# where phase 4's rounds and phase 19's xlstm-125m run beside them too
+SIDE_CPU_THREADS = 2
 # the batched-LLM tolerances of the JAX package's tests
 LLM_LOSS_TOL, LLM_F1_TOL, TEACHER_TOL = 5e-4, 0.05, 5e-4
 KERNELS = ("statevector_gate", "statevector_tape", "lora_matmul",
@@ -1338,9 +1377,26 @@ def main_phase():
                 cpu=cpu)
 
 
+def cpu_step1() -> tuple:
+    """The LLM-QFL quickstart's Step 1 on the CPU (plain path), in a
+    spawned process of ``SIDE_CPU_THREADS`` threads: (L_LLM, F1, the
+    teacher probabilities, fine-tune seconds)."""
+    import torch
+    torch.set_num_threads(SIDE_CPU_THREADS)
+    step1 = dict(LLM_QUICKSTART, run=dict(LLM_QUICKSTART["run"], n_rounds=1))
+    _, cpu1, orch1 = run_main_path("cpu", step1, method="llm-qfl")
+    return host_tree((cpu1.llm_losses, cpu1.llm_f1,
+                      list(orch1.llm_outputs.teacher_probs),
+                      cpu1.llm_finetune_time_s))
+
+
 def llm_phase() -> dict:
-    """The LLM-QFL quickstart on the card, held to the CPU's plain path."""
+    """The LLM-QFL quickstart on the card, held to the CPU's plain path:
+    its Step 1 (``cpu_step1``, beside the card's work) and its quantum
+    rounds on the card's Step 1 (``cpu_llm_rounds``, beside phases 5-11),
+    both held by ``llm_rounds``."""
     import numpy as np
+    step1_job = CpuJob("llm-qfl Step 1 (cpu, plain)", cpu_step1)
     zero_counters()
     t0 = time.perf_counter()
     task, gpu, orch = run_main_path("cuda", LLM_QUICKSTART, method="llm-qfl")
@@ -1364,31 +1420,42 @@ def llm_phase() -> dict:
           f" F1 {np.round(gpu.llm_f1, 4).tolist()}; launches "
           f"{json.dumps(n)}")
 
-    # Step 1 on the CPU (plain path), against the card's
+    # the quantum rounds on the CPU, fed the card's Step 1, in a process
+    # of their own beside the later phases (llm_rounds collects them)
+    job = CpuJob("llm-qfl rounds (cpu, plain)", cpu_llm_rounds,
+                 orch.llm_outputs)
+    step1 = (gpu.llm_losses, gpu.llm_f1,
+             [np.asarray(t.cpu() if hasattr(t, "cpu") else t)
+              for t in orch.llm_outputs.teacher_probs])
+    return dict(counts=n, wall_s=wall, finetune_s=gpu.llm_finetune_time_s,
+                round_s=orch.round_seconds, gpu=gpu,
+                llm_outputs=orch.llm_outputs, cpu_rounds=job,
+                step1=step1, step1_job=step1_job)
+
+
+def step1_compare(llm: dict):
+    """Phase 4's Step 1 on the CPU (``cpu_step1``), collected and held to
+    the card's: L_LLM, F1 and the teacher probabilities within
+    ``LLM_LOSS_TOL``, ``LLM_F1_TOL`` and ``TEACHER_TOL``."""
+    import numpy as np
     t0 = time.perf_counter()
-    step1 = dict(LLM_QUICKSTART, run=dict(LLM_QUICKSTART["run"], n_rounds=1))
-    _, cpu1, orch1 = run_main_path("cpu", step1, method="llm-qfl")
-    d_loss = float(np.max(np.abs(np.subtract(gpu.llm_losses,
-                                             cpu1.llm_losses))))
-    d_f1 = float(np.max(np.abs(np.subtract(gpu.llm_f1, cpu1.llm_f1))))
-    d_teacher = max(float(np.max(np.abs(a - b))) for a, b in zip(
-        orch.llm_outputs.teacher_probs, orch1.llm_outputs.teacher_probs))
+    losses, f1, teacher, seconds = host_tree(llm.pop("step1_job").result(),
+                                             False)
+    waited = time.perf_counter() - t0
+    g_losses, g_f1, g_teacher = llm.pop("step1")
+    d_loss = float(np.max(np.abs(np.subtract(g_losses, losses))))
+    d_f1 = float(np.max(np.abs(np.subtract(g_f1, f1))))
+    d_teacher = max(float(np.max(np.abs(a - np.asarray(b))))
+                    for a, b in zip(g_teacher, teacher))
     check(d_loss <= LLM_LOSS_TOL and d_f1 <= LLM_F1_TOL
           and d_teacher <= TEACHER_TOL,
           f"llm-qfl Step 1, cuda vs cpu: |Δ L_LLM| {d_loss}, |Δ F1| {d_f1}, "
           f"|Δ teacher| {d_teacher} (tolerances {LLM_LOSS_TOL}, "
           f"{LLM_F1_TOL}, {TEACHER_TOL})")
-    print(f"llm-qfl Step 1 (cpu, plain) in {cpu1.llm_finetune_time_s:.2f} s: "
-          f"max |Δ L_LLM| {d_loss:.3g}, |Δ F1| {d_f1:.3g}, |Δ teacher| "
-          f"{d_teacher:.3g}")
-
-    # the quantum rounds on the CPU, fed the card's Step 1, in a process
-    # of their own beside the later phases (llm_rounds collects them)
-    job = CpuJob("llm-qfl rounds (cpu, plain)", cpu_llm_rounds,
-                 orch.llm_outputs)
-    return dict(counts=n, wall_s=wall, finetune_s=gpu.llm_finetune_time_s,
-                round_s=orch.round_seconds, gpu=gpu,
-                llm_outputs=orch.llm_outputs, cpu_rounds=job)
+    print(f"llm-qfl Step 1 (cpu, plain; a process of {SIDE_CPU_THREADS} "
+          f"threads beside phases 4-11, {waited:.2f} s waited for) in "
+          f"{seconds:.2f} s: max |Δ L_LLM| {d_loss:.3g}, |Δ F1| "
+          f"{d_f1:.3g}, |Δ teacher| {d_teacher:.3g}")
 
 
 def cpu_llm_rounds(llm_outputs):
@@ -1403,9 +1470,11 @@ def cpu_llm_rounds(llm_outputs):
 
 
 def llm_rounds(llm: dict):
-    """Phase 4's quantum rounds on the CPU, collected and held to the
-    card's: the integer accounting exactly, losses and θ_g as
-    ``compare_runs`` says."""
+    """Phase 4's Step 1 on the CPU (``step1_compare``) and its quantum
+    rounds on the CPU, collected and held to the card's: the rounds'
+    integer accounting exactly, losses and θ_g as ``compare_runs``
+    says."""
+    step1_compare(llm)
     t0 = time.perf_counter()
     cpu2, seconds = llm["cpu_rounds"].result()
     loss_gap, theta_gap = compare_runs(llm["gpu"], cpu2)
@@ -1535,7 +1604,7 @@ def time_train_steps(cfg, base, eng, task, bs: int, what: str) -> list:
     the public step function, from the engine's adapters."""
     import torch
     from repro_torch.models import model as M
-    step = M.make_train_step(cfg, lr=3e-3)
+    step = M.make_train_step(cfg, lr=3e-3, opts=M.FwdOptions(remat=False))
     rows = torch.arange(bs)
     batch = {k: torch.stack([torch.as_tensor(cl.llm_batch[k][rows])
                              for cl in task.clients]).long().cuda()
@@ -1632,30 +1701,63 @@ def qlora_stage(device, steps: int):
     return out, time.perf_counter() - t0, base
 
 
-def qlora_phase(device="cuda", cpu_device="cpu") -> dict:
-    """The QLoRA LLM stage of the quickstart (BatchedLLMEngine, tiny-llm,
-    5 clients, 30 steps) on ``device``, held to the same stage on
-    ``cpu_device`` (the plain path)."""
+def qlora_text(dev: str, out, wall: float, steps: int, n: dict) -> str:
     import numpy as np
+    return (f"qlora stage ({dev}): tiny-llm, int4 base, 5 clients, "
+            f"{steps} steps + distill + evaluation in {wall:.2f} s; L_LLM "
+            f"{np.round(out.losses, 4).tolist()} F1 "
+            f"{np.round(out.f1, 4).tolist()}; launches {json.dumps(n)}")
+
+
+def qlora_cpu(steps: int) -> tuple:
+    """``qlora_stage`` on the CPU in a spawned process of
+    ``SIDE_CPU_THREADS`` threads: (result, wall seconds, the packed base
+    bytes of each layer, printed line)."""
+    import torch
+    torch.set_num_threads(SIDE_CPU_THREADS)
+    zero_counters()
+    out, wall, base = qlora_stage("cpu", steps)
+    packed = [{k: v for k, v in lyr.items() if k.endswith("__q")}
+              for lyr in base["layers"]]
+    return host_tree((out, wall, packed, qlora_text(
+        "cpu", out, wall, steps, read_counters())))
+
+
+def qlora_phase(device="cuda") -> dict:
+    """The QLoRA LLM stage of the quickstart (BatchedLLMEngine, tiny-llm,
+    5 clients, 30 steps) on ``device``, and the same stage on the CPU
+    (the plain path, ``qlora_cpu``) beside the card's later work,
+    held to it by ``qlora_compare``."""
     steps = LLM_QUICKSTART["run"]["llm_steps"]
-    runs = []
-    for dev in (device, cpu_device):
-        zero_counters()
-        out, wall, base = qlora_stage(dev, steps)
-        n = read_counters()
-        runs.append((out, n, wall, base))
-        print(f"qlora stage ({dev}): tiny-llm, int4 base, 5 clients, "
-              f"{steps} steps + distill + evaluation in {wall:.2f} s; L_LLM "
-              f"{np.round(out.losses, 4).tolist()} F1 "
-              f"{np.round(out.f1, 4).tolist()}; launches {json.dumps(n)}")
-    (out, n, wall, base), (cpu, _, cpu_wall, cpu_base) = runs
+    job = CpuJob("qlora stage (cpu, plain)", qlora_cpu, steps)
+    zero_counters()
+    out, wall, base = qlora_stage(device, steps)
+    n = read_counters()
+    print(qlora_text(device, out, wall, steps, n))
     check_llm_launches(n, llm_launch_formula(steps, 2), True, "qlora")
+    packed = [{k: v.cpu() for k, v in lyr.items() if k.endswith("__q")}
+              for lyr in base["layers"]]
+    return dict(counts=n, wall_s=wall, card=(out, packed), job=job)
+
+
+def qlora_compare(ql: dict):
+    """Phase 6's QLoRA stage on the CPU, collected and held to the
+    card's: the packed base bytes (at least 0.999 of them alike), L_LLM,
+    F1 and the teacher probabilities within ``LLM_LOSS_TOL``,
+    ``LLM_F1_TOL`` and ``TEACHER_TOL``."""
+    import numpy as np
+    t0 = time.perf_counter()
+    cpu, cpu_wall, cpu_packed, text = host_tree(ql.pop("job").result(),
+                                                False)
+    waited = time.perf_counter() - t0
+    print(text + f" (a process of {SIDE_CPU_THREADS} threads beside "
+          f"phases 6-18, {waited:.2f} s waited for)")
+    out, packed = ql.pop("card")
     equal = total = 0
-    for a, b in zip(base["layers"], cpu_base["layers"]):
+    for a, b in zip(packed, cpu_packed):
         for k in a:
-            if k.endswith("__q"):
-                equal += int((a[k].cpu() == b[k]).sum())
-                total += a[k].numel()
+            equal += int((a[k] == b[k]).sum())
+            total += a[k].numel()
     share = equal / total
     check(share >= 0.999, f"qlora: the card packs {share} of the CPU's "
           "base bytes alike")
@@ -1670,7 +1772,7 @@ def qlora_phase(device="cuda", cpu_device="cpu") -> dict:
     print(f"qlora stage: card vs cpu max |Δ L_LLM| {d_loss:.3g}, |Δ F1| "
           f"{d_f1:.3g}, |Δ teacher| {d_teacher:.3g}; packed base bytes "
           f"equal on {share:.6f} of {total}")
-    return dict(counts=n, wall_s=wall, cpu_wall_s=cpu_wall)
+    ql["cpu_wall_s"] = cpu_wall
 
 
 # ---------------------------------------------------------------------------
@@ -1712,10 +1814,35 @@ def check_no_tape(n: dict, what: str):
           == 0, f"{what}: the sequential engine replayed a tape: {n}")
 
 
+def sequential_cpu_runs(step1) -> list:
+    """Phase 7's CPU runs, one after another in a spawned process of
+    ``SIDE_CPU_THREADS`` threads: QFL Nelder–Mead sequential, QFL SPSA
+    batched and LLM-QFL SPSA batched on the card's sequential Step 1
+    ``step1``: ``[(label, result, printed lines)]``."""
+    import contextlib
+    import io
+    import torch
+    torch.set_num_threads(SIDE_CPU_THREADS)
+    out = []
+    for label, cfg, kw in (
+            ("qfl nm sequential", SEQ_QFL, dict(engine="sequential")),
+            ("qfl spsa batched", SEQ_QFL, dict(optimizer="spsa")),
+            ("llm-qfl spsa batched", SEQ_LLM, dict(
+                method="llm-qfl", optimizer="spsa", llm_outputs=step1))):
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            res = drive(label, "cpu", cfg, **kw)[0]
+        out.append((label, res, text.getvalue()))
+    return out
+
+
 def sequential_phase() -> dict:
     """The sequential engine (Nelder–Mead and SPSA) and the batched SPSA
     at the quickstart's width, QFL and LLM-QFL, on the card: each held to
-    the other engine on the card and to a run on the CPU."""
+    the other engine on the card here, and to a run on the CPU
+    (``sequential_cpu_runs``, started once the sequential Step 1 is there,
+    in a process of its own beside the card's work) by
+    ``sequential_compare``."""
     import numpy as np
     print("sequential and SPSA phase (genomic, 5 clients x 50 rows, 4-qubit "
           "VQC, tiny-llm 30 Step-1 steps, 3 rounds):")
@@ -1723,29 +1850,20 @@ def sequential_phase() -> dict:
 
     def run(label, device, cfg, **kw):
         res, orch, n, t = drive(label, device, cfg, **kw)
-        if device == "cuda":
-            wall[label], counts[label] = t, n
+        wall[label], counts[label] = t, n
         return res, orch, n
 
     def hold(name, a, b, loss_tol=1e-5, theta_tol=1e-4):
-        compare_runs(a, b, loss_tol, theta_tol, what=name)
-        gaps[name] = (
-            float(np.max(np.abs(np.subtract(a.series("server_loss"),
-                                            b.series("server_loss"))))),
-            float(np.max(np.abs(a.theta_g - b.theta_g))))
-        print(f"  {name}: equal maxiters/selected/cum_evals; max |Δ server "
-              f"loss| {gaps[name][0]:.3g} (tol {loss_tol}), max |Δ θ_g| "
-              f"{gaps[name][1]:.3g} (tol {theta_tol})")
+        gaps[name] = hold_runs(name, a, b, loss_tol, theta_tol)
 
-    # 1. QFL, Nelder–Mead: sequential against batched, and against the CPU
+    # 1. QFL, Nelder–Mead: sequential against batched
     seq, _, n = run("qfl nm sequential", "cuda", SEQ_QFL,
                     engine="sequential")
     check_no_tape(n, "qfl nm sequential")
     bat, _, n = run("qfl nm batched", "cuda", SEQ_QFL)
     check_tape_launches(n, "qfl nm batched")
     hold("qfl nm: sequential vs batched (cuda)", seq, bat)
-    cpu, _, _ = run("qfl nm sequential", "cpu", SEQ_QFL, engine="sequential")
-    hold("qfl nm sequential: cuda vs cpu", seq, cpu)
+    cards = {"qfl nm sequential": seq}
 
     # 2. LLM-QFL, Nelder–Mead: the sequential Step 1 and its launches,
     # against the batched Step 1 on the same base; the rounds against the
@@ -1787,13 +1905,14 @@ def sequential_phase() -> dict:
     print(f"  llm-qfl nm rounds, each engine on its own Step 1: integer "
           f"accounting {'equal' if same else 'NOT equal (teacher noise)'}")
     step1 = orch.llm_outputs
+    job = CpuJob("phase 7's CPU runs", sequential_cpu_runs, step1)
     bat2, _, n = run("llm-qfl nm batched, sequential Step 1", "cuda",
                      SEQ_LLM, method="llm-qfl", llm_outputs=step1)
     check_tape_launches(n, "llm-qfl nm batched")
     hold("llm-qfl nm: sequential vs batched (cuda, one Step 1)", seq, bat2,
          loss_tol=1e-4)
 
-    # 3. SPSA: batched against sequential on the card, and against the CPU
+    # 3. SPSA: batched against sequential on the card
     sb, _, n = run("qfl spsa batched", "cuda", SEQ_QFL, optimizer="spsa")
     check_tape_launches(n, "qfl spsa batched")
     tape_launches = n["statevector_tape"]
@@ -1801,8 +1920,7 @@ def sequential_phase() -> dict:
                    engine="sequential")
     check_no_tape(n, "qfl spsa sequential")
     hold("qfl spsa: batched vs sequential (cuda)", sb, ss, 1e-4, 1e-4)
-    sc, _, _ = run("qfl spsa batched", "cpu", SEQ_QFL, optimizer="spsa")
-    hold("qfl spsa batched: cuda vs cpu", sb, sc, 1e-4, 1e-4)
+    cards["qfl spsa batched"] = sb
     lb, _, n = run("llm-qfl spsa batched", "cuda", SEQ_LLM,
                    method="llm-qfl", optimizer="spsa", llm_outputs=step1)
     check_tape_launches(n, "llm-qfl spsa batched")
@@ -1813,13 +1931,44 @@ def sequential_phase() -> dict:
     check_no_tape(n, "llm-qfl spsa sequential")
     hold("llm-qfl spsa: batched vs sequential (cuda, one Step 1)", lb, ls,
          1e-4, 1e-3)
-    lc, _, _ = run("llm-qfl spsa batched", "cpu", SEQ_LLM, method="llm-qfl",
-                   optimizer="spsa", llm_outputs=step1)
-    hold("llm-qfl spsa batched: cuda vs cpu (one Step 1)", lb, lc, 1e-4,
-         1e-3)
+    cards["llm-qfl spsa batched"] = lb
     return dict(wall_s=wall, seq_launches=seq_launches,
                 tape_launches=tape_launches,
-                tape_launches_llm=tape_launches_llm, gaps=gaps)
+                tape_launches_llm=tape_launches_llm, gaps=gaps, cards=cards,
+                job=job)
+
+
+def hold_runs(name, a, b, loss_tol, theta_tol) -> tuple:
+    """``compare_runs`` of two runs, printed: (max |Δ server loss|, max
+    |Δ θ_g|)."""
+    import numpy as np
+    compare_runs(a, b, loss_tol, theta_tol, what=name)
+    gaps = (float(np.max(np.abs(np.subtract(a.series("server_loss"),
+                                            b.series("server_loss"))))),
+            float(np.max(np.abs(a.theta_g - b.theta_g))))
+    print(f"  {name}: equal maxiters/selected/cum_evals; max |Δ server "
+          f"loss| {gaps[0]:.3g} (tol {loss_tol}), max |Δ θ_g| "
+          f"{gaps[1]:.3g} (tol {theta_tol})")
+    return gaps
+
+
+def sequential_compare(seq: dict):
+    """Phase 7's CPU runs, collected and each held to its card run by
+    ``hold_runs`` (server loss / θ_g: Nelder–Mead QFL 1e-5 / 1e-4, SPSA
+    QFL 1e-4 / 1e-4, SPSA LLM-QFL on one Step 1 1e-4 / 1e-3)."""
+    t0 = time.perf_counter()
+    runs = seq.pop("job").result()
+    print(f"phase 7's CPU runs ({SIDE_CPU_THREADS} threads, a process of "
+          f"their own beside the later phases; {time.perf_counter() - t0:.1f}"
+          " s waited for):")
+    tols = {"qfl nm sequential": (1e-5, 1e-4),
+            "qfl spsa batched": (1e-4, 1e-4),
+            "llm-qfl spsa batched": (1e-4, 1e-3)}
+    for label, cpu, text in runs:
+        print(text, end="")
+        seq["gaps"][f"{label}: cuda vs cpu"] = hold_runs(
+            f"{label}: cuda vs cpu", seq["cards"][label], cpu, *tols[label])
+    seq.pop("cards")
 
 
 def stage_gaps(losses, f1s, teachers, out, task) -> tuple:
@@ -3224,6 +3373,16 @@ def family_launches(cfg) -> dict:
                            "flash_attention": 0}}
 
 
+def serve_prompts(cfg):
+    """The serving phases' 4 prompts of 512 tokens of ``cfg``'s vocabulary,
+    drawn from ``PRNGKey(0)``, on the card."""
+    import torch
+    from repro_torch import random as jr
+    return torch.from_numpy(jr.randint(
+        jr.PRNGKey(0), (SERVE_B, max(SERVE_PROMPTS)), 4,
+        cfg.vocab_size - 4)).long().cuda()
+
+
 def draw_family(cfg) -> tuple:
     """The base of ``cfg`` as ``init_params`` draws it on the card (its
     config's bfloat16, each leaf a slice at a time) and its adapters with
@@ -3387,6 +3546,24 @@ def moe_reference(call, cfg, n_tokens: int) -> dict:
                 tokens=len(sample), with_drops=len(set(dropped) & set(sample)))
 
 
+def kimi_cfg():
+    """Phase 13's config: kimi-k2-1t-a32b cut to one ``("attn", "moe")``
+    group."""
+    import dataclasses
+    from repro_torch.configs.registry import get
+    full = get(KIMI)
+    return dataclasses.replace(full, n_layers=len(full.pattern))
+
+
+def kimi_start() -> dict:
+    """Phase 13's config (``kimi_cfg``), its base drawn on the card
+    (``draw_family``) and its prompts (``serve_prompts``): its phase has
+    no CPU half."""
+    cfg = kimi_cfg()
+    return dict(cfg=cfg, model=draw_family(cfg)[0],
+                prompts=serve_prompts(cfg))
+
+
 def kimi_phase(gen) -> dict:
     """Phase 13: ``kimi-k2-1t-a32b`` at its published widths (d_model
     7168, 64/8 heads of 112, 384 experts top-8 of d_ff 2048 and one
@@ -3415,7 +3592,7 @@ def kimi_phase(gen) -> dict:
     from repro_torch.models import model as M
     t_phase = time.perf_counter()
     full = get(KIMI)
-    cfg = dataclasses.replace(full, n_layers=len(full.pattern))
+    cfg = kimi_cfg()
     m = cfg.moe
     print(f"phase 13: {KIMI} at its published widths (d_model "
           f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
@@ -3425,8 +3602,7 @@ def kimi_phase(gen) -> dict:
           f"{cfg.n_layers} (one {cfg.pattern[0]} group)")
     model, init_s, draw_peak, weight_bytes = draw_family(cfg)
     B, steps, key = SERVE_B, SERVE_STEPS, jr.PRNGKey(0)
-    prompts = torch.from_numpy(jr.randint(
-        key, (B, max(SERVE_PROMPTS)), 4, cfg.vocab_size - 4)).long().cuda()
+    prompts = serve_prompts(cfg)
     torch.cuda.reset_peak_memory_stats()
     runs = {P: serve_timed(cfg, model, prompts[:, :P], steps, key,
                            weight_bytes) for P in SERVE_PROMPTS}
@@ -3528,8 +3704,12 @@ def kimi_phase(gen) -> dict:
     for b in held:
         check(row_err[b] <= SERVE_CPU_TOL, f"{KIMI} prefill against the "
               f"decode path, row {b}: {row_err[b]} > {SERVE_CPU_TOL}")
-    del model, prompts, dec, logits, caches, dec_cache
+    del dec, logits, caches, dec_cache
+    training = train_family(KIMI, cfg, model, prompts)
+    check_training(KIMI, cfg, training)
+    del model, prompts
     return dict(wall_s=wall, init_s=init_s, draw_peak_gib=draw_peak,
+                training=training,
                 peak_gib=peak, weight_bytes=weight_bytes, routing=routing,
                 moe_ref=ref, decode_gap_rows=row_err, held_rows=held,
                 flips=flips, decode_cache_gap=cache_err,
@@ -3572,14 +3752,22 @@ def host_tree(tree, to_host: bool = True):
 
 
 def family_half_cpu(cfg, model, prompts, fed, threads: int,
-                    decode: bool = True) -> dict:
+                    decode: bool = True, labels=None) -> dict:
     """``family_half`` in a spawned process, on host trees both ways."""
     return host_tree(family_half(cfg, *host_tree((model, prompts, fed),
-                                                 False), threads, decode))
+                                                 False), threads, decode,
+                                 host_tree(labels, False)))
+
+
+def next_tokens(prompts, fed):
+    """The labels of ``prompts`` ``(B, P)``: each position's next token,
+    the last one the first token fed after the prompt."""
+    import torch
+    return torch.cat([prompts[:, 1:], fed[:, :1]], dim=1)
 
 
 def family_half(cfg, model, prompts, fed, threads: int = 0,
-                decode: bool = True) -> dict:
+                decode: bool = True, labels=None) -> dict:
     """Prefill on ``prompts`` and ``fed.shape[1]`` serve steps fed ``fed``
     from prefill's cache, and (``decode``) the decode path on the
     prompts, in bfloat16 and on the same weights in float32 (a float32
@@ -3587,8 +3775,10 @@ def family_half(cfg, model, prompts, fed, threads: int = 0,
     decode path's last logits and caches to prefill's (None without
     it), and the cache the serve steps started from.  A model whose
     prefill cache cannot seed the serve step (an mLSTM one, with no
-    attention layer) steps on from the decode path's cache.  Runs on the model's device; phases 12 and 14-16 run it on the
-    card and, in a process of its own, on the CPU."""
+    attention layer) steps on from the decode path's cache.  With
+    ``labels``, phase 19's ``train_half`` on the prompts.  Runs on the model's device; phases
+    12 and 14-16 run it on the card and, in a process of its own, on the
+    CPU."""
     import torch
     from repro_torch.models import model as M
     from repro_torch.tree import tree_map
@@ -3633,9 +3823,46 @@ def family_half(cfg, model, prompts, fed, threads: int = 0,
                 cache_gaps=gaps,
                 cache_gap=None if gaps is None else max(gaps),
                 seconds=time.perf_counter() - t1)
+            if labels is not None:
+                out.update(train_half(cfg, m, prompts, labels, dt))
     out["seconds"] = time.perf_counter() - t0
     out["prompt_len"] = prompts.shape[1]
     return out
+
+
+def minicpm_cfg(n_layers: int = MINICPM_SMOKE_LAYERS):
+    """Phase 14's config: minicpm3-4b's first ``n_layers`` layers
+    (``MINICPM_SMOKE_LAYERS`` in the whole run)."""
+    import dataclasses
+    from repro_torch.configs.registry import get
+    return dataclasses.replace(get(MINICPM), n_layers=n_layers)
+
+
+def minicpm_start(cfg) -> dict:
+    """Phase 14's model: ``cfg``'s base drawn on the card
+    (``draw_family``), its prompts (``serve_prompts``), and its CPU half
+    (``family_half`` with phase 19's labels, on host copies of the first
+    ``FAMILY_CPU_DEPTH`` layers, prefill at 32 tokens and the 2 tokens
+    fed after them) started in a process of its own; ``half`` is the CPU
+    half's ``(config, model, tokens, labels, frontend)``."""
+    import dataclasses
+    model, init_s, draw_peak, weight_bytes = draw_family(cfg)
+    prompts = serve_prompts(cfg)
+    P = min(SERVE_PROMPTS)
+    shallow_cfg = dataclasses.replace(cfg, n_layers=FAMILY_CPU_DEPTH)
+    params, adapters = model
+    shallow = (dict(params, layers=params["layers"][:FAMILY_CPU_DEPTH]),
+               adapters[:FAMILY_CPU_DEPTH])
+    fed = prompts[:, P:P + 2]
+    labels = next_tokens(prompts[:, :P], fed)
+    job = CpuJob(f"{MINICPM} at depth {FAMILY_CPU_DEPTH} (cpu, plain)",
+                 family_half_cpu, shallow_cfg, *host_tree(
+                     (shallow, prompts[:, :P], fed)), CPU_JOB_THREADS, True,
+                 host_tree(labels))
+    return dict(cfg=cfg, model=model, prompts=prompts, fed=fed, job=job,
+                half=(shallow_cfg, shallow, prompts[:, :P], labels, None),
+                init_s=init_s, draw_peak=draw_peak,
+                weight_bytes=weight_bytes)
 
 
 def minicpm_phase(gen, n_layers: int = None, idle=None) -> dict:
@@ -3658,7 +3885,6 @@ def minicpm_phase(gen, n_layers: int = None, idle=None) -> dict:
     versions.  ``idle``, when given, is called once the card's work is
     done and before the CPU half is collected (later phases' draws fill
     the wait).  The card's model is freed at the end."""
-    import dataclasses
     import torch
     from repro_torch import random as jr
     from repro_torch.configs.registry import get
@@ -3666,7 +3892,7 @@ def minicpm_phase(gen, n_layers: int = None, idle=None) -> dict:
     from repro_torch.tree import tree_map
     t_phase = time.perf_counter()
     full = get(MINICPM)
-    cfg = dataclasses.replace(full, n_layers=n_layers or full.n_layers)
+    cfg = minicpm_cfg(n_layers or full.n_layers)
     ml = cfg.mla
     print(f"phase 14: {MINICPM} at its published widths (d_model "
           f"{cfg.d_model}, {cfg.n_heads} heads, MLA q rank {ml.q_lora_rank},"
@@ -3674,19 +3900,15 @@ def minicpm_phase(gen, n_layers: int = None, idle=None) -> dict:
           f"{ml.qk_rope_head_dim}, v {ml.v_head_dim}, d_ff {cfg.d_ff}, "
           f"vocab {cfg.vocab_size}), {cfg.n_layers} of its {full.n_layers} "
           "layers")
-    model, init_s, draw_peak, weight_bytes = draw_family(cfg)
+    st = minicpm_start(cfg)
+    model, prompts, job = st["model"], st["prompts"], st["job"]
+    init_s, draw_peak, weight_bytes = (st[k] for k in (
+        "init_s", "draw_peak", "weight_bytes"))
+    shallow_cfg, shallow, _, labels, _ = st["half"]
+    fed, (params, adapters) = st["fed"], model
+    del st
     B, steps, key = SERVE_B, SERVE_STEPS, jr.PRNGKey(0)
-    prompts = torch.from_numpy(jr.randint(
-        key, (B, max(SERVE_PROMPTS)), 4, cfg.vocab_size - 4)).long().cuda()
     P = min(SERVE_PROMPTS)
-    shallow_cfg = dataclasses.replace(cfg, n_layers=FAMILY_CPU_DEPTH)
-    params, adapters = model
-    shallow = (dict(params, layers=params["layers"][:FAMILY_CPU_DEPTH]),
-               adapters[:FAMILY_CPU_DEPTH])
-    fed = prompts[:, P:P + 2]
-    job = CpuJob(f"{MINICPM} at depth {FAMILY_CPU_DEPTH} (cpu, plain)",
-                 family_half_cpu, shallow_cfg, *host_tree(
-                     (shallow, prompts[:, :P], fed)), CPU_JOB_THREADS)
     torch.cuda.reset_peak_memory_stats()
     runs = {P_: serve_timed(cfg, model, prompts[:, :P_], steps, key,
                             weight_bytes) for P_ in SERVE_PROMPTS}
@@ -3728,7 +3950,9 @@ def minicpm_phase(gen, n_layers: int = None, idle=None) -> dict:
                               dtype=torch.float32)[0]
     f32_gap = rel_err(f32_dec, f32_logits, floor=0.0)
     del f32, f32_dec
-    card = family_half(shallow_cfg, shallow, prompts[:, :P], fed)
+    card = family_half(shallow_cfg, shallow, prompts[:, :P], fed,
+                       labels=labels)
+    training = train_family(MINICPM, cfg, model, prompts)
     idle_s = 0.0
     if idle is not None:
         t0 = time.perf_counter()
@@ -3749,6 +3973,8 @@ def minicpm_phase(gen, n_layers: int = None, idle=None) -> dict:
                        + cache_errs(g["step_caches"], w["step_caches"])),
             gap=g["gap"], cpu_gap=w["gap"], tol=tol, cache_tol=ctol)
     wall = time.perf_counter() - t_phase - idle_s
+    training["cpu_compare"] = train_half_compare(card, cpu)
+    print(training_text(training["cpu_compare"], cfg))
     e16, e32 = errs["bfloat16"], errs["float32"]
     print(f"phase 14: depth {FAMILY_CPU_DEPTH} on the card's weights, card "
           f"against the CPU port (a process of {CPU_JOB_THREADS} threads, "
@@ -3789,11 +4015,12 @@ def minicpm_phase(gen, n_layers: int = None, idle=None) -> dict:
               f"the CPU port's {e['cpu_gap']}")
     check(f32_gap <= SERVE_F32_TOL, f"{MINICPM} float32 prefill against "
           f"the decode path: {f32_gap} > {SERVE_F32_TOL}")
+    check_training(MINICPM, cfg, training, training["cpu_compare"])
     del model, params, adapters, shallow, prompts
     return dict(wall_s=wall, init_s=init_s, draw_peak_gib=draw_peak,
                 peak_gib=peak, weight_bytes=weight_bytes, cpu_s=cpu["seconds"],
                 cpu_waited_s=waited, depth2=errs, float32_decode_gap=f32_gap,
-                kernel_times=times,
+                kernel_times=times, training=training,
                 runs={P_: {k: v for k, v in r.items()
                            if k not in ("logits", "caches")}
                       for P_, r in runs.items()})
@@ -4042,36 +4269,38 @@ def recurrent_decode_gap(cfg, model, prompts) -> dict:
 
 def recurrent_start(name, cfg, cpu_decode: bool) -> dict:
     """The base of ``cfg`` drawn on the card (``draw_family``), 4 prompts
-    of 512 tokens, and its CPU half (``family_half`` at 32 tokens on host
-    copies of the card's weights, ``cpu_decode`` with the decode path)
-    started in a process of its own."""
-    import torch
-    from repro_torch import random as jr
+    of 512 tokens (``serve_prompts``), and its CPU half (``family_half``
+    at 32 tokens on host copies of the card's weights, ``cpu_decode``
+    with the decode path, phase 19's labels) started in a process of its
+    own; ``half`` as ``minicpm_start``'s."""
     model, init_s, draw_peak, weight_bytes = draw_family(cfg)
-    prompts = torch.from_numpy(jr.randint(
-        jr.PRNGKey(0), (SERVE_B, max(SERVE_PROMPTS)), 4,
-        cfg.vocab_size - 4)).long().cuda()
+    prompts = serve_prompts(cfg)
     P = min(SERVE_PROMPTS)
     fed = prompts[:, P:P + 2]
+    labels = next_tokens(prompts[:, :P], fed)
     t0 = time.perf_counter()
     job = CpuJob(f"{name} at {P} tokens (cpu, plain)", family_half_cpu,
                  cfg, *host_tree((model, prompts[:, :P], fed)),
-                 CPU_JOB_THREADS, cpu_decode)
+                 CPU_JOB_THREADS, cpu_decode, host_tree(labels))
     return dict(name=name, cfg=cfg, model=model, prompts=prompts, fed=fed,
+                labels=labels, half=(cfg, model, prompts[:, :P], labels,
+                                     None),
                 job=job, init_s=init_s, draw_peak=draw_peak,
                 weight_bytes=weight_bytes,
                 handoff=time.perf_counter() - t0)
 
 
 def recurrent_run(started: dict, gen, lora_shapes, attn_shapes,
-                  lora_iters=(50, 20)):
+                  lora_iters=(50, 20), training=None):
     """Phases 15 and 16's shared body, on ``recurrent_start``'s model:
     4 requests served at 32 and 512 tokens (``serve_timed``), prefill
     against the decode path (``recurrent_decode_gap``), the kernels at
     the model's shapes (``kernel_times``), then the CPU half collected
     and compared, along the trajectory and from one state
-    (``recurrent_compare``, ``recurrent_local``).  Returns the model, the
-    prompts and the phase's numbers; the checks are the caller's."""
+    (``recurrent_compare``, ``recurrent_local``).  Phase 19's
+    ``train_family`` runs here unless ``training`` brings its numbers
+    (``side_training``'s).  Returns the model, the prompts and the
+    phase's numbers; the checks are the caller's."""
     import torch
     from repro_torch import random as jr
     name, cfg, model = started["name"], started["cfg"], started["model"]
@@ -4096,18 +4325,23 @@ def recurrent_run(started: dict, gen, lora_shapes, attn_shapes,
               f"prefill {json.dumps(r['launches_prefill'])}, serve steps "
               f"{json.dumps(r['launches_steps'])}")
     gaps = recurrent_decode_gap(cfg, model, prompts[:, :P])
-    card = family_half(cfg, model, prompts[:, :P], fed, decode=False)
+    card = family_half(cfg, model, prompts[:, :P], fed, decode=False,
+                       labels=started["labels"])
     times = kernel_times(gen, lora_shapes, attn_shapes, lora_iters)
+    if training is None:
+        training = train_family(cfg.name, cfg, model, prompts)
     t0 = time.perf_counter()
     cpu = host_tree(job.result(), False)
     waited = time.perf_counter() - t0
     errs = recurrent_compare(cfg, card, cpu,
                              recurrent_local(cfg, model, cpu, fed))
+    training["cpu_compare"] = train_half_compare(card, cpu)
+    print(training_text(training["cpu_compare"], cfg))
     return model, prompts, dict(
         init_s=init_s, draw_peak_gib=draw_peak, peak_gib=peak,
         weight_bytes=weight_bytes, cpu_s=cpu["seconds"], cpu_waited_s=waited,
         cpu_handoff_s=handoff, decode_gap=gaps, cpu_compare=errs,
-        kernel_times=times,
+        kernel_times=times, training=training,
         runs={P_: {k: v for k, v in r.items() if k not in ("logits",
                                                             "caches")}
               for P_, r in runs.items()})
@@ -4169,6 +4403,8 @@ def check_recurrent_run(name, cfg, out: dict):
               f"against the decode path, {what}: {err} > {SERVE_F32_TOL}")
     check(any(b["held_caches"]), f"{name}: no layer held along the "
           "trajectory")
+    check_training(name, cfg, out["training"],
+                   out["training"]["cpu_compare"])
 
 
 def jamba_start() -> dict:
@@ -4236,7 +4472,7 @@ def xlstm_start() -> dict:
                            cpu_decode=True)
 
 
-def xlstm_phase(gen, started: dict) -> dict:
+def xlstm_phase(gen, started: dict, training=None) -> dict:
     """Phase 16: ``xlstm-125m`` at its published widths and all 12 layers
     (d_model 768, 4 heads, mLSTM ed 1536 of head dim 384, sLSTM FFN 1024,
     vocab 50304, untied), served as phase 12 serves (``recurrent_run``;
@@ -4251,7 +4487,8 @@ def xlstm_phase(gen, started: dict) -> dict:
     no attention); the card against the CPU port; prefill against the
     decode path; ``lora_matmul`` at the mLSTM's ``wq`` against its plain
     version.  ``started`` is ``xlstm_start``'s (its draw time is in the
-    phase's numbers, not in its wall time)."""
+    phase's numbers, not in its wall time); ``training``, phase 19's
+    numbers when ``side_training`` took them."""
     import torch
     from repro_torch.models import model as M
     from repro_torch.models import xlstm
@@ -4269,11 +4506,12 @@ def xlstm_phase(gen, started: dict) -> dict:
     model, prompts, out = recurrent_run(
         started, gen,
         [(f"xlstm-wq-M{M_}", M_, ed, ed, cfg.lora.rank) for M_ in (B, B * S)],
-        [])
+        [], training=training)
     batch = {"tokens": prompts}
     forms = {}
     for form, chunk in (("sequential", False), ("chunkwise", True)):
-        prefill = M.make_prefill_step(cfg, mlstm_chunkwise=chunk)
+        prefill = M.make_prefill_step(cfg, M.FwdOptions(
+            remat=False, collect_cache=True, mlstm_chunkwise=chunk))
         if chunk:           # the sequential one ran warm in serve_timed
             prefill(*model, batch)
         zero_counters()
@@ -4426,9 +4664,10 @@ def frontend_half(cfg, model, batch, fed, threads: int = 0) -> dict:
     """Prefill on ``batch`` (tokens, and the float32 stub frontend, cast
     to bfloat16 for the bfloat16 run) and ``fed.shape[1]`` serve steps fed
     ``fed`` from prefill's cache, in bfloat16 and on the same weights in
-    float32 (a float32 cache): logits and caches on the CPU.  Runs on the
-    model's device; phases 17 and 18 run it on the card and, in a process
-    of its own, on the CPU."""
+    float32 (a float32 cache): logits and caches on the CPU; with
+    ``batch["labels"]``, phase 19's ``train_half``.  Runs on the model's device; phases 17
+    and 18 run it on the card and, in a process of its own, on the
+    CPU."""
     import torch
     from repro_torch.models import model as M
     from repro_torch.tree import tree_map
@@ -4457,6 +4696,10 @@ def frontend_half(cfg, model, batch, fed, threads: int = 0) -> dict:
                               caches=tree_map(cpu, caches), steps=steps,
                               step_caches=tree_map(cpu, cache),
                               seconds=time.perf_counter() - t1)
+            if "labels" in batch:
+                out.update(train_half(cfg, m, batch["tokens"],
+                                      batch["labels"], dt,
+                                      batch["frontend"]))
             del m, caches, cache
     out["seconds"] = time.perf_counter() - t0
     return out
@@ -4503,10 +4746,10 @@ def frontend_start(name: str) -> dict:
     frontend's float32 embeddings ``(4, F, d)`` from a card generator
     seeded 0, and the card's and the CPU's halves of the comparison at 32
     tokens on ``frontend_shallow``'s model (``FRONTEND_CPU_B[name]``
-    requests and the 2 tokens fed after the prompt): the CPU's, on host
-    copies, started in a process of its own."""
+    requests and the 2 tokens fed after the prompt, phase 19's labels):
+    the CPU's, on host copies, started in a process of its own; ``half``
+    as ``minicpm_start``'s."""
     import torch
-    from repro_torch import random as jr
     from repro_torch.configs.registry import get
     cfg, full = frontend_cfg(name), get(name)
     print(f"phase {FRONTEND_PHASE[name]}: {name} at its published widths "
@@ -4518,16 +4761,16 @@ def frontend_start(name: str) -> dict:
           + f"), {cfg.n_encoder_layers} encoder and {cfg.n_layers} decoder "
           f"layers (published: {full.n_encoder_layers} and {full.n_layers})")
     model, init_s, draw_peak, weight_bytes = draw_family(cfg)
-    prompts = torch.from_numpy(jr.randint(
-        jr.PRNGKey(0), (SERVE_B, max(SERVE_PROMPTS)), 4,
-        cfg.vocab_size - 4)).long().cuda()
+    prompts = serve_prompts(cfg)
     gen = torch.Generator(device="cuda").manual_seed(0)
     frames = torch.randn(SERVE_B, cfg.n_frontend_tokens, cfg.d_model,
                          generator=gen, device="cuda")
     P, b = min(SERVE_PROMPTS), FRONTEND_CPU_B[name]
     cpu_cfg, cpu_model, tokens = frontend_shallow(cfg, model,
                                                   prompts[:b, :P + 2])
-    batch = {"tokens": tokens[:, :P], "frontend": frames[:b]}
+    # the labels index the LM head, not the cut embedding table
+    batch = {"tokens": tokens[:, :P], "frontend": frames[:b],
+             "labels": prompts[:b, 1:P + 1]}
     fed = tokens[:, P:]
     t0 = time.perf_counter()
     job = CpuJob(f"{name} at {P} tokens (cpu, plain)", frontend_half_cpu,
@@ -4536,6 +4779,8 @@ def frontend_start(name: str) -> dict:
     return dict(name=name, cfg=cfg, model=model, prompts=prompts,
                 frames=frames, cpu_cfg=cpu_cfg, cpu_model=cpu_model,
                 batch=batch, fed=fed, job=job, init_s=init_s,
+                half=(cpu_cfg, cpu_model, batch["tokens"], batch["labels"],
+                      batch["frontend"]),
                 draw_peak=draw_peak, weight_bytes=weight_bytes,
                 handoff=time.perf_counter() - t0)
 
@@ -4596,12 +4841,16 @@ def frontend_run(started: dict, gen, lora_shapes, attn_shapes,
     times = kernel_times(gen, lora_shapes, attn_shapes, lora_iters,
                          attn_iters)
     marks.append(time.perf_counter())
+    training = train_family(name, cfg, model, prompts, frames)
+    marks.append(time.perf_counter())
     cpu = host_tree(started["job"].result(), False)
     marks.append(time.perf_counter())
     waited = marks[-1] - marks[-2]
     split = dict(zip(("prefill_step_gaps", "card_half", "kernel_times",
-                      "cpu_wait"), (b - a for a, b in zip(marks,
-                                                           marks[1:]))))
+                      "training", "cpu_wait"),
+                     (b - a for a, b in zip(marks, marks[1:]))))
+    training["cpu_compare"] = train_half_compare(card, cpu)
+    print(training_text(training["cpu_compare"], cfg))
     errs = {}
     for label in ("bfloat16", "float32"):
         g, w = card[label], cpu[label]
@@ -4619,7 +4868,7 @@ def frontend_run(started: dict, gen, lora_shapes, attn_shapes,
                 cpu_requests=started["batch"]["tokens"].shape[0],
                 cpu_layers=cpu_cfg.n_layers + cpu_cfg.n_encoder_layers,
                 prefill_step_gap=gaps, cpu_compare=errs, kernel_times=times,
-                seconds=split,
+                seconds=split, training=training,
                 runs={P_: {k: v for k, v in r.items()
                            if k not in ("logits", "caches")}
                       for P_, r in runs.items()})
@@ -4673,6 +4922,8 @@ def check_frontend_run(name: str, cfg, out: dict):
                                 for s, x in enumerate(e["steps"])]):
             check(err <= t, f"{name} {label} {what}: card against the CPU "
                   f"port {err} > {t}")
+    check_training(name, cfg, out["training"],
+                   out["training"]["cpu_compare"])
 
 
 def whisper_phase(gen, started: dict) -> dict:
@@ -4760,38 +5011,55 @@ OTHER_HEAD_DIM_SHAPES = (
        ("jamba-512", 4, 512, 64, 8, 128, 128)])
 
 
-def attn_bwd_times(gen) -> list:
-    """``flash_attention_bwd`` at ``OTHER_HEAD_DIM_SHAPES`` (causal), bf16
-    and float32, as the model's autograd calls it (a v narrower than q
-    and its output gradient zero-padded to q's head dim): held to plain
-    autograd (2e-2 / 2e-5 of the largest magnitude) and timed in a host
-    loop and a CUDA graph, beside its plain version (autograd of
-    ``ref.flash_attention``), SDPA's backward (v as it is) and its bound
-    (the bytes of the function at v's head dim, or its operations on the
-    tensor cores at 989 bf16 / 495 TF32 TFLOP/s with 3 products for
-    float32)."""
+def attn_bwd_case(gen, B, S, H, KH, D, Dv, dt, causal=True, Sk=None,
+                  window=0) -> dict:
+    """One ``flash_attention_bwd`` call as the model's autograd makes it
+    (a v narrower than q, and its output gradient, zero-padded to q's
+    head dim), on random inputs of ``S`` query rows over ``Sk`` keys
+    (``S`` by default), and its plain version, autograd of
+    ``ref.flash_attention`` on the unpadded v: the error of the largest
+    magnitude of dq, dk and dv (``rel_err``, floored at 0) and the two
+    calls, for timing."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa, ref
+    Sk = Sk or S
+    q = _randn(gen, (B, S, H, D), dtype=dt).requires_grad_()
+    k = _randn(gen, (B, Sk, KH, D), dtype=dt).requires_grad_()
+    v = _randn(gen, (B, Sk, KH, Dv), dtype=dt).requires_grad_()
+    do = _randn(gen, (B, S, H, Dv), dtype=dt)
+    with torch.no_grad():
+        vp, dop = F.pad(v, (0, D - Dv)), F.pad(do, (0, D - Dv))
+        out, lse = fa._forward(q, k, vp, causal, window, D ** -0.5)
+    kern = lambda: fa.flash_attention_bwd(  # noqa: E731
+        q, k, vp, out, lse, dop, causal=causal, window=window)
+    got = kern()
+    y = ref.flash_attention(q, k, v, causal=causal, window=window)
+    plain = lambda: torch.autograd.grad(  # noqa: E731
+        y, (q, k, v), do, retain_graph=True)
+    want = plain()
+    err = max(rel_err(g[..., :w.shape[-1]], w, floor=0.0)
+              for g, w in zip(got, want))
+    return dict(err=err, kernel=kern, plain=plain, q=q, k=k, v=v, do=do)
+
+
+def attn_bwd_times(gen) -> list:
+    """``flash_attention_bwd`` at ``OTHER_HEAD_DIM_SHAPES`` (causal), bf16
+    and float32 (``attn_bwd_case``): held to plain autograd (2e-2 / 2e-5
+    of the largest magnitude) and timed in a host loop and a CUDA graph,
+    beside its plain version (autograd of ``ref.flash_attention``),
+    SDPA's backward (v as it is) and its bound (the bytes of the function
+    at v's head dim, or its operations on the tensor cores at 989 bf16 /
+    495 TF32 TFLOP/s with 3 products for float32)."""
+    import torch
+    import torch.nn.functional as F
     rows = []
     for name, B, S, H, KH, D, Dv in OTHER_HEAD_DIM_SHAPES:
         for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-5)):
-            q = _randn(gen, (B, S, H, D), dtype=dt).requires_grad_()
-            k = _randn(gen, (B, S, KH, D), dtype=dt).requires_grad_()
-            v = _randn(gen, (B, S, KH, Dv), dtype=dt).requires_grad_()
-            do = _randn(gen, (B, S, H, Dv), dtype=dt)
-            pad = lambda t: F.pad(t, (0, D - Dv))  # noqa: E731
-            with torch.no_grad():
-                vp, dop = pad(v), pad(do)
-                out, lse = fa._forward(q, k, vp, True, 0, D ** -0.5)
-            kern = lambda: fa.flash_attention_bwd(  # noqa: E731
-                q, k, vp, out, lse, dop)
-            got = kern()
-            y = ref.flash_attention(q, k, v)
-            want = torch.autograd.grad(y, (q, k, v), do, retain_graph=True)
-            err = max(rel_err(g[..., :w.shape[-1]], w)
-                      for g, w in zip(got, want))
+            c = attn_bwd_case(gen, B, S, H, KH, D, Dv, dt)
+            err = c["err"]
             check(err <= tol, f"flash_attention_bwd {name} {dt}: {err}")
+            q, k, v, do = c["q"], c["k"], c["v"], c["do"]
             ys = F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 is_causal=True, enable_gqa=True)
@@ -4802,10 +5070,9 @@ def attn_bwd_times(gen) -> list:
             bms, by = (bound_ms(flops, nbytes, BF16_FLOPS_PER_S)
                        if dt == torch.bfloat16
                        else tc_bound_ms(3, flops, nbytes))
-            t = dict(ms=cuda_ms(kern, iters=20),
-                     graph_ms=graph_ms(kern, iters=5, replays=4),
-                     plain_ms=cuda_ms(lambda: torch.autograd.grad(
-                         y, (q, k, v), do, retain_graph=True), iters=5),
+            t = dict(ms=cuda_ms(c["kernel"], iters=20),
+                     graph_ms=graph_ms(c["kernel"], iters=5, replays=4),
+                     plain_ms=cuda_ms(c["plain"], iters=5),
                      library_ms=cuda_ms(lambda: torch.autograd.grad(
                          ys, (q, k, v), dos, retain_graph=True), iters=20))
             rows.append(dict(shape=name, B=B, S=S, H=H, KH=KH, D=D, Dv=Dv,
@@ -4817,8 +5084,726 @@ def attn_bwd_times(gen) -> list:
                   f"us, plain {t['plain_ms'] * 1e3:.1f} us, SDPA backward "
                   f"{t['library_ms'] * 1e3:.2f} us, bound "
                   f"{bms * 1e3:.2f} us ({by}); rel err {err:.3g}")
-            del q, k, v, do, vp, dop, out, lse, got, y, want, ys
+            del c, q, k, v, do, ys, dos
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 19: LoRA fine-tuning of every family at its published widths
+# ---------------------------------------------------------------------------
+# the batch each drawn model trains on: B requests of S tokens of its
+# serving prompts (the next tokens as labels), behind its frames or
+# patches, in NM microbatches; TRAIN_STEPS steps a run
+TRAIN_B, TRAIN_S, TRAIN_NM, TRAIN_STEPS = 4, 128, 2, 2
+# the card's float32 step against the CPU port's on the CPU halves'
+# shallow copies: the loss within 1e-5, AdamW's first moment within 1e-5
+# of its largest magnitude (floored at 1), as tests/test_torch_*train*
+TRAIN_CPU_TOL = 1e-5
+# phase 19's kernel checks at the step's shapes (``train_kernel_checks``):
+# the error of the largest magnitude of flash_attention_bwd's dq, dk, dv
+# and of lora_matmul's dx against autograd of their plain versions, as
+# the kernel phase and ``attn_bwd_times`` hold them (float32: 3xTF32
+# sums in another order; bfloat16: the kernels round P, dS and their
+# outputs to bfloat16, the plain versions only their outputs)
+TRAIN_KERNEL_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+# n_microbatches=2 against 1 in bfloat16: the CPU port's own gap between
+# the two on the -smoke families with no MoE (tests/
+# test_torch_train_microbatch.py, B = 4, S = 16) is at most 5.9e-3 of the
+# first moment's largest magnitude (each microbatch's dA, dB rounded to
+# bfloat16 before the float32 sum), 2.6e-4 of the gradient norm and 7e-8
+# of the loss.  On the card a microbatch's lora_matmul may also split its
+# reduction otherwise than the whole batch's (ROADMAP §3, gap 1), so a
+# bfloat16 activation or dx moves by a rounding that the CPU has not,
+# and each layer of the backward carries it further: on the card
+# (PERF.md, phase 19's runs) qwen2-vl's one layer parts by 2.8e-3 (first
+# moment), 1.4e-6 (gradient norm), 0 (loss); jamba's two 5.5e-3, 2.8e-4,
+# 2.8e-6; minicpm3-4b's 8 layers 1.95e-2, 1.4e-3, 3.5e-5; whisper's 32 +
+# 32 layers 0.137, 2.2e-2, 3.5e-5.  The bounds: about twice whisper's in
+# the gradient, 1e-3 relative in the loss.  A batch cut wrongly moves the
+# loss by far more.  xlstm-125m is left out as MoE is: its sLSTM
+# multiplies a rounding by about 1.3 a position (phase 16), so over 128
+# tokens one split-plan rounding outgrows the gradient itself (call 2:
+# 3.06 of the largest first moment, 1.2 of the norm, 6.5e-4 of the loss).
+TRAIN_NM_TOL = dict(loss=1e-3, mu=0.25, grad_norm=0.05)
+# the card-against-CPU step of a model with sLSTM layers takes the CPU
+# half's first TRAIN_SLSTM_TOKENS tokens and is held to TRAIN_SLSTM_TOL:
+# the sLSTM carries a rounding difference forward (phase 16) and the
+# backward carries it back, so xlstm-125m's float32 first moment parted
+# by 1.1e-3 at 32 tokens and 1.8e-5 at 8 (PERF.md, phase 19's runs),
+# about 1.19 a position, with the loss equal; neither is a fault of
+# either side.  The bound is about five times the gap at 8 tokens.
+TRAIN_SLSTM_TOKENS, TRAIN_SLSTM_TOL = 8, 1e-4
+# the same step of a model with sLSTM layers in bfloat16 (the card's
+# base and its CPU half's), held to the CPU port's: the check of the
+# bfloat16 training path that n_microbatches=2 against 1 gives the other
+# models.  The card's kernels and the CPU's plain versions round their
+# bfloat16 outputs alike but sum in other orders, so a logit or a
+# gradient parts by a bfloat16 rounding or two (phase 16's bfloat16
+# logits part by up to SERVE_CPU_TOL); a wrong gradient parts by its
+# own size
+TRAIN_BF16_TOL = dict(loss=1e-2, mu=5e-2)
+# the train_lm entry point's run on the card
+TRAIN_LM_ARGV = ["--full", "--arch", "xlstm-125m", "--steps", "3"]
+
+
+def nm_comparable(cfg) -> bool:
+    """Is ``cfg``'s bfloat16 step with 1 microbatch held to its step with
+    2?  Not with a MoE layer (its capacity is a microbatch's) nor an
+    sLSTM one (``TRAIN_NM_TOL``)."""
+    return not has_moe(cfg) and not has_slstm(cfg)
+
+
+def has_slstm(cfg) -> bool:
+    return "slstm" in {m for m, _ in cfg.pattern}
+
+
+def has_moe(cfg) -> bool:
+    """Does a layer of ``cfg``'s pattern take the MoE block?  (A depth cut
+    may leave ``cfg.moe`` set on a pattern without one: jamba's.)"""
+    return any(ffn == "moe" for _, ffn in cfg.pattern)
+
+
+def _layer_launches(cfg, mixer: str, ffn: str, live: bool, cross: bool,
+                    cross_live: bool) -> tuple:
+    """One layer's share of a pass: ``(adapted projections, those whose
+    dx launches, attention forwards, attention backwards, live)``.
+    ``live`` says whether the stream entering the layer depends on an
+    adapter, and is returned for the stream leaving it.  A mixer's first
+    projections read the normed stream, so their dx launches only when it
+    is live; a later one reads an earlier one's output.  ``cross`` adds
+    cross-attention after the mixer, over keys that depend on an adapter
+    when ``cross_live`` (the encoder has adapters)."""
+    t = set(cfg.lora.targets)
+    firsts = {"attn": ("wq", "wkv"), "mla": ("wq_a", "wkv_a"),
+              "mamba": ("in_proj",), "mlstm": ("up_proj",),
+              "slstm": ("w_gates",)}[mixer]
+    first = any(n in t for n in firsts)
+    if mixer == "mla":
+        chain = [("wq_a", live), ("wkv_a", live),
+                 ("wq_b", live or "wq_a" in t),
+                 ("wkv_b", live or "wkv_a" in t)]
+        chain.append(("wo", live or any(n in t for n, _ in chain)))
+    elif mixer == "mlstm":
+        # wq, wk read the convolved up_proj output, wv up_proj's own
+        chain = [("up_proj", live)] + [(n, live or first)
+                                       for n in ("wq", "wk", "wv")]
+        chain.append(("down_proj", live or any(n in t for n, _ in chain)))
+    else:
+        chain = [(n, live) for n in firsts]
+        last = {"attn": "wo", "mamba": "out_proj"}.get(mixer)
+        if last:
+            chain.append((last, live or first))
+    attn = bwd = 0
+    if mixer in ("attn", "mla"):
+        attn = 1
+        bwd = int(live or any(n in t for n, _ in chain[:-1]))
+    names = [(n, dx) for n, dx in chain if n in t]
+    live = live or bool(names)
+    if cross:
+        attn += 1
+        bwd += int(live or cross_live)
+        live = live or cross_live
+    pair = {"mlp": ("w_in", "w_out"),
+            "moe": ("shared_w_in", "shared_w_out")}.get(ffn)
+    if pair:
+        ffn_names = [(n, dx) for n, dx in ((pair[0], live),
+                                           (pair[1], live or pair[0] in t))
+                     if n in t]
+        names += ffn_names
+        live = live or bool(ffn_names)
+    return len(names), sum(dx for _, dx in names), attn, bwd, live
+
+
+def train_launch_formula(cfg, nm: int, remat: bool = True,
+                         keys: int = TRAIN_S) -> dict:
+    """Launches of one ``make_train_step`` of ``nm`` microbatches: each
+    runs every adapted projection forward, twice under remat (the
+    forward, then the backward's recompute of its layer group), and its
+    dx once where its input needs a gradient (``_layer_launches``: not
+    where the input is the normed embedding or frames, or depends on no
+    adapter yet); attention forward once a layer a pass (encoder,
+    decoder, cross-attention), backward once where its q, k or v depends
+    on an adapter, plus the backward's two side launches when it has
+    more than 64 keys (every attention here: ``keys`` ≥ 128)."""
+    fwd = 2 if remat else 1
+    P = len(cfg.pattern)
+    tot = [0, 0, 0, 0]
+
+    def stack(n_layers: int, cross: bool, cross_live: bool) -> bool:
+        live = False
+        for i in range(n_layers):
+            mixer, ffn = cfg.pattern[i % P]
+            *n, live = _layer_launches(cfg, mixer, ffn, live, cross,
+                                       cross_live)
+            tot[:] = [a + b for a, b in zip(tot, n)]
+        return live
+
+    enc_live = False
+    if cfg.encoder_decoder:
+        enc_live = stack(cfg.n_encoder_layers, False, False)
+    stack(cfg.n_layers, cfg.encoder_decoder, enc_live)
+    proj, dx, attn, bwd = tot
+    return {"lora_matmul": nm * (fwd * proj + dx),
+            "flash_attention": nm * fwd * attn,
+            "flash_attention_bwd": nm * bwd,
+            "flash_attention_bwd_side": nm * 2 * bwd if keys > 64 else 0}
+
+
+def train_bound(cfg, model, B: int, S: int, nm: int,
+                expert_reads: int = 0, remat: bool = True) -> tuple:
+    """The least time of one train step, ``(ms, "operations" or "bytes",
+    flops, bytes)``: the larger of its operations on the bfloat16 tensor
+    cores (989 TFLOP/s) and the weight bytes it must read over 3.35
+    TB/s.  Operations (``models.counting``): 2 × the active parameters
+    of the layers × the rows they see a pass, the decoder's ``B·S`` rows
+    (``B·(F + S)`` behind a vision frontend), an encoder's ``B·F``; 4 ×
+    the LM head × ``B·S`` (forward and dx, outside the remat groups); 2 ×
+    ``proj_frontend`` × ``B·F``; the embedding is a gather, no product.
+    Attention's own products are left out (the bound stays a bound).
+    Bytes: each of ``nm`` microbatches reads the layers' weights once a
+    pass, a MoE layer's routed experts only where its routing sent a
+    token (``expert_reads`` expert matrices read in all, counted from
+    the run's routing), and the head twice.  The passes: under
+    ``remat`` three (forward, recompute, dx: 6 × N a row), the step as
+    ``make_train_step`` runs it; without, two (forward and dx: 4 × N,
+    the frozen base takes no weight gradient), which with ``nm`` = 1 is
+    the bound of the function itself, whatever its implementation."""
+    from repro_torch.models import counting
+    from repro_torch.tree import tree_leaves
+    params, _ = model
+    passes = 3 if remat else 2
+    d, V, F = cfg.d_model, cfg.vocab_size, cfg.n_frontend_tokens
+    table = V * d
+    act = counting.count_active_params(cfg) - table * (
+        1 if cfg.tie_embeddings else 2)
+    enc = 0
+    if cfg.encoder_decoder:
+        enc = counting._layer_params(cfg, "attn", "mlp")[1] \
+            * cfg.n_encoder_layers + d
+    front = d * d if cfg.frontend else 0
+    dec = act - enc - front
+    rows = B * (S + (F if cfg.frontend and not cfg.encoder_decoder
+                     else 0))
+    flops = (2 * passes * (dec * rows + enc * B * F) + 4 * table * B * S
+             + 2 * front * B * F)
+
+    def nbytes(tree, skip=()):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(
+            [{k: v for k, v in lyr.items() if k not in skip}
+             for lyr in tree]))
+    experts = ("w_in", "w_out") if has_moe(cfg) else ()
+    layer_bytes = nbytes(params["layers"], experts) + nbytes(
+        params.get("enc_layers", []))
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    expert_bytes = 0
+    if has_moe(cfg):
+        w = next(lyr for lyr in params["layers"] if "router" in lyr)
+        expert_bytes = sum(w[k][0].numel() * w[k].element_size()
+                           for k in experts)
+    total = (passes * nm * layer_bytes + 2 * nm * head.numel()
+             * head.element_size() + expert_reads * expert_bytes)
+    ms_f = flops / BF16_FLOPS_PER_S * 1e3
+    ms_b = total / HBM_BYTES_PER_S * 1e3
+    return (max(ms_f, ms_b), "operations" if ms_f >= ms_b else "bytes",
+            flops, total)
+
+
+def expert_hits(cfg, model, batch, nm: int) -> tuple:
+    """Expert matrices a step of ``nm`` microbatches must read, from the
+    run's routing (a no-grad forward of each microbatch, which routes as
+    the step does): ``(the step's, the function's)``.  The step reads
+    each MoE call's distinct kept experts three times a microbatch
+    (forward, recompute, dx); the function reads every expert that any
+    token of the batch was kept at twice (forward and dx)."""
+    import torch
+    from repro_torch.models import model as M
+    if not has_moe(cfg):
+        return 0, 0
+    params, adapters = model
+    hits, union = 0, {}
+    for i in range(nm):
+        mb = M.microbatch(batch, i, nm)
+        with torch.no_grad(), moe_spy() as calls:
+            M.forward(cfg, params, adapters, mb["tokens"],
+                      frontend=mb.get("frontend"),
+                      opts=M.FwdOptions(remat=False))
+        for c, call in enumerate(calls):
+            for j, r in enumerate(call["routing"]):
+                kept = set(r.experts.reshape(-1)[r.keep].tolist())
+                hits += len(kept)
+                union.setdefault((c, j), set()).update(kept)
+        del calls
+    return 3 * hits, 2 * sum(len(u) for u in union.values())
+
+
+def train_run(cfg, model, batch, nm: int, remat: bool, steps: int) -> dict:
+    """``steps`` train steps from fresh AdamW state on the card: each
+    step's seconds (host clock to a synchronise), launches and metrics,
+    the first step's first moment, the peak bytes above what the card
+    held before the run, and the final adapters and state."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_map
+    params, adapters = model
+    step = M.make_train_step(cfg, n_microbatches=nm, lr=3e-3,
+                             opts=M.FwdOptions(remat=remat))
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    a, opt = adapters, adamw.init(adapters, n_clients=1)
+    out = dict(step_s=[], counts=[], metrics=[])
+    for s in range(steps):
+        zero_counters()
+        t0 = time.perf_counter()
+        a, opt, met = step(params, a, opt, batch)
+        torch.cuda.synchronize()
+        out["step_s"].append(time.perf_counter() - t0)
+        out["counts"].append(read_counters())
+        out["metrics"].append(met)
+        if s == 0:
+            out["mu0"] = tree_map(torch.clone, opt.mu)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated() - held
+    out["state"] = (a, opt)
+    return out
+
+
+def train_attn_shapes(cfg) -> list:
+    """The attention calls of one microbatch of phase 19's step, one of
+    each kind: ``(label, B, Sq, Sk, H, KH, D, Dv, causal, window)``: the
+    decoder's causal self-attention (GQA, or MLA's q/k head dim over its
+    v head dim) over the prompt and, behind a vision frontend, its
+    patches; an encoder-decoder's non-causal encoder over its frames and
+    cross-attention from the decoder's rows to them."""
+    b, L = TRAIN_B // TRAIN_NM, TRAIN_S + patch_rows(cfg)
+    H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    mixers, out = set(mixers_of(cfg)), []
+    if "attn" in mixers:
+        out.append(("self", b, L, L, H, KH, D, D, True,
+                    cfg.sliding_window or 0))
+    if "mla" in mixers:
+        m = cfg.mla
+        out.append(("mla", b, L, L, H, H, m.qk_nope_head_dim
+                    + m.qk_rope_head_dim, m.v_head_dim, True, 0))
+    if cfg.encoder_decoder:
+        F = cfg.n_frontend_tokens
+        out += [("encoder", b, F, F, H, KH, D, D, False, 0),
+                ("cross", b, L, F, H, KH, D, D, False, 0)]
+    return out
+
+
+def train_lora_shapes(cfg, model) -> list:
+    """The adapted projections of one microbatch of phase 19's step, one
+    of each (stack, name, shape), from the model's adapters: ``(label,
+    M, K, N, r)``, ``M`` the rows of a microbatch in that stack (the
+    decoder's prompt, behind a vision frontend's patches; an encoder's
+    frames)."""
+    _, adapters = model
+    b = TRAIN_B // TRAIN_NM
+    stacks = ([("", adapters["layers"]), ("enc ", adapters["enc_layers"])]
+              if cfg.encoder_decoder else [("", adapters)])
+    rows = {"": b * (TRAIN_S + patch_rows(cfg)),
+            "enc ": b * cfg.n_frontend_tokens}
+    seen = {}
+    for stack, layers in stacks:
+        for lyr in layers:
+            for key, a in lyr.items():
+                if key.endswith("_lora_a"):
+                    n = key[:-len("_lora_a")]
+                    (K, r), N = a.shape[-2:], lyr[n + "_lora_b"].shape[-1]
+                    seen.setdefault((stack, n, K, N),
+                                    (stack + n, rows[stack], K, N, r))
+    return list(seen.values())
+
+
+def train_kernel_checks(cfg, model) -> list:
+    """``flash_attention_bwd`` at each of ``train_attn_shapes`` (as
+    ``attn_bwd_case`` calls it) and ``lora_matmul``'s dx at each of
+    ``train_lora_shapes`` (through the wrapper's autograd, ``x`` alone
+    needing a gradient), in bfloat16 and float32 on random inputs, each
+    held to autograd of its plain version (``ref.flash_attention``,
+    ``ref.lora_matmul``) by the error of the largest magnitude, and the
+    kernel timed in a host loop (5 calls; the dx launch alone).  Returns
+    one row a case; ``check_training`` holds them to
+    ``TRAIN_KERNEL_TOL``."""
+    import torch
+    from repro_torch.kernels import lora_matmul as lm, ref
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = []
+    for dt in (torch.bfloat16, torch.float32):
+        dn = str(dt).split(".")[1]
+        for label, B, S, Sk, H, KH, D, Dv, causal, window in \
+                train_attn_shapes(cfg):
+            c = attn_bwd_case(gen, B, S, H, KH, D, Dv, dt, causal, Sk,
+                              window)
+            rows.append(dict(kernel="flash_attention_bwd", shape=label,
+                             B=B, S=S, Sk=Sk, H=H, KH=KH, D=D, Dv=Dv,
+                             causal=causal, dtype=dn, rel_err=c["err"],
+                             ms=cuda_ms(c["kernel"], iters=5, warmup=1)))
+            del c
+        for label, M_, K, N, r in train_lora_shapes(cfg, model):
+            x = _randn(gen, (1, M_, K), dtype=dt).requires_grad_()
+            w = _randn(gen, (K, N), K ** -0.5, dt)
+            a = _randn(gen, (1, K, r), K ** -0.5, dt)
+            b = _randn(gen, (1, r, N), 0.1, dt)
+            dy = _randn(gen, (1, M_, N), dtype=dt)
+            got = torch.autograd.grad(lm.lora_matmul(x, w, a, b, 2.0), x,
+                                      dy)[0]
+            want = torch.autograd.grad(ref.lora_matmul(x, w, a, b, 2.0),
+                                       x, dy)[0]
+            dx = lambda: lm._launch(  # noqa: E731
+                dy, w.t(), b.transpose(1, 2), a.transpose(1, 2), 2.0)
+            rows.append(dict(kernel="lora_matmul dx", shape=label, M=M_,
+                             K=K, N=N, r=r, dtype=dn,
+                             rel_err=rel_err(got, want, floor=0.0),
+                             ms=cuda_ms(dx, iters=5, warmup=1)))
+            del x, w, a, b, dy, got, want
+    torch.cuda.synchronize()
+    return rows
+
+
+def kernel_checks_text(rows) -> str:
+    worst = {}
+    for r in rows:
+        k = (r["kernel"], r["dtype"])
+        worst[k] = max(worst.get(k, 0.0), r["rel_err"])
+    return (f"{len(rows)} cases at the step's shapes against autograd of "
+            "the plain versions, largest error of the largest magnitude: "
+            + ", ".join(f"{k} {d} {v:.3g} (tolerance "
+                        f"{TRAIN_KERNEL_TOL[d]})"
+                        for (k, d), v in sorted(worst.items())))
+
+
+def train_family(name: str, cfg, model, prompts, frames=None) -> dict:
+    """Phase 19 on a drawn model (a bf16 base, float32 adapters with
+    ``lora_b`` + 0.01): ``train_kernel_checks`` at the step's shapes;
+    ``TRAIN_B`` requests of ``TRAIN_S`` tokens (behind the frames or
+    patches, in bfloat16), ``make_train_step(n_microbatches=TRAIN_NM)``
+    for ``TRAIN_STEPS`` steps under remat and without;
+    ``n_microbatches=1`` for one step (not for a MoE config, whose
+    capacity is a microbatch's); the launches of each against
+    ``train_launch_formula``; the warm step's time beside ``train_bound``
+    of the remat step and of the function.  Returns the numbers;
+    ``check_training`` holds them."""
+    import torch
+    from repro_torch.tree import tree_leaves, tree_map
+    t0 = time.perf_counter()
+    gc.collect()
+    checks = train_kernel_checks(cfg, model)
+    B, S = TRAIN_B, TRAIN_S
+    params, adapters = model
+    model1 = (params, tree_map(lambda t: t[None], adapters))
+    batch = {"tokens": prompts[None, :B, :S],
+             "labels": prompts[None, :B, 1:S + 1]}
+    if frames is not None:
+        batch["frontend"] = frames[None, :B].to(torch.bfloat16)
+    runs = {"remat": train_run(cfg, model1, batch, TRAIN_NM, True,
+                               TRAIN_STEPS),
+            "plain": train_run(cfg, model1, batch, TRAIN_NM, False,
+                               TRAIN_STEPS)}
+    if nm_comparable(cfg):
+        runs["nm1"] = train_run(cfg, model1, batch, 1, True, 1)
+    r, p = runs["remat"], runs["plain"]
+    bitwise = all(torch.equal(x[k], y[k]) for x, y in zip(
+        r["metrics"], p["metrics"]) for k in ("loss", "grad_norm"))
+    ra, ro = r["state"]
+    pa, po = p["state"]
+    bitwise = bitwise and all(torch.equal(x, y) for x, y in zip(
+        tree_leaves((ra, ro.mu, ro.nu)), tree_leaves((pa, po.mu, po.nu))))
+    nm_gap = None
+    if "nm1" in runs:
+        one = runs["nm1"]
+        mu2, mu1 = tree_leaves(r["mu0"]), tree_leaves(one["mu0"])
+        top = max(float(t.abs().max()) for t in mu1)
+        l2 = float(r["metrics"][0]["loss"][0])
+        l1 = float(one["metrics"][0]["loss"][0])
+        g2 = float(r["metrics"][0]["grad_norm"][0])
+        g1 = float(one["metrics"][0]["grad_norm"][0])
+        nm_gap = dict(loss=abs(l2 - l1) / abs(l1),
+                      mu=max(float((x - y).abs().max())
+                             for x, y in zip(mu2, mu1)) / top,
+                      grad_norm=abs(g2 - g1) / g1)
+    reads, fn_reads = expert_hits(cfg, model1, batch, TRAIN_NM)
+    bms, by, flops, nbytes = train_bound(cfg, model, B, S, TRAIN_NM, reads)
+    fms, fby, fflops, fbytes = train_bound(cfg, model, B, S, 1, fn_reads,
+                                           remat=False)
+    want = {k: train_launch_formula(cfg, nm, remat) for k, nm, remat in (
+        ("remat", TRAIN_NM, True), ("plain", TRAIN_NM, False),
+        ("nm1", 1, True))}
+    losses = [float(m["loss"][0]) for m in r["metrics"]]
+    warm = r["step_s"][-1] * 1e3
+    out = dict(
+        B=B, S=S, F=cfg.n_frontend_tokens if frames is not None else 0,
+        nm=TRAIN_NM, bitwise_remat=bitwise, nm_gap=nm_gap,
+        losses=losses, grad_norms=[float(m["grad_norm"][0])
+                                   for m in r["metrics"]],
+        finite=all(math.isfinite(x) for x in losses),
+        step_s={k: v["step_s"] for k, v in runs.items()},
+        peak_bytes={k: v["peak_bytes"] for k, v in runs.items()},
+        launches={k: {n: v["counts"][0][n] for n in want[k]}
+                  for k, v in runs.items()},
+        want={k: want[k] for k in runs},
+        bound_ms=bms, bound_by=by, flops=flops, bound_bytes=nbytes,
+        expert_reads=reads, ratio=warm / bms,
+        function_bound_ms=fms, function_bound_by=fby,
+        function_flops=fflops, function_bound_bytes=fbytes,
+        function_expert_reads=fn_reads, function_ratio=warm / fms,
+        kernel_checks=checks, seconds=time.perf_counter() - t0)
+    gib = 2 ** 30
+    print(f"phase 19 ({name}, bf16 base, float32 adapters, B={B}, S={S}"
+          + (f" behind {cfg.n_frontend_tokens} {cfg.frontend} embeddings"
+             if frames is not None else "")
+          + f", {TRAIN_NM} microbatches): losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; step "
+          f"{warm:.1f} ms warm under remat, {out['function_ratio']:.1f}x "
+          f"the function's bound {fms:.2f} ms (by {fby}: "
+          f"{fflops / 1e12:.2f} TFLOP, {fbytes / 1e9:.2f} GB), "
+          f"{out['ratio']:.1f}x the remat step's {bms:.2f} ms (by {by}: "
+          f"{flops / 1e12:.2f} TFLOP, {nbytes / 1e9:.2f} GB); "
+          f"{p['step_s'][-1] * 1e3:.1f} ms plain; peak above the held "
+          f"model {r['peak_bytes'] / gib:.3f} GiB under remat, "
+          f"{p['peak_bytes'] / gib:.3f} GiB plain (ratio "
+          f"{r['peak_bytes'] / max(1, p['peak_bytes']):.3f}); remat "
+          f"bitwise the plain step: {bitwise}; n_microbatches=2 against 1 "
+          + ("(left out: a MoE capacity is a microbatch's; an sLSTM "
+             "outgrows a rounding)" if nm_gap is None
+             else ", ".join(f"{k} {v:.3g}" for k, v in nm_gap.items()))
+          + "; launches a step under remat "
+          + json.dumps(out["launches"]["remat"]) + "; step seconds "
+          + json.dumps({k: [round(x, 4) for x in v]
+                        for k, v in out["step_s"].items()})
+          + f"; kernels: {kernel_checks_text(checks)}"
+          + f"; phase {out['seconds']:.1f} s")
+    del runs, model1
+    return out
+
+
+def train_half_step(cfg, model, tokens, labels, frontend=None) -> dict:
+    """One ``make_train_step`` on ``model``'s weights (float32 here) of
+    ``tokens``/``labels`` ``(B, S)`` (behind ``frontend`` ``(B, F, d)``),
+    one client, ``n_microbatches`` 2 when ``B`` is even, else 1 (a model
+    with sLSTM layers on its first ``TRAIN_SLSTM_TOKENS`` tokens): the loss,
+    the gradient norm and AdamW's first moment, on the CPU.  On the card
+    it runs under remat; on the CPU without, which
+    ``tests/test_torch_train_step.py`` holds bitwise to remat, so the CPU
+    half saves a recompute."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_map
+    t0 = time.perf_counter()
+    if has_slstm(cfg):
+        tokens = tokens[:, :TRAIN_SLSTM_TOKENS]
+        labels = labels[:, :TRAIN_SLSTM_TOKENS]
+    params, adapters = model
+    adp = tree_map(lambda t: t[None], adapters)
+    batch = {"tokens": tokens[None], "labels": labels[None]}
+    if frontend is not None:
+        batch["frontend"] = frontend[None]
+    nm = 2 if tokens.shape[0] % 2 == 0 else 1
+    step = M.make_train_step(cfg, n_microbatches=nm, lr=3e-3,
+                             opts=M.FwdOptions(remat=tokens.is_cuda))
+    with torch.enable_grad():
+        _, opt, met = step(params, adp, adamw.init(adp, n_clients=1), batch)
+    return dict(nm=nm, loss=float(met["loss"][0]),
+                grad_norm=float(met["grad_norm"][0]),
+                mu=tree_map(lambda t: t[0].float().cpu(), opt.mu),
+                seconds=time.perf_counter() - t0)
+
+
+def train_half(cfg, model, tokens, labels, dtype, frontend=None) -> dict:
+    """Phase 19's part of a CPU comparison on ``model`` in ``dtype`` (its
+    float32 copy, or its bfloat16 base): ``train_half_step`` as
+    ``{"train": ...}`` in float32, ``{"train_bf16": ...}`` in bfloat16
+    for a model with sLSTM layers (``TRAIN_BF16_TOL``), else nothing.
+    ``family_half`` and ``frontend_half`` call it on the card and, in a
+    process of their own, on the CPU."""
+    import torch
+    if dtype == torch.float32:
+        return {"train": train_half_step(cfg, model, tokens, labels,
+                                         frontend)}
+    if not has_slstm(cfg):
+        return {}
+    return {"train_bf16": train_half_step(
+        cfg, model, tokens, labels,
+        None if frontend is None else frontend.to(dtype))}
+
+
+def train_half_errs(card: dict, cpu: dict) -> dict:
+    """The card's ``train_half_step`` against the CPU port's: the loss's
+    gap, and the first moment's largest gap over its largest magnitude
+    (floored at 1)."""
+    from repro_torch.tree import tree_leaves
+    g, w = tree_leaves(card["mu"]), tree_leaves(cpu["mu"])
+    check(len(g) == len(w), "the card's and the CPU's adapters differ")
+    scale = max(1.0, max(float(t.abs().max()) for t in w))
+    return dict(nm=card["nm"], loss=abs(card["loss"] - cpu["loss"]),
+                mu=max(float((a - b).abs().max()) for a, b in zip(g, w))
+                / scale, cpu_s=cpu["seconds"], card_s=card["seconds"])
+
+
+def train_half_compare(card: dict, cpu: dict) -> dict:
+    """The card's float32 ``train_half_step`` against the CPU port's
+    (``train_half_errs``), and for a model with sLSTM layers its
+    bfloat16 one's under ``"bf16"``."""
+    out = train_half_errs(card["train"], cpu["train"])
+    if "train_bf16" in card:
+        out["bf16"] = train_half_errs(card["train_bf16"], cpu["train_bf16"])
+    return out
+
+
+def check_training(name: str, cfg, out: dict, half: dict = None):
+    """Phase 19's checks on ``train_family``'s numbers (and the CPU
+    comparison's, ``half``)."""
+    check(out["finite"], f"{name} phase 19: a loss is not finite")
+    for row in out["kernel_checks"]:
+        check(row["rel_err"] <= TRAIN_KERNEL_TOL[row["dtype"]],
+              f"{name} phase 19: {row['kernel']} {row['shape']} "
+              f"{row['dtype']} against its plain version: {row}")
+    check(out["bitwise_remat"], f"{name} phase 19: the rematerialised "
+          "step is not bitwise the plain one")
+    for k, got in out["launches"].items():
+        check(got == out["want"][k], f"{name} phase 19 {k}: launches "
+              f"{got}, want {out['want'][k]}")
+    if out["nm_gap"] is not None:
+        for k, v in out["nm_gap"].items():
+            check(v <= TRAIN_NM_TOL[k], f"{name} phase 19: "
+                  f"n_microbatches=2 against 1, {k} {v} > "
+                  f"{TRAIN_NM_TOL[k]}")
+    if cfg.encoder_decoder:
+        pk = out["peak_bytes"]
+        check(pk["remat"] <= 0.5 * pk["plain"], f"{name} phase 19: peak "
+              f"{pk['remat']} bytes under remat, over half of "
+              f"{pk['plain']} without")
+    if half is not None:
+        tol = train_cpu_tol(cfg)
+        check(half["loss"] <= tol and half["mu"] <= tol,
+              f"{name} phase 19: the card's float32 step against the CPU "
+              f"port's: loss {half['loss']}, first moment {half['mu']} "
+              f"(tolerance {tol})")
+        if "bf16" in half:
+            h = half["bf16"]
+            check(h["loss"] <= TRAIN_BF16_TOL["loss"]
+                  and h["mu"] <= TRAIN_BF16_TOL["mu"],
+                  f"{name} phase 19: the card's bfloat16 step against the "
+                  f"CPU port's: loss {h['loss']}, first moment {h['mu']} "
+                  f"(tolerances {TRAIN_BF16_TOL})")
+
+
+def train_cpu_tol(cfg) -> float:
+    """The card-against-CPU bound of ``cfg``'s float32 step."""
+    return TRAIN_SLSTM_TOL if has_slstm(cfg) else TRAIN_CPU_TOL
+
+
+def training_text(half: dict, cfg) -> str:
+    h = half.get("bf16")
+    return (f"phase 19: the card's float32 step ({half['nm']} "
+            f"microbatch(es)) against the CPU port's on the CPU half's "
+            f"model: loss {half['loss']:.3g}, first moment "
+            f"{half['mu']:.3g} of its largest (tolerance "
+            f"{train_cpu_tol(cfg)}); CPU step {half['cpu_s']:.1f} s"
+            + ("" if h is None else
+               f"; its bfloat16 step: loss {h['loss']:.3g}, first moment "
+               f"{h['mu']:.3g} of its largest (tolerances "
+               f"{TRAIN_BF16_TOL}); CPU step {h['cpu_s']:.1f} s"))
+
+
+def train_lm_phase() -> dict:
+    """Phase 19's entry point: ``repro_torch.launch.train_lm.main(
+    TRAIN_LM_ARGV)`` on the card: xlstm-125m's 12 layers at its published
+    widths, the example's 8 × 128 tokens in 2 microbatches, remat.
+    Checks: every loss and gradient norm finite, the first loss within
+    one nat of ln(vocab) (an untrained model's).  At these widths the
+    example does not memorise its document in a few steps: the sLSTM's
+    gradient norms reach 1e5, and the JAX package's own run
+    (``examples/train_lm.py --full --steps 8`` on the CPU) ends above
+    its first loss (PERF.md); at ``-smoke`` width the port's
+    losses fall (``tests/test_torch_train_lm.py``)."""
+    import torch
+    from repro_torch.configs.registry import get as get_config
+    from repro_torch.launch import train_lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    t0 = time.perf_counter()
+    res = train_lm.main(TRAIN_LM_ARGV)
+    wall = time.perf_counter() - t0
+    res.update(peak_gib=(torch.cuda.max_memory_allocated() - held) / 2 ** 30,
+               wall_s=wall, counts=read_counters())
+    print(f"phase 19 (train_lm {' '.join(TRAIN_LM_ARGV)}): losses "
+          f"{', '.join(f'{x:.4f}' for x in res['losses'])}; steps "
+          f"{', '.join(f'{x:.3f}' for x in res['step_s'])} s; "
+          f"{res['tokens_per_s']:.0f} tokens/s; peak "
+          f"{res['peak_gib']:.3f} GiB above what the card held; launches "
+          f"{json.dumps({k: v for k, v in res['counts'].items() if v})}; "
+          f"{wall:.1f} s with the draw")
+    check(all(math.isfinite(x) for x in res["losses"] + res["grad_norms"]),
+          "train_lm: a loss or gradient norm is not finite")
+    untrained = math.log(get_config(XLSTM).vocab_size)
+    check(abs(res["losses"][0] - untrained) <= 1.0, "train_lm: the first "
+          f"loss {res['losses'][0]} is not near ln(vocab) = {untrained}")
+    return res
+
+
+def side_training() -> dict:
+    """Phase 19's xlstm-125m work, in a process of its own on the card
+    beside phase 7 (the whole smoke): ``train_family`` on xlstm-125m drawn
+    as phase 16 draws it (``draw_family``, the same seed and prompts;
+    0.125 B values), then ``train_lm_phase``.  Its 128-step loops hold
+    the host for about a minute in all, which phase 7's host loops can
+    share, so its step times are taken under contention with phase 7's
+    (``--training`` times them alone); phase 16 compares the card's
+    float32 and bfloat16 steps with the CPU port's itself."""
+    from repro_torch.configs.registry import get
+    cfg = get(XLSTM)
+    model, prompts = draw_family(cfg)[0], serve_prompts(cfg)
+    xlstm = train_family(XLSTM, cfg, model, prompts)
+    del model, prompts
+    return {XLSTM: xlstm, "train_lm": train_lm_phase()}
+
+
+def training_phase() -> dict:
+    """Phase 19 alone (``--training``): each of the six models drawn, and
+    its CPU half started, by its serving phase's own start function
+    (``kimi_start``, ``minicpm_start``, ``jamba_start``, ``xlstm_start``,
+    ``frontend_start``: the CPU halves serve as well as train, as in the
+    whole run), ``train_family`` on it, then the card's ``train_half`` of
+    the CPU half's model against the CPU's (none for kimi-k2, whose
+    phase has no CPU half), the model freed; the checks once all six
+    have run (so one miss shows every model's numbers); then
+    ``train_lm_phase``."""
+    import torch
+    from repro_torch.tree import tree_map
+    out = {}
+    for start in (kimi_start, lambda: minicpm_start(minicpm_cfg()),
+                  jamba_start, xlstm_start,
+                  lambda: frontend_start(WHISPER),
+                  lambda: frontend_start(QWEN_VL)):
+        st = start()
+        cfg = st["cfg"]
+        training = train_family(cfg.name, cfg, st["model"], st["prompts"],
+                                st.get("frames"))
+        if "half" in st:
+            hcfg, hmodel, tokens, labels, fe = st["half"]
+            card = {}
+            for dt, m in ((torch.bfloat16, hmodel),
+                          (torch.float32, tree_map(lambda t: t.float(),
+                                                   hmodel))):
+                card.update(train_half(hcfg, m, tokens, labels, dt, fe))
+            training["cpu_compare"] = train_half_compare(
+                card, host_tree(st["job"].result(), False))
+            print(training_text(training["cpu_compare"], cfg))
+            del card, m, hmodel
+        out[cfg.name] = (cfg, training)
+        del st
+        gc.collect()
+        torch.cuda.empty_cache()
+    for name, (cfg, training) in out.items():
+        check_training(name, cfg, training, training.get("cpu_compare"))
+    out["train_lm"] = train_lm_phase()
+    return out
 
 
 def profile_serving(cfg, model, run: dict):
@@ -5151,9 +6136,13 @@ def main(argv) -> int:
         frontend_phases(gen)
         attn_bwd_times(gen)
         return 0
+    if argv == ["--training"]:
+        build_kernels()
+        training_phase()
+        return 0
     check(not argv, f"unknown arguments {argv}; use --profile, --attn, "
-          "--sharded, --serving, --families, --recurrent, --frontends or "
-          "none")
+          "--sharded, --serving, --families, --recurrent, --frontends, "
+          "--training or none")
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
     builds = build_kernels()
@@ -5181,6 +6170,11 @@ def main(argv) -> int:
     stamp(t_start, "phase 10")
     fused = fused_phase(qfl, llm)
     sharded = sharded_phase(qfl, llm, fused)
+    # phase 19's xlstm-125m training and its train_lm entry point run on
+    # the card in a process of their own beside phase 7, whose host loops
+    # leave the card idle
+    side_job = CpuJob("phase 19's xlstm-125m and train_lm (on the card, "
+                      "beside phase 7)", side_training)
     stamp(t_start, "phase 7")
     seq = sequential_phase()
     stamp(t_start, "phase 5")
@@ -5233,8 +6227,12 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     stamp(t_start, "phase 15")
     jamba = jamba_phase(gen, started.pop(JAMBA))
-    xlstm_ = xlstm_phase(gen, started.pop(XLSTM))
+    side = side_job.result()
+    xlstm_ = xlstm_phase(gen, started.pop(XLSTM), side[XLSTM])
+    train_lm_run = side["train_lm"]
     stamp(t_start, "the comparisons")
+    sequential_compare(seq)
+    qlora_compare(ql)
     cli = cli_compare(cli)
     serving = serving_compare(serving)
     gib = 2 ** 30
@@ -5248,6 +6246,30 @@ def main(argv) -> int:
 
     rule, tquick = shapes[0], tape_shapes[0]
     sh = sharded["modes"]["one card"]
+    trained = {KIMI: kimi, MINICPM: minicpm, JAMBA: jamba, XLSTM: xlstm_,
+               WHISPER: whisper, QWEN_VL: qwen_vl}
+
+    def launches_training(kernel: str) -> dict:
+        """Phase 19's launches of one train step under remat, a model,
+        and of the train_lm run (all its steps)."""
+        out = {n: d["training"]["launches"]["remat"][kernel]
+               for n, d in trained.items()}
+        out["train_lm"] = train_lm_run["counts"][kernel]
+        return out
+
+    def training_checks(kernel: str) -> dict:
+        """Phase 19's checks of ``kernel`` at each model's step shapes
+        (``train_kernel_checks``): their errors and host-loop times."""
+        return {n: [{k: v for k, v in r.items() if k != "kernel"}
+                    for r in d["training"]["kernel_checks"]
+                    if r["kernel"] == kernel]
+                for n, d in trained.items()}
+    training_shapes = dict(
+        B=TRAIN_B, S=TRAIN_S, n_microbatches=TRAIN_NM, steps=TRAIN_STEPS,
+        frontend_rows={n: trained[n]["training"]["B"]
+                       * trained[n]["training"]["F"]
+                       for n in (WHISPER, QWEN_VL)},
+        train_lm=" ".join(TRAIN_LM_ARGV))
     n, nw, ns = llm["counts"], llm_wide["counts"], seq["seq_launches"]
     nq, nqw = ql["counts"], ql_wide["counts"]
     n0 = qfl["counts"]
@@ -5328,6 +6350,9 @@ def main(argv) -> int:
              launches_qwen2_vl=serving_counts(
                  qwen_vl["runs"][max(SERVE_PROMPTS)], "lora_matmul"),
              qwen2_vl=qwen_vl["kernel_times"]["lora_matmul"],
+             launches_training=launches_training("lora_matmul"),
+             training_shapes=training_shapes,
+             training_dx_checks=training_checks("lora_matmul dx"),
              shapes=lm_shapes,
              waves=[{k: w[k] for k in ("tiles", "lora_graph_ms")}
                     for w in waves],
@@ -5365,6 +6390,8 @@ def main(argv) -> int:
              launches_qwen2_vl=serving_counts(
                  qwen_vl["runs"][max(SERVE_PROMPTS)], "flash_attention"),
              qwen2_vl=qwen_vl["kernel_times"]["flash_attention"],
+             launches_training=launches_training("flash_attention"),
+             training_shapes=training_shapes,
              shapes=fa_shapes,
              probe=fa_probe, **build_summary(builds["flash_attention"])),
         dict(name=fa.NAME + "_bwd", route="cuda", source=fa.SOURCE,
@@ -5380,6 +6407,11 @@ def main(argv) -> int:
              gpt2=headline(fa_bwd_shapes, "gpt2"),
              launches_deepseek=deepseek["counts"]["flash_attention_bwd"],
              deepseek=headline(fa_bwd_shapes, "deepseek"),
+             launches_training=launches_training("flash_attention_bwd"),
+             side_launches_training=launches_training(
+                 "flash_attention_bwd_side"),
+             training_shapes=training_shapes,
+             training_checks=training_checks("flash_attention_bwd"),
              shapes=fa_bwd_shapes,
              **build_summary(builds["flash_attention"])),
         dict(name=i4.NAME, route="cuda", source=i4.SOURCE,
@@ -5455,6 +6487,9 @@ def main(argv) -> int:
                                   if k != "kernel_times"},
                       "qwen2_vl": {k: v for k, v in qwen_vl.items()
                                    if k != "kernel_times"},
+                      "train_lm": {k: train_lm_run[k] for k in (
+                          "losses", "grad_norms", "step_s", "seconds",
+                          "tokens_per_s", "peak_gib", "wall_s")},
                       "deepseek": {k: deepseek[k] for k in (
                           "init_s", "init_peak_gib", "stage_s", "batched_s",
                           "step_s", "peak_gib", "seq_peak_gib", "gap",

@@ -120,6 +120,15 @@ class ModelConfig:
     def n_groups(self) -> int:
         return self.n_layers // len(self.pattern)
 
+    def param_count(self) -> int:
+        """Analytic parameter count (embeddings + blocks), for 6ND roofline."""
+        from repro_torch.models.counting import count_params
+        return count_params(self)
+
+    def active_param_count(self) -> int:
+        from repro_torch.models.counting import count_active_params
+        return count_active_params(self)
+
 
 def reduced(cfg: ModelConfig, *, d_model: int = 256, n_groups: int = 1,
             vocab: int = 512) -> ModelConfig:

@@ -120,7 +120,8 @@ class BatchedLLMEngine:
         self._steps = int(steps)
         self._batch_size = int(batch_size)
         self._rho = float(rho)
-        self._step = M.make_train_step(cfg, lr=lr)
+        self._step = M.make_train_step(cfg, n_microbatches=1, lr=lr,
+                                       opts=M.FwdOptions(remat=False))
         self._n_steps = 0             # global step counter (key contract)
 
     # the client-stacked state, cut into shards; read whole on the lead

@@ -85,7 +85,8 @@ def label_logits(cfg, params: Dict, adapters, tokens: torch.Tensor,
     clipped (callers mask those rows out).  Returns (logits
     ``(C, N, n_labels)`` float32, gold ``(C, N)``).
     """
-    hidden = M.forward(cfg, params, adapters, tokens)
+    hidden = M.forward(cfg, params, adapters, tokens,
+                       opts=M.FwdOptions(remat=False))
     pos = torch.argmax((labels >= 0).to(torch.int32), dim=-1)        # (C, N)
     d = hidden.shape[-1]
     idx = pos[..., None, None].expand(*pos.shape, 1, d)
@@ -152,7 +153,8 @@ class LLMClient:
         self.adapters = M.stack_clients([M.init_adapters(
             cfg, llm_key(key, client_id, LLM_INIT_STEP), base_params)])
         self.opt_state = adamw.init(self.adapters, n_clients=1)
-        self._step = M.make_train_step(cfg, lr=lr)
+        self._step = M.get_train_step(cfg, n_microbatches=1, lr=lr,
+                                      opts=M.FwdOptions(remat=False))
         self._n_steps = 0                 # global step counter (contract)
         self._on_device = {}
 

@@ -19,10 +19,11 @@ tile of 64 keys once, by ``cp.async``.  The JAX package trains through
 the jnp chunked flash of ``models/attention.py``, so it has no backward
 kernel; here the gradient is a ``torch.autograd.Function`` whose
 backward computes dQ, dK and dV from the logsumexp the forward saves,
-one CTA per 64 keys.  Up to 64 keys (every main-path shape) that is one
-launch; above, a first launch computes rowsum(dO O) and a last one sums
-the k-tiles' dQ slabs (a float32 workspace the wrapper allocates) in a
-fixed order, so the backward is bitwise repeatable.
+one CTA per 64 keys.  Up to 64 keys (the LLM-QFL Step 1's sequences)
+that is one launch; above (the registry families' training, 128 to 1500
+keys and beyond), a first launch computes rowsum(dO O) and a last one
+sums the k-tiles' dQ slabs (a float32 workspace the wrapper allocates)
+in a fixed order, so the backward is bitwise repeatable.
 
 Each wrapper takes CUDA tensors only and launches its kernels or raises:
 it never falls back to the plain version.  ``flash_attention.launches``

@@ -98,14 +98,15 @@ def gqa_out(params, cfg, x, attn_out, pre: str = ""):
     return x + o
 
 
-def attn_train(params, cfg, x, positions, *, causal: bool = True):
-    """Full-sequence GQA layer (sliding window from the config; the
-    encoder runs it with ``causal=False``).  Returns ``(y, (k, v))``: k
-    (rotary applied) and v ``(N, S, KH, D)`` in the activation dtype,
-    the layer's prefill cache."""
+def attn_train(params, cfg, x, positions, *, causal: bool = True,
+               window=None):
+    """Full-sequence GQA layer (the sliding window ``window``, or the
+    config's when it is None; the encoder runs it with ``causal=False``).
+    Returns ``(y, (k, v))``: k (rotary applied) and v ``(N, S, KH, D)``
+    in the activation dtype, the layer's prefill cache."""
     _, q, k, v = gqa_qkv(params, cfg, x, positions)
-    out = ops.flash_attention(q, k, v, causal=causal,
-                              window=cfg.sliding_window)
+    w = cfg.sliding_window if window is None else window
+    out = ops.flash_attention(q, k, v, causal=causal, window=w)
     return gqa_out(params, cfg, x, out), (k, v)
 
 

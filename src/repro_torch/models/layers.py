@@ -68,7 +68,7 @@ def _ffn(cfg, p, x, ffn: str):
 
 
 def apply_layer_train(cfg, p: Dict, x, positions, mixer: str, ffn: str, *,
-                      causal: bool = True, enc_kv=None,
+                      causal: bool = True, window=None, enc_kv=None,
                       mlstm_chunkwise: bool = False):
     """Full-sequence layer.  Returns ``(x, cache, balance)``: the cache
     the attention's ``(k, v)``, MLA's ``(c_kv, k_rope)``, or the
@@ -78,12 +78,15 @@ def apply_layer_train(cfg, p: Dict, x, positions, mixer: str, ffn: str, *,
     None.  ``causal=False`` (the encoder) reaches the GQA mixer only, as
     in the JAX package; ``enc_kv`` (the encoder's ``(k, v)``,
     ``attention.cross_kv``) adds cross-attention after the mixer.
+    ``window`` is the forward's override (JAX's ``FwdOptions.window``):
+    GQA takes ``cfg.sliding_window`` when it is None, MLA none.
     ``mlstm_chunkwise`` takes the mLSTM's chunkwise form (JAX's
     ``FwdOptions.mlstm_chunkwise``)."""
     if mixer == "attn":
-        x, cache = attn.attn_train(p, cfg, x, positions, causal=causal)
+        x, cache = attn.attn_train(p, cfg, x, positions, causal=causal,
+                                   window=window)
     elif mixer == "mla":
-        x, cache = attn.mla_train(p, cfg, x, positions)
+        x, cache = attn.mla_train(p, cfg, x, positions, window=window or 0)
     elif mixer == "mamba":
         x, cache = ssm.mamba_train(p, cfg, x)
     elif mixer == "mlstm":

@@ -5,12 +5,22 @@ The port of ``repro/models/model.py`` for every family of the JAX
 package (every mixer of ``layers.MIXERS``: GQA, MLA, Mamba, mLSTM, sLSTM;
 MLP, MoE or no feed-forward block; any layer period; an encoder-decoder;
 a stub audio or vision frontend): ``init_params``, ``init_adapters``,
-``forward`` (no remat; ``collect_cache`` and ``mlstm_chunkwise`` as
-JAX's ``FwdOptions``; the MoE balance loss summed over layers),
-``chunked_ce``, ``make_train_step`` (one microbatch; a MoE config's loss
-adds ``moe.balance_loss_weight`` × the balance, as JAX's does),
-``logits_last``, ``make_prefill_step``, ``init_cache`` and
-``make_serve_step``.
+``FwdOptions`` (JAX's fields and defaults), ``forward`` (each layer
+group rematerialised under ``opts.remat``; the MoE balance loss summed
+over layers), ``chunked_ce``, ``make_train_step`` (microbatch gradient
+accumulation; a MoE config's loss adds ``moe.balance_loss_weight`` × the
+balance, as JAX's does), ``get_train_step``, ``logits_last``,
+``make_prefill_step``, ``init_cache`` and ``make_serve_step``.
+
+Rematerialisation.  A layer group is one period of ``cfg.pattern``, as
+in JAX's ``jax.checkpoint(group_fn)``: under ``opts.remat`` each group
+runs in ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``
+with, inside it, each decoder layer's ``cross_kv`` of the encoder output
+and the group's MoE balance term; the encoder stack takes the same
+``remat``.  The backward recomputes a group's forward, so each forward
+kernel launches twice a step and each backward kernel once.  The port's
+kernels and plain versions are deterministic, so a rematerialised step
+equals the plain one bit for bit.
 
 Layouts.  The base is ``{"embed", "final_norm", "lm_head" (untied
 only), "layers": [layer dict, ...]}``: the JAX package's group-stacked
@@ -56,9 +66,11 @@ and returns the cache.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from dataclasses import dataclass
+from typing import Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import random as jr
 from repro_torch.device import resolve_device
@@ -164,21 +176,53 @@ def stack_clients(trees: List):
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class FwdOptions:
+    """The forward's options: JAX's ``FwdOptions``, fields and defaults.
+
+    ``window`` overrides the attention window (``None``: GQA takes
+    ``cfg.sliding_window``, MLA none); ``remat`` rematerialises each
+    layer group (the module docstring); ``mlstm_chunkwise`` runs the
+    mLSTM layers in their chunkwise form; ``collect_cache`` returns each
+    layer's cache; ``causal`` masks the decoder's attention (the encoder
+    is always non-causal).  ``seq_parallel`` and ``shard_cache`` shard
+    the residual stream and the caches over a device mesh, which the
+    port does not have yet (ROADMAP §1 item 4, the dry run): either set
+    raises ``NotImplementedError``.  ``attn_anchor`` anchors an attention
+    sharding in JAX and has no effect on one device."""
+    window: Optional[int] = None
+    remat: bool = True
+    mlstm_chunkwise: bool = False
+    collect_cache: bool = False
+    causal: bool = True
+    seq_parallel: bool = False
+    shard_cache: bool = False
+    attn_anchor: bool = True
+
+    def __post_init__(self):
+        for name in ("seq_parallel", "shard_cache"):
+            if getattr(self, name):
+                raise NotImplementedError(
+                    f"FwdOptions.{name} shards over a device mesh, which "
+                    "belongs to the dry run (ROADMAP §1 item 4)")
+
+
 def forward(cfg, params: Dict, adapters, tokens: torch.Tensor, *,
-            frontend=None, collect_cache: bool = False,
-            with_balance: bool = False, mlstm_chunkwise: bool = False):
+            frontend=None, opts: FwdOptions = FwdOptions(),
+            with_balance: bool = False):
     """tokens ``(C, B, S)`` → post-norm hidden ``(C, B, S, d)``; with
-    ``collect_cache``, ``(hidden, caches)``, one tuple a layer (GQA's
-    ``(k, v)``, each ``(C·B, S, KH, D)``, MLA's ``(c_kv, k_rope)``, in
-    the activation dtype; a recurrent mixer's last state,
+    ``opts.collect_cache``, ``(hidden, caches)``, one tuple a layer
+    (GQA's ``(k, v)``, each ``(C·B, S, KH, D)``, MLA's ``(c_kv,
+    k_rope)``, in the activation dtype; a recurrent mixer's last state,
     ``layers.apply_layer_train``; an encoder-decoder's ``((k, v), (xk,
     xv))``).  ``frontend`` ``(C, B, F, d)`` is the stub frontend's
     embeddings, which a config with a ``frontend`` or an encoder reads
-    (the module docstring).  ``mlstm_chunkwise`` runs the mLSTM layers in
-    their chunkwise form.  With ``with_balance`` the MoE balance loss
-    ``(C,)`` float32 (zeros without MoE) comes second, as JAX's
-    ``forward`` returns it: ``(hidden, balance[, caches])``.  JAX sums it
-    within each layer group, then over the groups; so does this."""
+    (the module docstring).  ``opts`` is JAX's ``FwdOptions``; the
+    encoder runs non-causal under ``opts.remat`` alone, as JAX's
+    ``eopts``.  With ``with_balance`` the MoE balance loss ``(C,)``
+    float32 (zeros without MoE) comes second, as JAX's ``forward``
+    returns it: ``(hidden, balance[, caches])``.  JAX sums it within
+    each layer group, then over the groups; so does this."""
     dec_adp, enc_adp = _stacks(cfg, adapters)
     if (cfg.frontend or cfg.encoder_decoder) and frontend is None:
         raise ValueError(f"{cfg.name} reads the frontend's embeddings "
@@ -188,49 +232,64 @@ def forward(cfg, params: Dict, adapters, tokens: torch.Tensor, *,
     if cfg.encoder_decoder:
         e = (matmul(frontend, params["proj_frontend"]) if cfg.frontend
              else frontend)
-        e = _run_stack(cfg, params["enc_layers"], enc_adp, e,
-                       causal=False)[0]
+        eopts = FwdOptions(remat=opts.remat, causal=False)
+        e = _run_stack(cfg, params["enc_layers"], enc_adp, e, eopts)[0]
         enc_out = rms_norm(e, params["enc_final_norm"], cfg.norm_eps)
     elif cfg.frontend:
         fe = matmul(frontend, params["proj_frontend"]).to(x.dtype)
         prefix = fe.shape[2]
         x = torch.cat([fe, x], dim=2)
-    x, balance, caches = _run_stack(
-        cfg, params["layers"], dec_adp, x, enc_out=enc_out,
-        collect_cache=collect_cache, mlstm_chunkwise=mlstm_chunkwise)
+    x, balance, caches = _run_stack(cfg, params["layers"], dec_adp, x, opts,
+                                    enc_out=enc_out)
     hidden = rms_norm(x, params["final_norm"], cfg.norm_eps)[:, :, prefix:]
     out = (hidden,)
     if with_balance:
         out += (balance,)
-    if collect_cache:
+    if opts.collect_cache:
         out += (caches,)
     return out if len(out) > 1 else hidden
 
 
-def _run_stack(cfg, layers: List, adapters: List, x, *, causal: bool = True,
-               enc_out=None, collect_cache: bool = False,
-               mlstm_chunkwise: bool = False):
+def _run_stack(cfg, layers: List, adapters: List, x, opts: FwdOptions, *,
+               enc_out=None):
     """A stack of layers over ``x`` ``(C, B, S, d)`` at positions
-    ``arange(S)``, each decoder layer given ``cross_kv`` of ``enc_out``
-    when there is one: ``(x, balance (C,), caches)``."""
+    ``arange(S)``, one period of ``cfg.pattern`` a group, each group
+    rematerialised under ``opts.remat`` (when autograd records), each
+    decoder layer given ``cross_kv`` of ``enc_out`` when there is one:
+    ``(x, balance (C,), caches)``."""
     positions = torch.arange(x.shape[2], device=x.device)
     P = len(cfg.pattern)
-    caches, groups = [], []
-    for i, (base, adp) in enumerate(zip(layers, adapters)):
-        mixer, ffn = cfg.pattern[i % P]
-        if i % P == 0:
-            groups.append(torch.zeros(x.shape[0], dtype=torch.float32,
-                                      device=x.device))
-        p = {**base, **adp}
-        enc_kv = None if enc_out is None else attn.cross_kv(p, cfg, enc_out)
-        x, cache, bal = L.apply_layer_train(
-            cfg, p, x, positions, mixer, ffn, causal=causal, enc_kv=enc_kv,
-            mlstm_chunkwise=mlstm_chunkwise)
-        if bal is not None:
-            groups[-1] = groups[-1] + bal
-        if collect_cache:
-            caches.append(cache if enc_kv is None else (cache, enc_kv))
-    return x, torch.stack(groups).sum(0), caches
+
+    def group(x, enc_out, g):
+        """Layers ``g … g + P - 1``: ``(x, the group's balance, caches)``."""
+        balance = torch.zeros(x.shape[0], dtype=torch.float32,
+                              device=x.device)
+        caches = []
+        for i in range(g, g + P):
+            mixer, ffn = cfg.pattern[i % P]
+            p = {**layers[i], **adapters[i]}
+            enc_kv = (None if enc_out is None
+                      else attn.cross_kv(p, cfg, enc_out))
+            x, cache, bal = L.apply_layer_train(
+                cfg, p, x, positions, mixer, ffn, causal=opts.causal,
+                window=opts.window, enc_kv=enc_kv,
+                mlstm_chunkwise=opts.mlstm_chunkwise)
+            if bal is not None:
+                balance = balance + bal
+            if opts.collect_cache:
+                caches.append(cache if enc_kv is None else (cache, enc_kv))
+        return x, balance, caches
+
+    remat = opts.remat and torch.is_grad_enabled()
+    caches, balances = [], []
+    for g in range(0, len(layers), P):
+        if remat:
+            x, bal, cs = checkpoint(group, x, enc_out, g, use_reentrant=False)
+        else:
+            x, bal, cs = group(x, enc_out, g)
+        balances.append(bal)
+        caches += cs
+    return x, torch.stack(balances).sum(0), caches
 
 
 def _head(cfg, params):
@@ -267,7 +326,8 @@ def chunked_ce(cfg, params, hidden, labels, *, chunk: int = 512):
 # ---------------------------------------------------------------------------
 # train step (LoRA fine-tuning — the paper's client-side technique)
 # ---------------------------------------------------------------------------
-def loss_and_grads(cfg, params, adapters, batch, *, loss_chunk: int = 512):
+def loss_and_grads(cfg, params, adapters, batch, *,
+                   opts: FwdOptions = FwdOptions(), loss_chunk: int = 512):
     """Per-client losses ``(C,)`` and the adapter gradients (a tree of
     ``adapters``' structure) of their sum: each client's gradient is its
     own, since clients share only the frozen base.  A MoE config's loss
@@ -275,7 +335,7 @@ def loss_and_grads(cfg, params, adapters, batch, *, loss_chunk: int = 512):
     leaves = [t.detach().requires_grad_() for t in tree_leaves(adapters)]
     hidden, balance = forward(cfg, params, tree_unflatten(adapters, leaves),
                               batch["tokens"], frontend=batch.get("frontend"),
-                              with_balance=True)
+                              opts=opts, with_balance=True)
     loss = chunked_ce(cfg, params, hidden, batch["labels"], chunk=loss_chunk)
     if cfg.moe:
         loss = loss + cfg.moe.balance_loss_weight * balance
@@ -283,19 +343,50 @@ def loss_and_grads(cfg, params, adapters, batch, *, loss_chunk: int = 512):
     return loss.detach(), tree_unflatten(adapters, list(grads))
 
 
-def make_train_step(cfg, *, lr: float = 1e-4, loss_chunk: int = 512):
+def microbatch(batch: Dict, i: int, n: int) -> Dict:
+    """Microbatch ``i`` of ``n``: the contiguous rows ``i·B/n … (i+1)·B/n``
+    of each client's ``B`` rows (axis 1), as JAX's ``reshape(n, B // n,
+    …)`` cuts its batch."""
+    b = batch["tokens"].shape[1] // n
+    return {k: v[:, i * b:(i + 1) * b] for k, v in batch.items()}
+
+
+def make_train_step(cfg, *, n_microbatches: int = 1, lr: float = 1e-4,
+                    opts: FwdOptions = FwdOptions(), loss_chunk: int = 512):
     """``(params, adapters, opt_state, batch) → (adapters, opt_state,
     metrics)`` for client-stacked adapters and batches.
 
     ``batch`` holds ``tokens``/``labels`` ``(C, B, S)`` (and, for a
     config with a frontend, ``frontend`` ``(C, B, F, d)``).  The loss is the
     sum over clients of each client's mean CE; the base is frozen and
-    gets no gradient.  ``metrics["loss"]`` and ``metrics["grad_norm"]``
-    are ``(C,)``.
+    gets no gradient.  With ``n_microbatches`` = nm > 1 (nm must divide
+    ``B``) the step runs each ``microbatch`` in turn, sums its gradients
+    into float32 zeros and divides them, and the losses, by nm, as JAX's
+    scan does; the gradient norm is the accumulated gradients'.
+    ``metrics["loss"]`` and ``metrics["grad_norm"]`` are ``(C,)``.
     """
+    nm = int(n_microbatches)
+
     def train_step(params, adapters, opt_state, batch):
-        loss, grads = loss_and_grads(cfg, params, adapters, batch,
-                                     loss_chunk=loss_chunk)
+        B = batch["tokens"].shape[1]
+        if nm < 1 or B % nm:
+            raise ValueError(f"{nm} microbatches do not divide the batch "
+                             f"of {B} rows")
+        if nm == 1:
+            loss, grads = loss_and_grads(cfg, params, adapters, batch,
+                                         opts=opts, loss_chunk=loss_chunk)
+        else:
+            grads = tree_map(lambda t: torch.zeros_like(
+                t, dtype=torch.float32), adapters)
+            loss = 0.0
+            for i in range(nm):
+                l, g = loss_and_grads(cfg, params, adapters,
+                                      microbatch(batch, i, nm), opts=opts,
+                                      loss_chunk=loss_chunk)
+                grads = tree_map(torch.add, grads, g)
+                loss = loss + l
+            grads = tree_map(lambda t: t / nm, grads)
+            loss = loss / nm
         new_adapters, new_opt = adamw.update(grads, opt_state, adapters,
                                              lr=lr)
         gnorm = torch.sqrt(sum(torch.sum(g.float() ** 2,
@@ -304,6 +395,23 @@ def make_train_step(cfg, *, lr: float = 1e-4, loss_chunk: int = 512):
         return new_adapters, new_opt, {"loss": loss, "grad_norm": gnorm}
 
     return train_step
+
+
+_TRAIN_STEP_CACHE: dict = {}
+
+
+def get_train_step(cfg, *, n_microbatches: int = 1, lr: float = 1e-4,
+                   opts: FwdOptions = FwdOptions(), loss_chunk: int = 512):
+    """Module-cached ``make_train_step(...)``, keyed by the whole static
+    configuration (``ModelConfig`` and ``FwdOptions`` are frozen, hence
+    hashable), as JAX's cache of jitted steps is.  The port compiles
+    nothing, so the cache shares only the closure."""
+    key = (cfg, int(n_microbatches), float(lr), opts, int(loss_chunk))
+    if key not in _TRAIN_STEP_CACHE:
+        _TRAIN_STEP_CACHE[key] = make_train_step(
+            cfg, n_microbatches=n_microbatches, lr=lr, opts=opts,
+            loss_chunk=loss_chunk)
+    return _TRAIN_STEP_CACHE[key]
 
 
 # ---------------------------------------------------------------------------
@@ -321,12 +429,15 @@ def _one_client(adapters):
     return tree_map(lambda t: t[None], adapters)
 
 
-def make_prefill_step(cfg, *, mlstm_chunkwise: bool = False):
+def make_prefill_step(cfg, opts: FwdOptions = FwdOptions(
+        remat=False, collect_cache=True)):
     """``(params, adapters, batch) → (logits (B, V), caches)``: the
     prompt ``batch["tokens"]`` ``(B, S)`` (behind ``batch["frontend"]``
     ``(B, F, d)`` for a config with a frontend) through the
-    full-sequence forward (GQA windowed by ``cfg.sliding_window``; the
-    mLSTM layers in their chunkwise form with ``mlstm_chunkwise``), its
+    full-sequence forward under ``opts`` (JAX's default: no remat, the
+    caches collected; GQA windowed by ``cfg.sliding_window`` unless
+    ``opts.window`` is set; the mLSTM layers in their chunkwise form with
+    ``opts.mlstm_chunkwise``), its
     last position's float32 logits, and each layer's cache (GQA's ``(k,
     v)`` ``(B, S, KH, D)``, ``F + S`` rows behind a vision frontend; an
     encoder-decoder's ``((k, v), (xk, xv))``, the cross pair ``(B, F,
@@ -334,14 +445,17 @@ def make_prefill_step(cfg, *, mlstm_chunkwise: bool = False):
     recurrent mixer's last state, as the JAX package's prefill returns
     it: the mLSTM's ``(C, n, m)`` has no convolution state, so it cannot
     seed the serve step)."""
+    if not opts.collect_cache:
+        raise ValueError("make_prefill_step returns the caches: "
+                         "opts.collect_cache must be set")
+
     def prefill(params, adapters, batch):
         fe = batch.get("frontend")
         with torch.no_grad():
             hidden, caches = forward(cfg, params, _one_client(adapters),
                                      batch["tokens"][None],
                                      frontend=None if fe is None else fe[None],
-                                     collect_cache=True,
-                                     mlstm_chunkwise=mlstm_chunkwise)
+                                     opts=opts)
             return logits_last(cfg, params, hidden)[0], caches
     return prefill
 

@@ -123,8 +123,9 @@ def _mlstm_out(params, cfg, x, h, z):
 def _mlstm_cell(C, n, m, qt, kt, vt, li, lf):
     """One stabilised mLSTM update and its readout: states ``C (N,H,D,D)``,
     ``n (N,H,D)``, ``m (N,H)``; inputs ``(N,H,D)`` and gates ``(N,H)``."""
-    m_new = torch.maximum(lf + m, li)
-    fp = torch.exp(lf + m - m_new)[..., None]
+    lfm = lf + m
+    m_new = torch.maximum(lfm, li)
+    fp = torch.exp(lfm - m_new)[..., None]
     ip = torch.exp(li - m_new)[..., None]
     C = fp[..., None] * C + ip[..., None] * (kt[..., :, None]
                                              * vt[..., None, :])
@@ -148,9 +149,10 @@ def mlstm_train(params, cfg, x) -> Tuple[torch.Tensor, Tuple]:
     z, q, k, v, li, lf = _mlstm_qkvif(params, cfg, x)
     Cs, n, m = _zero_state(q)
     hs = []
-    for t in range(q.shape[1]):
-        Cs, n, m, h = _mlstm_cell(Cs, n, m, q[:, t], k[:, t], v[:, t],
-                                  li[:, t], lf[:, t])
+    # one unbind a tensor, not a slice a position: fewer ops for the host
+    # to dispatch, and one stack in the backward
+    for qt, kt, vt, it, ft in zip(*(t.unbind(1) for t in (q, k, v, li, lf))):
+        Cs, n, m, h = _mlstm_cell(Cs, n, m, qt, kt, vt, it, ft)
         hs.append(h)
     return _mlstm_out(params, cfg, x, torch.stack(hs, dim=1), z), (Cs, n, m)
 
@@ -254,10 +256,10 @@ def _slstm_step(params, cfg, gx_t, carry):
     # per-head [i|f|z|o] blocks to gx's full-d [i|f|z|o] layout
     gh = gh.reshape(N, H, 4, hd).transpose(1, 2).reshape(N, 4 * d)
     gi, gf, gz, go = (gx_t + gh).chunk(4, dim=-1)
-    lf = log_sigmoid(gf)
-    m_new = torch.maximum(lf + m, gi)
+    lfm = log_sigmoid(gf) + m
+    m_new = torch.maximum(lfm, gi)
     ip = torch.exp(gi - m_new)
-    fp = torch.exp(lf + m - m_new)
+    fp = torch.exp(lfm - m_new)
     c_new = fp * c + ip * torch.tanh(gz)
     n_new = fp * n + ip
     h_new = torch.sigmoid(go) * c_new / torch.clamp(n_new, min=1e-6)
@@ -278,8 +280,8 @@ def slstm_train(params, cfg, x) -> Tuple[torch.Tensor, Tuple]:
     gx = _slstm_gx(params, cfg, x)
     z0 = torch.zeros((C * B, d), dtype=torch.float32, device=x.device)
     carry, hs = (z0, z0, z0, z0), []
-    for t in range(S):
-        carry = _slstm_step(params, cfg, gx[:, t], carry)
+    for gx_t in gx.unbind(1):
+        carry = _slstm_step(params, cfg, gx_t, carry)
         hs.append(carry[2])
     h = torch.stack(hs, dim=1).reshape(C, B, S, d)
     return x + _group_norm(h.to(x.dtype), params["gn"], cfg.n_heads), carry

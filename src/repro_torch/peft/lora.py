@@ -153,12 +153,15 @@ def quantize_layer_flat(layer: dict, targets, block: int = QBLOCK) -> dict:
 
 def quantize_stacked_groups(params: dict, targets,
                             block: int = QBLOCK) -> dict:
-    """``quantize_layer_flat`` over every layer of ``params["layers"]``:
-    the JAX package vmaps the same per-layer function over its group
-    stacks, so the bytes are the same."""
+    """``quantize_layer_flat`` over every layer of ``params["layers"]``
+    and, for an encoder-decoder, ``params["enc_layers"]``: the JAX
+    package vmaps the same per-layer function over its group stacks
+    (``groups`` and ``enc_groups``), so the bytes are the same."""
     out = dict(params)
-    out["layers"] = [quantize_layer_flat(lyr, targets, block)
-                     for lyr in params["layers"]]
+    for name in ("layers", "enc_layers"):
+        if name in params:
+            out[name] = [quantize_layer_flat(lyr, targets, block)
+                         for lyr in params[name]]
     return out
 
 

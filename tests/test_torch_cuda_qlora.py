@@ -179,7 +179,8 @@ def test_qlora_train_step_runs_through_the_kernels(cuda):
                              device=dev)
         adp = M.stack_clients([M.init_adapters(cfg, jr.PRNGKey(c), base)
                                for c in range(2)])
-        step = M.make_train_step(cfg, lr=3e-3)
+        step = M.make_train_step(cfg, lr=3e-3,
+                                 opts=M.FwdOptions(remat=False))
         before = (i4.int4_matmul.launches, i4.int4_matmul_t.launches,
                   lm.lora_matmul.launches)
         _, _, metrics = step(base, adp, adamw.init(adp, n_clients=2),

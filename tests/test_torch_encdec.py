@@ -89,7 +89,7 @@ def _encoder_both(m, jb, tb):
         x = M._run_stack(tcfg, m["tp"]["enc_layers"],
                          [{k: v[None] for k, v in a.items()}
                           for a in m["ta"]["enc_layers"]], x,
-                         causal=False)[0]
+                         M.FwdOptions(remat=False, causal=False))[0]
         got = rms_norm(x, m["tp"]["enc_final_norm"], tcfg.norm_eps)
     return got, want
 

@@ -41,7 +41,8 @@ def test_port_has_its_modules():
                  "distributed.sharding",
                  "device", "launch", "launch.train", "launch.serve",
                  "configs.registry", "configs.stablelm_3b",
-                 "configs.starcoder2_7b", "configs.llama3_405b"):
+                 "configs.starcoder2_7b", "configs.llama3_405b",
+                 "models.counting", "launch.train_lm"):
         assert f"repro_torch.{name}" in MODULES
 
 

@@ -234,7 +234,8 @@ def test_mlstm_chunkwise_prefill_matches_jax(models):
     wl, wc = jax.jit(JM.make_prefill_step(m["jcfg"], opts))(
         m["jp"], m["ja"], {"tokens": jnp.asarray(toks)})
     batch = {"tokens": torch.from_numpy(toks).long()}
-    gl, gc = M.make_prefill_step(m["tcfg"], mlstm_chunkwise=True)(
+    gl, gc = M.make_prefill_step(m["tcfg"], M.FwdOptions(
+        remat=False, collect_cache=True, mlstm_chunkwise=True))(
         m["tp"], m["ta"], batch)
     sl, sc = M.make_prefill_step(m["tcfg"])(m["tp"], m["ta"], batch)
     assert _rel(gl, wl) <= 1e-4 and _rel(gl, sl) <= 1e-4
