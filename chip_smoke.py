@@ -688,12 +688,6 @@ ATTN_SHAPES = (("tiny", 80, 64, 4, 2, 32), ("tiny-eval", 250, 64, 4, 2, 32),
                ("deepseek", 16, 64, 32, 32, 128))
 
 
-def lora_flops_bytes(C, M, K, N, r, elem=4):
-    flops = 2 * C * M * (K * N + K * r + r * N)
-    nbytes = elem * (C * M * K + K * N + C * K * r + C * r * N + C * M * N)
-    return flops, nbytes
-
-
 def time_lora(x, w, a, b, iters: int = 100, replays: int = 20) -> dict:
     """One lora_matmul forward (scale 2) timed: the kernel, its plain
     version and cuBLAS ``x@W`` + ``baddbmm``, in a host loop (``*ms``)
@@ -715,7 +709,7 @@ def lora_phase(gen):
     """lora_matmul forward (and dx, the same kernel on transposed views)
     against ``ref.lora_matmul``, gradients against plain autograd."""
     import torch
-    from repro_torch.kernels import lora_matmul as lm, ref
+    from repro_torch.kernels import counts, lora_matmul as lm, ref
     max_err, cases = 0.0, 0
     # the JAX kernel test's sweep, 2-D, both dtypes: its tolerances
     for (M, K, N, r) in ((128, 256, 128, 8), (256, 512, 384, 16),
@@ -772,7 +766,7 @@ def lora_phase(gen):
             dx_ms = cuda_ms(lambda: lm._launch(dy, w.t(), b.transpose(1, 2),
                                                a.transpose(1, 2), 2.0),
                             iters=it)
-            flops, nbytes = lora_flops_bytes(C, M, K, N, r)
+            flops, nbytes = counts.lora_flops_bytes(C, M, K, N, r)
             bms, by = bound_ms(flops, nbytes)
             tms, tby = tc_bound_ms(3, 2 * C * M * N * K, nbytes)
             shapes.append(dict(shape=name, C=C, M=M, K=K, N=N, r=r,
@@ -819,37 +813,6 @@ def wave_probe(gen):
                   f"int4_matmul {rows[-1]['int4_graph_ms'] * 1e3:.2f} us "
                   "(CUDA graph)")
     return rows
-
-
-def attn_pairs(S: int, causal: bool = True, window: int = 0,
-               Sk: int = None) -> int:
-    """Attendable (query, key) pairs of one head: what the data needs
-    (``Sk`` keys, ``S`` by default, for non-causal attention)."""
-    if not causal and not window:
-        return S * (Sk or S)
-    q = [min(S, i + 1) if causal else S for i in range(S)]
-    if window:
-        q = [min(n, window) if causal else n for n in q]
-    return sum(q)
-
-
-def attn_flops_bytes(B, S, H, KH, D, backward=False, elem=4, Dv=None,
-                     Sk=None, causal=True):
-    """Operations and bytes of attention of ``S`` query rows over ``Sk``
-    keys (``S`` by default; causal unless stated): the forward reads q, k
-    and v and writes o (of v's head dim ``Dv``) and the row logsumexp;
-    the backward reads q, k, v, o, dO and the logsumexp and writes dq, dk
-    and dv."""
-    Dv, Sk = Dv or D, Sk or S
-    pairs = B * H * attn_pairs(S, causal, Sk=Sk)
-    if not backward:     # S = QK^T (D) and PV (Dv), 2 flops a product
-        return (2 * (D + Dv) * pairs,
-                elem * (B * S * H * (D + Dv) + B * Sk * KH * (D + Dv))
-                + 4 * B * H * S)
-    # S and dK, dQ (D); dP and dV (Dv): 2 flops a product
-    return ((6 * D + 4 * Dv) * pairs,
-            elem * (B * S * H * 2 * (D + Dv) + B * Sk * KH * 2 * (D + Dv))
-            + 4 * B * H * S)
 
 
 # tile edges of the 64-row / 64-key tiles: (B, S, H, KH, D, causal,
@@ -943,7 +906,7 @@ def attn_phase(gen):
     the probe."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import flash_attention as fa, ref
+    from repro_torch.kernels import counts, flash_attention as fa, ref
     max_err, max_bwd_err, cases = 0.0, 0.0, 0
     # the JAX kernel test's sweep in its (B, H, S, D) layout, read through
     # transposed views, both dtypes: its tolerances
@@ -1018,9 +981,10 @@ def attn_phase(gen):
             t = time_attn(q, k, v)
             ms, dev, plain = t["ms"], t["graph_ms"], t["plain_ms"]
             library, lib_dev = t["library_ms"], t["library_graph_ms"]
-            bms, by = bound_ms(*attn_flops_bytes(B, S, H, KH, D))
+            bms, by = bound_ms(*counts.attn_flops_bytes(B, S, H, KH, D))
             # on the tensor cores at float32 accuracy: 3 TF32 products
-            tms, tby = tc_bound_ms(3, *attn_flops_bytes(B, S, H, KH, D))
+            tms, tby = tc_bound_ms(
+                3, *counts.attn_flops_bytes(B, S, H, KH, D))
         fwd.append(dict(shape=name, B=B, S=S, H=H, KH=KH, D=D, **t,
                         bound_ms=bms, bound_by=by,
                         tc_bound_ms=tms, tc_bound_by=tby))
@@ -1037,8 +1001,10 @@ def attn_phase(gen):
         dos = do.transpose(1, 2)
         b_lib = cuda_ms(lambda: torch.autograd.grad(
             ys, (q, k, v), dos, retain_graph=True), iters=50)
-        bbms, bby = bound_ms(*attn_flops_bytes(B, S, H, KH, D, True))
-        btms, btby = tc_bound_ms(3, *attn_flops_bytes(B, S, H, KH, D, True))
+        bbms, bby = bound_ms(*counts.attn_flops_bytes(B, S, H, KH, D,
+                                                      True))
+        btms, btby = tc_bound_ms(
+            3, *counts.attn_flops_bytes(B, S, H, KH, D, True))
         bwd.append(dict(shape=name, B=B, S=S, H=H, KH=KH, D=D, ms=b_ms,
                         graph_ms=b_dev, plain_ms=b_plain, library_ms=b_lib,
                         bound_ms=bbms, bound_by=bby, tc_bound_ms=btms,
@@ -1106,20 +1072,13 @@ INT4_SHAPES = (
 KL_SHAPES = ((64, 2), (256, 3), (512, 7), (100, 10), (4096, 4102))
 
 
-def int4_flops_bytes(M, K, N, qblock=64):
-    """NN and NT alike: 2MKN flops; x (or dy) and the output in float32,
-    the packed weight at half a byte and its scales."""
-    return 2 * M * K * N, 4 * M * K + K * N // 2 + 4 * K * N // qblock \
-        + 4 * M * N
-
-
 def int4_phase(gen):
     """int4_matmul NN (float32 and bf16 rounding) and NT against
     ``ref.int4_matmul``/``int4_matmul_t``; times at the QLoRA paths'
     shapes against the bound, the plain version and torch's dequantize
     followed by cuBLAS float32."""
     import torch
-    from repro_torch.kernels import int4_matmul as i4, ref
+    from repro_torch.kernels import counts, int4_matmul as i4, ref
     from repro_torch.peft import lora
     max_err, max_t_err, cases = 0.0, 0.0, 0
     # the JAX kernel test's sweep, float32 rounding (the JAX oracle's)
@@ -1169,7 +1128,7 @@ def int4_phase(gen):
             w = lora.dequantize(packed, scales, 64, dtype=torch.float32)
             big = K * N >= 1 << 24
             it, n_graph = (10, 3) if big else (100, 20)
-            flops, nbytes = int4_flops_bytes(M, K, N)
+            flops, nbytes = counts.int4_flops_bytes(M, K, N)
             bms, by = bound_ms(flops, nbytes)
             tms, tby = tc_bound_ms(2, flops, nbytes)
             for rows, fn, plain, lib, cublas in (
@@ -2373,22 +2332,69 @@ def same_start(label: str, gpu, ref_label: str, cards: dict, wall: float,
                 loss_gap=None, theta_gap=None)
 
 
+def gpt2_setup():
+    import torch
+    from repro_torch.core.llm_client import task_llm_config
+    from repro_torch.data.tasks import build_task
+    task = build_task("genomic", **QUICKSTART["task"])
+    cfg = task_llm_config("gpt2", task.vocab_size, task.llm_seq_len)
+    return torch, task, cfg
+
+
+def gpt2_cpu() -> dict:
+    """GPT-2's one-step Step 1 on the CPU (plain path), in a spawned
+    process of ``SIDE_CPU_THREADS`` threads beside the card's later
+    phases, on the base drawn on the CPU (the port's draw is the same
+    bits on any device): its losses, F1, teacher and seconds."""
+    import numpy as np
+    from repro_torch import random as jr
+    from repro_torch.core.batched_llm import BatchedLLMEngine
+    from repro_torch.models import model as M
+    torch, task, cfg = gpt2_setup()
+    torch.set_num_threads(SIDE_CPU_THREADS)
+    base = M.init_params(cfg, jr.PRNGKey(0), dtype=torch.float32,
+                         device="cpu")
+    t0 = time.perf_counter()
+    cpu = BatchedLLMEngine(task, cfg, base, seed=0, steps=1,
+                           batch_size=LLM_WIDE["batch_size"]).run()
+    return dict(losses=np.asarray(cpu.losses), f1=np.asarray(cpu.f1),
+                teacher=np.asarray(cpu.teacher),
+                seconds=time.perf_counter() - t0)
+
+
+def gpt2_compare(gpt2: dict):
+    """Phase 9c's card step held to the CPU's (``gpt2_cpu``, collected
+    with the later comparisons)."""
+    import numpy as np
+    one, cpu = gpt2.pop("one"), gpt2.pop("job").result()
+    gap = (float(np.max(np.abs(one["losses"] - cpu["losses"]))),
+           float(np.max(np.abs(one["f1"] - cpu["f1"]))),
+           float(np.max(np.abs(one["teacher"] - cpu["teacher"]))))
+    gpt2["gap"] = gap
+    print(f"phase 9c: gpt2 card vs cpu after 1 step |Δ L_LLM| "
+          f"{gap[0]:.3g}, |Δ F1| {gap[1]:.3g}, |Δ teacher| {gap[2]:.3g} "
+          f"(cpu {cpu['seconds']:.1f} s in a process of "
+          f"{SIDE_CPU_THREADS} threads beside phases 12-18)")
+    check(gap[0] <= LLM_LOSS_TOL and gap[1] <= LLM_F1_TOL
+          and gap[2] <= TEACHER_TOL,
+          f"gpt2 Step 1, card vs cpu after 1 step: {gap} (tolerances "
+          f"{LLM_LOSS_TOL}, {LLM_F1_TOL}, {TEACHER_TOL})")
+
+
 def gpt2_phase() -> dict:
     """(c) GPT-2's Step 1 at full width: ``BatchedLLMEngine`` on the
     quickstart task's 5 clients, 2 steps on the card, its launches held
-    to ``llm_launch_formula``; one step on the card held to one step on
-    the CPU on the same base (the batched-LLM tolerances)."""
+    to ``llm_launch_formula``; one step on the card, held to one step on
+    the CPU on the same base (the batched-LLM tolerances) by
+    ``gpt2_compare``, the CPU's run in a process of its own
+    (``gpt2_cpu``)."""
     import numpy as np
-    import torch
     from repro_torch import random as jr
     from repro_torch.core.batched_llm import BatchedLLMEngine
-    from repro_torch.core.llm_client import task_llm_config
-    from repro_torch.data.tasks import build_task
     from repro_torch.models import model as M
-    from repro_torch.tree import tree_map
+    job = CpuJob("gpt2 Step 1 (cpu, plain)", gpt2_cpu)
     what = "gpt2"
-    task = build_task("genomic", **QUICKSTART["task"])
-    cfg = task_llm_config("gpt2", task.vocab_size, task.llm_seq_len)
+    torch, task, cfg = gpt2_setup()
     steps, bs = LLM_WIDE["steps"], LLM_WIDE["batch_size"]
     gc.collect()
     torch.cuda.empty_cache()
@@ -2414,18 +2420,8 @@ def gpt2_phase() -> dict:
     peak = torch.cuda.max_memory_allocated() / 2**30
     one = BatchedLLMEngine(task, cfg, base, seed=0, steps=1,
                            batch_size=bs).run()
-    cpu_base = tree_map(lambda t: t.cpu(), base)
-    t0 = time.perf_counter()
-    cpu = BatchedLLMEngine(task, cfg, cpu_base, seed=0, steps=1,
-                           batch_size=bs).run()
-    cpu_s = time.perf_counter() - t0
-    gap = (float(np.max(np.abs(one.losses - cpu.losses))),
-           float(np.max(np.abs(one.f1 - cpu.f1))),
-           float(np.max(np.abs(one.teacher - cpu.teacher))))
-    check(gap[0] <= LLM_LOSS_TOL and gap[1] <= LLM_F1_TOL
-          and gap[2] <= TEACHER_TOL,
-          f"{what} Step 1, card vs cpu after 1 step: {gap} (tolerances "
-          f"{LLM_LOSS_TOL}, {LLM_F1_TOL}, {TEACHER_TOL})")
+    one = dict(losses=np.asarray(one.losses), f1=np.asarray(one.f1),
+               teacher=np.asarray(one.teacher))
     check(np.all(np.isfinite(out.losses)), f"{what}: L_LLM {out.losses}")
     print(f"phase 9c: gpt2 (full width: {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}, "
@@ -2433,11 +2429,9 @@ def gpt2_phase() -> dict:
           f"{bs} x 64 tokens: base draw {init_s:.2f} s; run() of {steps} "
           f"steps + distill + evaluation {run_s:.2f} s; train steps "
           f"{', '.join(f'{t:.3f}' for t in step_s)} s; peak memory "
-          f"{peak:.2f} GiB; card vs cpu after 1 step |Δ L_LLM| "
-          f"{gap[0]:.3g}, |Δ F1| {gap[1]:.3g}, |Δ teacher| {gap[2]:.3g} "
-          f"(cpu {cpu_s:.1f} s); launches {json.dumps(n)}")
+          f"{peak:.2f} GiB; launches {json.dumps(n)}")
     return dict(counts=n, init_s=init_s, run_s=run_s, step_s=step_s,
-                peak_gib=peak, gap=gap, n_params=n_params)
+                peak_gib=peak, n_params=n_params, one=one, job=job)
 
 
 # ---------------------------------------------------------------------------
@@ -2939,7 +2933,7 @@ def kernel_times(gen, lora_shapes, attn_shapes, lora_iters=(50, 20),
     pad is part of the call)."""
     import torch
     from repro_torch.kernels import flash_attention as fa, lora_matmul as lm
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import counts, ref
     bf = torch.bfloat16
     lora, attn = [], []
     with torch.no_grad():
@@ -2953,7 +2947,8 @@ def kernel_times(gen, lora_shapes, attn_shapes, lora_iters=(50, 20),
             err = rel_err(got, want, floor=0.0)
             check(err <= 2e-2, f"lora_matmul {name}: error {err}")
             t = time_lora(x, w, a, b, *lora_iters)
-            bms, by = bound_ms(*lora_flops_bytes(1, M_, K, N, r, elem=2),
+            bms, by = bound_ms(*counts.lora_flops_bytes(1, M_, K, N, r,
+                                                        elem=2),
                                BF16_FLOPS_PER_S)
             lora.append(dict(shape=name, C=1, M=M_, K=K, N=N, r=r,
                              dtype="bfloat16",
@@ -2976,7 +2971,7 @@ def kernel_times(gen, lora_shapes, attn_shapes, lora_iters=(50, 20),
                 vp = torch.nn.functional.pad(v, (0, D - Dv))
                 t["padded_kernel_graph_ms"] = graph_ms(
                     lambda: fa._forward(q, k, vp, causal, 0, D ** -0.5))
-            bms, by = bound_ms(*attn_flops_bytes(
+            bms, by = bound_ms(*counts.attn_flops_bytes(
                 B, S, H, KH, D, elem=2, Dv=Dv, Sk=Sk, causal=causal),
                 BF16_FLOPS_PER_S)
             attn.append(dict(shape=name, B=B, S=S, Sk=Sk, causal=causal,
@@ -5053,6 +5048,7 @@ def attn_bwd_times(gen) -> list:
     495 TF32 TFLOP/s with 3 products for float32)."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import counts
     rows = []
     for name, B, S, H, KH, D, Dv in OTHER_HEAD_DIM_SHAPES:
         for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-5)):
@@ -5065,8 +5061,8 @@ def attn_bwd_times(gen) -> list:
                 is_causal=True, enable_gqa=True)
             dos = do.transpose(1, 2)
             elem = 2 if dt == torch.bfloat16 else 4
-            flops, nbytes = attn_flops_bytes(B, S, H, KH, D, True, elem,
-                                             Dv=Dv)
+            flops, nbytes = counts.attn_flops_bytes(B, S, H, KH, D, True,
+                                                    elem, Dv=Dv)
             bms, by = (bound_ms(flops, nbytes, BF16_FLOPS_PER_S)
                        if dt == torch.bfloat16
                        else tc_bound_ms(3, flops, nbytes))
@@ -5427,7 +5423,7 @@ def train_kernel_checks(cfg, model) -> list:
     one row a case; ``check_training`` holds them to
     ``TRAIN_KERNEL_TOL``."""
     import torch
-    from repro_torch.kernels import lora_matmul as lm, ref
+    from repro_torch.kernels import counts, lora_matmul as lm, ref
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = []
     for dt in (torch.bfloat16, torch.float32):
@@ -5436,10 +5432,18 @@ def train_kernel_checks(cfg, model) -> list:
                 train_attn_shapes(cfg):
             c = attn_bwd_case(gen, B, S, H, KH, D, Dv, dt, causal, Sk,
                               window)
+            elem = 2 if dt == torch.bfloat16 else 4
+            work = counts.attn_flops_bytes(B, S, H, KH, D, True, elem, Dv,
+                                           Sk, causal, window)
+            bms, by = (bound_ms(*work, BF16_FLOPS_PER_S) if elem == 2
+                       else tc_bound_ms(3, *work))
             rows.append(dict(kernel="flash_attention_bwd", shape=label,
                              B=B, S=S, Sk=Sk, H=H, KH=KH, D=D, Dv=Dv,
                              causal=causal, dtype=dn, rel_err=c["err"],
-                             ms=cuda_ms(c["kernel"], iters=5, warmup=1)))
+                             ms=cuda_ms(c["kernel"], iters=5, warmup=1),
+                             bound_ms=bms, bound_by=by,
+                             library_ms=sdpa_bwd_ms(c, causal, window),
+                             workspace=fa_workspace_check(B, S, Sk, H, D)))
             del c
         for label, M_, K, N, r in train_lora_shapes(cfg, model):
             x = _randn(gen, (1, M_, K), dtype=dt).requires_grad_()
@@ -5453,13 +5457,183 @@ def train_kernel_checks(cfg, model) -> list:
                                        x, dy)[0]
             dx = lambda: lm._launch(  # noqa: E731
                 dy, w.t(), b.transpose(1, 2), a.transpose(1, 2), 2.0)
+            lib = lambda: torch.baddbmm(  # noqa: E731
+                torch.matmul(dy, w.t()), torch.bmm(dy, b.transpose(1, 2)),
+                a.transpose(1, 2), alpha=2.0)
+            elem = 2 if dt == torch.bfloat16 else 4
+            work = counts.lora_flops_bytes(1, M_, N, K, r, elem)
+            bms, by = (bound_ms(*work, BF16_FLOPS_PER_S) if elem == 2
+                       else tc_bound_ms(3, *work))
             rows.append(dict(kernel="lora_matmul dx", shape=label, M=M_,
                              K=K, N=N, r=r, dtype=dn,
                              rel_err=rel_err(got, want, floor=0.0),
-                             ms=cuda_ms(dx, iters=5, warmup=1)))
+                             ms=cuda_ms(dx, iters=5, warmup=1),
+                             bound_ms=bms, bound_by=by,
+                             library_ms=cuda_ms(lib, iters=5, warmup=1),
+                             workspace=lm_workspace_check(1, M_, K, N, r)))
             del x, w, a, b, dy, got, want
     torch.cuda.synchronize()
     return rows
+
+
+def sdpa_bwd_ms(case: dict, causal: bool, window: int):
+    """The library's time for the same backward: autograd of
+    ``scaled_dot_product_attention`` (GQA) at the case's q, k, v and dO,
+    v as it is (not padded to q's head dim), the forward taken once
+    outside the timing; None for a sliding window (none of phase 19's
+    models has one), which SDPA takes only as a dense mask."""
+    import torch
+    import torch.nn.functional as F
+    q, k, v, do = case["q"], case["k"], case["v"], case["do"]
+    if window:
+        return None
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_()
+                  for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                         enable_gqa=True)
+    dot = do.transpose(1, 2)
+    return cuda_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), iters=5, warmup=1)
+
+
+def lm_workspace_check(C, M, N, K, r) -> dict:
+    """``lora_matmul``'s workspace at a launch (x ``(C, M, K)``, N output
+    columns): the library's ``lm_workspace`` and the dry run's Python
+    copy (``counts.lm_workspace``) at this card's SM count."""
+    import torch
+    from repro_torch.kernels import counts, lora_matmul as lm
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return dict(library=int(lm._library().lm_workspace(C, M, N, K, r)),
+                python=counts.lm_workspace(C, M, N, K, r, sms))
+
+
+def fa_workspace_check(B, S, Sk, H, D) -> dict:
+    from repro_torch.kernels import counts, flash_attention as fa
+    return dict(library=int(fa._library().fa_backward_workspace(
+        B, S, Sk, H, D)), python=counts.fa_backward_workspace(
+        B, S, Sk, H, D))
+
+
+def i4_workspace_check(M, K, N, trans: bool) -> dict:
+    import torch
+    from repro_torch.kernels import counts, int4_matmul as i4
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return dict(library=int(i4._library().i4_workspace(M, K, N,
+                                                       int(trans))),
+                python=counts.i4_workspace(M, K, N, trans, sms))
+
+
+def dryrun_model(name: str):
+    """Phase 19's config of ``name`` (the cut depths of phases 13-18)."""
+    import dataclasses
+    from repro_torch.configs.registry import get
+    if name == KIMI:
+        return kimi_cfg()
+    if name == MINICPM:
+        return minicpm_cfg()
+    if name == JAMBA:
+        return dataclasses.replace(get(JAMBA), n_layers=len(JAMBA_PATTERN),
+                                   pattern=JAMBA_PATTERN)
+    if name in (WHISPER, QWEN_VL):
+        return frontend_cfg(name)
+    return get(name)
+
+
+def dryrun_phase() -> dict:
+    """Phase 20, on the CPU (a ``CpuJob``): the dry run's trace of each of
+    phase 19's six models at phase 19's own step (bf16 base, float32
+    adapters, ``TRAIN_B`` × ``TRAIN_S`` tokens behind any frontend,
+    ``TRAIN_NM`` microbatches, remat) on a (1, 1) mesh, abstract: the
+    arguments, the step's temporary peak, and the prediction of what
+    phase 19 measures.  Phase 19's ``train_run`` counts the bytes above
+    the drawn model over two steps from fresh AdamW state; its peak is
+    in the second step, which holds beside the model the first step's
+    adapters and AdamW state, the clone of the first moment it keeps,
+    and the step's own temporaries.  So the prediction is the AdamW
+    state (the step's arguments less the model and the batch, which the
+    card already held), plus two adapter-sized float32 trees (the first
+    step's adapters and the moment's clone), plus the trace's temporary
+    peak."""
+    import torch
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_leaves
+    torch.set_num_threads(SIDE_CPU_THREADS)
+    out = {}
+    for name in (KIMI, MINICPM, JAMBA, XLSTM, WHISPER, QWEN_VL):
+        cfg = dryrun_model(name)
+        shape = InputShape("phase19", TRAIN_S, TRAIN_B, "train")
+        with make_local_mesh() as mesh:
+            tr = D.trace_step(cfg, shape, mesh, n_micro=TRAIN_NM)
+        params, adapters = D.abstract_model(cfg)
+        nbytes = lambda tree: sum(  # noqa: E731
+            t.numel() * t.element_size() for t in tree_leaves(tree))
+        model, adp = nbytes(params), nbytes(adapters)
+        batch = nbytes(M.input_specs(cfg, shape))
+        opt = tr["extra"]["argument_bytes"] - model - adp - batch
+        out[name] = dict(argument_bytes=tr["extra"]["argument_bytes"],
+                         temp_bytes=tr["peak"], model_bytes=model,
+                         adapter_bytes=adp, opt_bytes=opt,
+                         predicted=opt + 2 * adp + tr["peak"],
+                         trace_s=tr["trace_s"])
+    return out
+
+
+def dryrun_compare(pred: dict, trained: dict) -> dict:
+    """Phase 20 held to phase 19: each model's predicted peak within 10 %
+    or 64 MiB (whichever is larger) of the peak phase 19 measured above
+    the model (``torch.cuda.max_memory_allocated`` of its remat step)."""
+    gib, out = 2 ** 30, {}
+    for name, p in pred.items():
+        got = trained[name]["training"]["peak_bytes"]["remat"]
+        tol = max(0.10 * got, 64 * 2 ** 20)
+        out[name] = dict(predicted=p["predicted"], measured=got,
+                         ratio=p["predicted"] / max(1, got),
+                         ok=abs(p["predicted"] - got) <= tol,
+                         trace_s=p["trace_s"])
+        print(f"phase 20 ({name}): predicted peak above the model "
+              f"{p['predicted'] / gib:.3f} GiB (AdamW state "
+              f"{p['opt_bytes'] / gib:.3f}, 2 x adapters "
+              f"{2 * p['adapter_bytes'] / gib:.3f}, step temporaries "
+              f"{p['temp_bytes'] / gib:.3f}; traced in "
+              f"{p['trace_s']:.1f} s) against phase 19's measured "
+              f"{got / gib:.3f} GiB (ratio {out[name]['ratio']:.3f})")
+    for name, o in out.items():
+        check(o["ok"], f"phase 20: {name}'s predicted peak "
+              f"{o['predicted']} bytes is off phase 19's {o['measured']} "
+              "by more than 10 % and 64 MiB")
+    return out
+
+
+def dryrun_checks(pred: dict, trained: dict) -> dict:
+    """Phase 20's checks once phase 19 has run: ``dryrun_compare`` and
+    the workspace planners (phase 19's kernel checks; ``int4_matmul`` NN
+    and NT at phase 6's shapes)."""
+    out = dryrun_compare(pred, trained)
+    extra = [dict(kernel="int4_matmul", shape=f"{lab} {'NT' if t else 'NN'}",
+                  workspace=i4_workspace_check(M, K, N, t))
+             for lab, M, K, N in INT4_SHAPES for t in (False, True)]
+    n = check_workspaces([r for d in trained.values()
+                          for r in d["training"]["kernel_checks"]], extra)
+    print(f"phase 20: {n} workspace plans (lora_matmul dx and "
+          "flash_attention_bwd at phase 19's step shapes, int4_matmul at "
+          "phase 6's) equal in the Python copies and the libraries")
+    return dict(peaks=out, workspace_plans=n)
+
+
+def check_workspaces(rows, extra) -> int:
+    """Every Python workspace planner equal to its library: the rows of
+    ``train_kernel_checks`` and ``extra``; returns how many were held."""
+    n = 0
+    for r in list(rows) + list(extra):
+        w = r["workspace"]
+        check(w["library"] == w["python"], f"workspace planner of "
+              f"{r.get('kernel')} at {r.get('shape')}: library "
+              f"{w['library']}, Python copy {w['python']}")
+        n += 1
+    return n
 
 
 def kernel_checks_text(rows) -> str:
@@ -5490,6 +5664,12 @@ def train_family(name: str, cfg, model, prompts, frames=None) -> dict:
     t0 = time.perf_counter()
     gc.collect()
     checks = train_kernel_checks(cfg, model)
+    for r in checks:
+        lib = r["library_ms"]
+        print(f"phase 19 ({name}) {r['kernel']} {r['shape']} {r['dtype']}: "
+              f"{r['ms'] * 1e3:.1f} us (host loop of 5), bound "
+              f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}, library "
+              + ("none" if lib is None else f"{lib * 1e3:.1f} us"))
     B, S = TRAIN_B, TRAIN_S
     params, adapters = model
     model1 = (params, tree_map(lambda t: t[None], adapters))
@@ -5776,6 +5956,7 @@ def training_phase() -> dict:
     ``train_lm_phase``."""
     import torch
     from repro_torch.tree import tree_map
+    dry_job = CpuJob("phase 20's dry run (cpu, abstract)", dryrun_phase)
     out = {}
     for start in (kimi_start, lambda: minicpm_start(minicpm_cfg()),
                   jamba_start, xlstm_start,
@@ -5802,6 +5983,8 @@ def training_phase() -> dict:
         torch.cuda.empty_cache()
     for name, (cfg, training) in out.items():
         check_training(name, cfg, training, training.get("cpu_compare"))
+    out["dryrun"] = dryrun_checks(dry_job.result(), {
+        n: {"training": t} for n, (_, t) in out.items()})
     out["train_lm"] = train_lm_phase()
     return out
 
@@ -6204,6 +6387,9 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     print(f"before phase 13: {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
           "GiB held on the card")
+    # phase 20's trace on the CPU, beside kimi-k2's draw on the card (the
+    # host loops of phases 4-9 are the critical path, and CPU-bound)
+    dry_job = CpuJob("phase 20's dry run (cpu, abstract)", dryrun_phase)
     stamp(t_start, "phase 13")
     kimi = kimi_phase(gen)
     # each later model is drawn, and its CPU half started, while an
@@ -6231,6 +6417,7 @@ def main(argv) -> int:
     xlstm_ = xlstm_phase(gen, started.pop(XLSTM), side[XLSTM])
     train_lm_run = side["train_lm"]
     stamp(t_start, "the comparisons")
+    gpt2_compare(gpt2)
     sequential_compare(seq)
     qlora_compare(ql)
     cli = cli_compare(cli)
@@ -6248,6 +6435,8 @@ def main(argv) -> int:
     sh = sharded["modes"]["one card"]
     trained = {KIMI: kimi, MINICPM: minicpm, JAMBA: jamba, XLSTM: xlstm_,
                WHISPER: whisper, QWEN_VL: qwen_vl}
+    stamp(t_start, "phase 20")
+    dryrun = dryrun_checks(dry_job.result(), trained)
 
     def launches_training(kernel: str) -> dict:
         """Phase 19's launches of one train step under remat, a model,
@@ -6434,7 +6623,8 @@ def main(argv) -> int:
              replaces=dk.REPLACES, launches=nq["distill_kl"],
              max_abs_err=kl_err, **headline(kl_shapes, "B=4096 C=4102"),
              on_main_path=False, shapes=kl_shapes)]
-    print(json.dumps({"qfl": {k: qfl[k] for k in ("wall_s", "round_s")},
+    print(json.dumps({"dryrun": dryrun,
+                      "qfl": {k: qfl[k] for k in ("wall_s", "round_s")},
                       "llm_qfl": {k: llm[k] for k in ("wall_s", "finetune_s",
                                                       "round_s")},
                       "sequential": seq["wall_s"],

@@ -19,7 +19,8 @@ tokens, and M-RoPE sections are rescaled to the reduced head dim).
 then stores every adapted base weight as packed int4 plus scales
 (``peft.lora.quantize``).  LoRA dropout is left out: the JAX package
 never applies it.  Field names, defaults and ``head_dim`` inference are
-the JAX package's.
+the JAX package's.  ``InputShape`` and ``INPUT_SHAPES`` are the dry
+run's four shapes, copied.
 """
 from __future__ import annotations
 
@@ -128,6 +129,25 @@ class ModelConfig:
     def active_param_count(self) -> int:
         from repro_torch.models.counting import count_active_params
         return count_active_params(self)
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (the dry run's assignment table)
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k":    InputShape("train_4k",    4_096,   256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768,  32,  "prefill"),
+    "decode_32k":  InputShape("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   InputShape("long_500k",   524_288, 1,   "decode"),
+}
 
 
 def reduced(cfg: ModelConfig, *, d_model: int = 256, n_groups: int = 1,

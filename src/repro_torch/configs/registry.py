@@ -9,7 +9,9 @@ Mamba hybrid ``jamba-1.5-large-398b``, the recurrent ``xlstm-125m``, the
 encoder-decoder ``whisper-large-v3`` (audio frontend) and the
 vision-language ``qwen2-vl-72b`` (vision frontend, M-RoPE); then the
 paper's LLMs.  An unknown name raises ``KeyError``, as in the JAX
-package.
+package.  ``assigned_names``, ``get_shape`` and ``pairs`` are the dry
+run's: ``pairs`` skips ``long_500k`` for a config without
+``supports_long_decode`` (whisper), as JAX's does.
 """
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ import importlib
 from typing import List
 
 from repro_torch.configs import paper_models
-from repro_torch.configs.base import ModelConfig, reduced
+from repro_torch.configs.base import (INPUT_SHAPES, InputShape, ModelConfig,
+                                      reduced)
 
 _ASSIGNED = {
     "llama4-maverick-400b-a17b":
@@ -41,6 +44,10 @@ _PAPER = {
 }
 
 
+def assigned_names() -> List[str]:
+    return list(_ASSIGNED)
+
+
 def all_names() -> List[str]:
     return list(_ASSIGNED) + list(_PAPER)
 
@@ -53,3 +60,24 @@ def get(name: str) -> ModelConfig:
     if name.endswith("-smoke"):
         return reduced(get(name[: -len("-smoke")]))
     raise KeyError(f"unknown arch {name!r}; known: {all_names()}")
+
+
+def get_shape(name: str) -> InputShape:
+    return INPUT_SHAPES[name]
+
+
+def pairs(include_skipped: bool = False):
+    """All (arch, shape) dry-run pairs; ``long_500k`` is skipped for a
+    config whose decode is not sub-quadratic (``supports_long_decode``
+    false: whisper's full-attention encoder-decoder).  With
+    ``include_skipped`` each pair carries ``"RUN"`` or ``"SKIP"``."""
+    out = []
+    for a in assigned_names():
+        cfg = get(a)
+        for s in INPUT_SHAPES:
+            if s == "long_500k" and not cfg.supports_long_decode:
+                if include_skipped:
+                    out.append((a, s, "SKIP"))
+                continue
+            out.append((a, s, "RUN") if include_skipped else (a, s))
+    return out

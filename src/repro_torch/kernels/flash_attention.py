@@ -30,7 +30,10 @@ it never falls back to the plain version.  ``flash_attention.launches``
 counts forward launches.  ``flash_attention_bwd.launches`` counts
 backward calls, one each: a call is one launch up to 64 keys, three
 above (``flash_attention_bwd.side_launches`` counts the two extra, the
-rowsum(dO O) and dQ-sum passes).
+rowsum(dO O) and dQ-sum passes).  Given abstract tensors
+(``counts.is_abstract``) the wrappers launch nothing: they allocate what
+a launch allocates (the output and ``lse``; ``dq``, ``dk``, ``dv`` and
+the backward's workspace) and add its counts to the open tallies.
 """
 from __future__ import annotations
 
@@ -39,7 +42,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, counts
 
 NAME = "flash_attention"
 SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
@@ -106,6 +109,10 @@ def _rows_aligned(t) -> bool:
 
 
 def _aligned(t):
+    if counts.is_abstract(t):      # no address: the allocator's 16 bytes
+        ok = all(st * t.element_size() % 16 == 0
+                 for st in (t.storage_offset(),) + t.stride()[:-1])
+        return t if ok else t.contiguous()
     return t if _rows_aligned(t) else t.contiguous()
 
 
@@ -117,9 +124,16 @@ def _raise(lib, err, what):
 
 def _forward(q, k, v, causal: bool, window: int, scale: float):
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
-    _check(q, k, v)
     B, S, H, D = q.shape
     Sk, KH = k.shape[1], k.shape[2]
+    if counts.is_abstract(q):
+        out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+        lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+        counts.add(NAME, *counts.attn_flops_bytes(
+            B, S, H, KH, D, elem=q.element_size(), Sk=Sk, causal=causal,
+            window=window))
+        return out, lse
+    _check(q, k, v)
     lib = _library()
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
@@ -140,9 +154,11 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     if dout.stride(-1) != 1:
         dout = dout.contiguous()
     q, k, v, dout = _aligned(q), _aligned(k), _aligned(v), _aligned(dout)
-    _check(q, k, v, out, dout)
     B, S, H, D = q.shape
     Sk, KH = k.shape[1], k.shape[2]
+    if counts.is_abstract(q):
+        return _abstract_backward(q, k, causal, window)
+    _check(q, k, v, out, dout)
     if not out.is_contiguous() or tuple(out.shape) != (B, S, H, D):
         raise ValueError("out must be the forward's contiguous output")
     if tuple(dout.shape) != (B, S, H, D):
@@ -170,6 +186,22 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     flash_attention_bwd.launches += 1
     if nbytes:
         flash_attention_bwd.side_launches += 2
+    return dq, dk, dv
+
+
+def _abstract_backward(q, k, causal: bool, window: int):
+    """What ``flash_attention_bwd`` allocates, counted and not launched."""
+    B, S, H, D = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Sk, KH, D), dtype=q.dtype, device=q.device)
+    dv = torch.empty((B, Sk, KH, D), dtype=q.dtype, device=q.device)
+    nbytes = counts.fa_backward_workspace(B, S, Sk, H, D)
+    if nbytes:
+        torch.empty(nbytes, dtype=torch.uint8, device=q.device)
+    counts.add(NAME + "_bwd", *counts.attn_flops_bytes(
+        B, S, H, KH, D, backward=True, elem=q.element_size(), Sk=Sk,
+        causal=causal, window=window))
     return dq, dk, dv
 
 

@@ -23,8 +23,10 @@ their gradient raises.
 Where the kernel splits a small grid's reduction, the wrapper allocates
 its float32 workspace (``i4_workspace`` floats); the split's second pass
 is part of the same launch and counts once.  These wrappers take CUDA
-tensors only and launch the kernel or raise:
-they never fall back to the plain version.  ``int4_matmul.launches``
+tensors only and launch the kernel or raise: they never fall back to
+the plain version.  Given abstract tensors (``counts.is_abstract``)
+they launch nothing: they allocate the output and the workspace and add
+the launch's counts to the open tallies.  ``int4_matmul.launches``
 counts forward (NN) launches and ``int4_matmul_t.launches`` the NT ones.
 """
 from __future__ import annotations
@@ -34,7 +36,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, counts
 
 NAME = "int4_matmul"
 SOURCE = "src/repro_torch/kernels/csrc/int4_matmul.cu"
@@ -60,6 +62,8 @@ def _library() -> ctypes.CDLL:
 def _launch(a, packed, scales, qblock: int, round_to, trans: bool):
     """One launch: NN ``a (M, K) → (M, N)`` or NT ``a (M, N) → (M, K)``
     for a packed ``(K, N/2)`` weight."""
+    if counts.is_abstract(a):
+        return _abstract_launch(a, packed, scales, qblock, trans)
     if a.dim() != 2 or packed.dim() != 2 or scales.dim() != 2:
         raise ValueError(f"int4_matmul takes 2-D operands, not "
                          f"{tuple(a.shape)}, {tuple(packed.shape)}, "
@@ -108,6 +112,19 @@ def _launch(a, packed, scales, qblock: int, round_to, trans: bool):
         int4_matmul_t.launches += 1
     else:
         int4_matmul.launches += 1
+    return out
+
+
+def _abstract_launch(a, packed, scales, qblock: int, trans: bool):
+    """What ``_launch`` allocates, counted and not launched."""
+    K, N = packed.shape[0], 2 * packed.shape[1]
+    M = a.shape[0]
+    out = torch.empty((M, K if trans else N), dtype=a.dtype, device=a.device)
+    n_ws = counts.i4_workspace(M, K, N, trans)
+    if n_ws:
+        torch.empty(n_ws, dtype=torch.float32, device=a.device)
+    counts.add(NAME + ("_t" if trans else ""),
+               *counts.int4_flops_bytes(M, K, N, qblock))
     return out
 
 

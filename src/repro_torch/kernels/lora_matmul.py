@@ -24,7 +24,9 @@ Where the kernel splits a small grid's reduction, the wrapper allocates
 its float32 workspace (``lm_workspace`` floats); the split's second pass
 is part of the same launch and counts once.  This wrapper takes CUDA
 tensors only and launches the kernel or raises: it never falls back to
-the plain version.
+the plain version.  Given abstract tensors (``counts.is_abstract``) it
+launches nothing: it allocates the output and the workspace and adds
+the launch's counts to the open tallies (``counts.tally``).
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, counts
 
 NAME = "lora_matmul"
 SOURCE = "src/repro_torch/kernels/csrc/lora_matmul.cu"
@@ -61,6 +63,8 @@ def _library() -> ctypes.CDLL:
 def _launch(x, w, a, b, scale: float) -> torch.Tensor:
     """One launch on ``(C, M, K)``, ``(K, N)``, ``(C, K, r)``, ``(C, r, N)``
     tensors of any strides; returns a contiguous ``(C, M, N)``."""
+    if counts.is_abstract(x):
+        return _abstract_launch(x, w, a, b)
     C, M, K = x.shape
     N = w.shape[1]
     r = a.shape[2]
@@ -97,6 +101,19 @@ def _launch(x, w, a, b, scale: float) -> torch.Tensor:
         raise RuntimeError(f"{NAME} launch failed: "
                            f"{lib.lm_error_string(err).decode()}")
     lora_matmul.launches += 1
+    return y
+
+
+def _abstract_launch(x, w, a, b) -> torch.Tensor:
+    """What ``_launch`` allocates, counted and not launched."""
+    C, M, K = x.shape
+    N, r = w.shape[1], a.shape[2]
+    y = torch.empty((C, M, N), dtype=x.dtype, device=x.device)
+    n_ws = counts.lm_workspace(C, M, N, K, r)
+    if n_ws:
+        torch.empty(n_ws, dtype=torch.float32, device=x.device)
+    counts.add(NAME, *counts.lora_flops_bytes(C, M, K, N, r,
+                                              elem=x.element_size()))
     return y
 
 

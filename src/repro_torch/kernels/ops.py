@@ -2,12 +2,17 @@
 
 A CUDA tensor always goes to the hand-written kernel, which launches or
 raises; a CPU tensor goes to the plain version in ``ref``.  There is no
-fallback from one to the other.
+fallback from one to the other.  A fake tensor (``FakeTensorMode``,
+``counts.is_abstract``), on whatever device, takes the card's path: the
+wrappers of ``lora_matmul``, ``flash_attention`` and ``int4_matmul``
+allocate what a launch would and count it (``counts.tally``), launching
+nothing.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import counts
 from repro_torch.kernels import distill_kl as _kl
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import int4_matmul as _i4
@@ -18,7 +23,7 @@ from repro_torch.kernels import statevector_tape as _svt
 
 
 def _on_cpu(t, name: str) -> bool:
-    if t.is_cuda:
+    if t.is_cuda or counts.is_abstract(t):
         return False
     if t.device.type != "cpu":
         raise ValueError(f"no {name} for device {t.device}")
@@ -71,3 +76,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                                    scale=scale)
     return ref.flash_attention(q, k, v, causal=causal, window=window,
                                scale=scale)
+
+
+def on_card_path(t) -> bool:
+    """Does ``t`` take the card's path: a CUDA or an abstract tensor?"""
+    return t.is_cuda or counts.is_abstract(t)

@@ -42,12 +42,18 @@ A sequence axis ``N`` is the client and batch axes folded, ``C·B``;
 serving runs one adapter set, so there ``N = B``.  The decode cache of a
 layer is ``(k, v)``, each ``(N, S, KH, D)`` (bfloat16 by default,
 ``model.init_cache``), and ``attn_decode`` writes it in place.
+
+On a device mesh (DTensor activations: the dry run) each attention
+launch runs on one device's shards (``flash``), its batch and heads laid
+out as the JAX package's anchors lay them (``distributed.parallel``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch import random as jr
+from repro_torch.distributed import parallel
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops
 from repro_torch.models.common import (apply_rope, dense, init_dense,
                                        lora_pair, rms_norm, rope_freqs,
@@ -98,15 +104,26 @@ def gqa_out(params, cfg, x, attn_out, pre: str = ""):
     return x + o
 
 
+def flash(q, k, v, *, causal: bool = True, window: int = 0,
+          anchor: bool = True):
+    """One ``kernels.ops.flash_attention`` launch; on DTensors, one a
+    device over its shards (``distributed.parallel.attention``)."""
+    def one(q, k, v):
+        return ops.flash_attention(q, k, v, causal=causal, window=window)
+    if shd.is_dtensor(q):
+        return parallel.attention(one, q, k, v, anchor=anchor)
+    return one(q, k, v)
+
+
 def attn_train(params, cfg, x, positions, *, causal: bool = True,
-               window=None):
+               window=None, anchor: bool = True):
     """Full-sequence GQA layer (the sliding window ``window``, or the
     config's when it is None; the encoder runs it with ``causal=False``).
     Returns ``(y, (k, v))``: k (rotary applied) and v ``(N, S, KH, D)``
     in the activation dtype, the layer's prefill cache."""
     _, q, k, v = gqa_qkv(params, cfg, x, positions)
     w = cfg.sliding_window if window is None else window
-    out = ops.flash_attention(q, k, v, causal=causal, window=w)
+    out = flash(q, k, v, causal=causal, window=w, anchor=anchor)
     return gqa_out(params, cfg, x, out), (k, v)
 
 
@@ -119,7 +136,7 @@ def _cross_q(params, cfg, x):
         C * B, S, cfg.n_heads, cfg.head_dim)
 
 
-def cross_attn_train(params, cfg, x, enc_kv):
+def cross_attn_train(params, cfg, x, enc_kv, anchor: bool = True):
     """Decoder cross-attention over the encoder's ``(k, v)``, each ``(C·B,
     F, KH, D)``: one non-causal ``flash_attention`` launch.  Where the
     encoder's stream is wider than the decoder's (float32 frames under a
@@ -128,7 +145,7 @@ def cross_attn_train(params, cfg, x, enc_kv):
     q = _cross_q(params, cfg, x)
     k, v = enc_kv
     dt = torch.promote_types(q.dtype, k.dtype)
-    out = ops.flash_attention(q.to(dt), k.to(dt), v.to(dt), causal=False)
+    out = flash(q.to(dt), k.to(dt), v.to(dt), causal=False, anchor=anchor)
     return gqa_out(params, cfg, x, out.to(x.dtype), pre="x")
 
 
@@ -192,15 +209,16 @@ def attn_decode(params, cfg, x, pos, k_cache, v_cache, *, window: int = 0):
     S = k_cache.shape[1]
     rolling = bool(window) and S == window
     slot = pos % S if rolling else torch.clamp(pos, 0, S - 1)
+    # slots wrap; unwritten slots exist only while pos < S, and then
+    # "idx <= pos" is exactly the written set
+    at, w = (torch.clamp(pos, max=S - 1), 0) if rolling else (pos, window)
+    if shd.is_dtensor(q):
+        out = parallel.decode_attention(decode_attention, q, k, v, k_cache,
+                                        v_cache, slot, at, window=w)
+        return gqa_out(params, cfg, x, out), (k_cache, v_cache)
     k_cache.index_copy_(1, slot, k.to(k_cache.dtype))
     v_cache.index_copy_(1, slot, v.to(v_cache.dtype))
-    if rolling:
-        # slots wrap; unwritten slots exist only while pos < S, and then
-        # "idx <= pos" is exactly the written set
-        out = decode_attention(q, k_cache, v_cache,
-                               torch.clamp(pos, max=S - 1), window=0)
-    else:
-        out = decode_attention(q, k_cache, v_cache, pos, window=window)
+    out = decode_attention(q, k_cache, v_cache, at, window=w)
     return gqa_out(params, cfg, x, out), (k_cache, v_cache)
 
 
@@ -263,7 +281,8 @@ def _mla_ckv(params, cfg, xn, positions):
     return c_kv, k_rope
 
 
-def mla_train(params, cfg, x, positions, *, window: int = 0):
+def mla_train(params, cfg, x, positions, *, window: int = 0,
+              anchor: bool = True):
     """Full-sequence causal MLA layer, x ``(C, B, S, d)``.  Returns ``(y,
     (c_kv, k_rope))``, the compressed cache in the activation dtype.  The
     JAX package passes MLA the forward's window override (0 by default),
@@ -280,7 +299,7 @@ def mla_train(params, cfg, x, positions, *, window: int = 0):
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         C * B, S, H, m.qk_rope_head_dim)], dim=-1)
-    out = ops.flash_attention(q, k, v, causal=True, window=window)
+    out = flash(q, k, v, causal=True, window=window, anchor=anchor)
     o = dense(out.reshape(C, B, S, H * m.v_head_dim), weight(params, "wo"),
               lora_pair(params, "wo", cfg.lora))
     return x + o, (c_kv, k_rope)

@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import random as jr
+from repro_torch.distributed import parallel
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops
 from repro_torch.peft.lora import QBLOCK
 
@@ -33,7 +35,10 @@ def init_dense(key, shape, dtype=torch.float32, scale: Optional[float] = None,
     than ``random.DRAW_SLICE`` values is drawn a slice of its flat index
     at a time into a tensor of its final dtype: bitwise the whole draw
     (element ``i`` depends only on ``i``), with the draw's peak memory
-    that of one slice."""
+    that of one slice.  On the ``meta`` device it draws nothing (the
+    dry run's abstract trees, ``jax.eval_shape``'s counterpart)."""
+    if torch.device(device).type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     n = math.prod(shape)
@@ -83,10 +88,23 @@ def dense(x: torch.Tensor, w: Union[torch.Tensor, QWeight],
     client axis folded into the rows (the base is shared), dequantized
     as ``bf16(q·s)`` as the JAX model's ``dequantize`` gives it; the
     LoRA term is then two batched matmuls, as the JAX einsums leave it
-    outside any kernel.
+    outside any kernel.  On DTensors (the dry run's mesh) the projection
+    runs on each device's shards (``distributed.parallel.dense``).
     """
-    if isinstance(w, QWeight):
-        return _qlora_dense(x, w, lora)
+    packed, scales = (w.packed, w.scales) if isinstance(w, QWeight) \
+        else (w, None)
+    a, b, scale = lora if lora is not None else (None, None, None)
+    if shd.is_dtensor(x):
+        return parallel.dense(_dense_local, x, packed, scales, a, b, scale)
+    return _dense_local(x, packed, scales, a, b, scale)
+
+
+def _dense_local(x, w, scales, a, b, scale) -> torch.Tensor:
+    """``dense`` on one device's tensors: ``w`` the weight, or with
+    ``scales`` a QLoRA weight's packed bytes; ``a`` None without LoRA."""
+    lora = None if a is None else (a, b, scale)
+    if scales is not None:
+        return _qlora_dense(x, QWeight(w, scales, QBLOCK), lora)
     w = w.to(x.dtype)
     if lora is None:
         return matmul(x, w)
@@ -100,9 +118,10 @@ def dense(x: torch.Tensor, w: Union[torch.Tensor, QWeight],
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` in x's dtype.  On the CPU a bfloat16 product is taken in
     float32 and rounded once, as XLA computes it there; torch's own CPU
-    bfloat16 matmul can carry a NaN of one row into another."""
+    bfloat16 matmul can carry a NaN of one row into another.  An
+    abstract tensor takes the card's path."""
     w = w.to(x.dtype)
-    if x.device.type == "cpu" and x.dtype == torch.bfloat16:
+    if not ops.on_card_path(x) and x.dtype == torch.bfloat16:
         return (x.float() @ w.float()).to(x.dtype)
     return x @ w
 

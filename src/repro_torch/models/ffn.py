@@ -24,7 +24,9 @@ so the dispatch is one indexed copy with no atomic adds: a dropped
 choice goes to a spare row past the buffers, which nothing reads (JAX
 adds zeros into slot ``C_e - 1`` instead: the same function).  Nothing
 here reads back to the host.  The expert weights are 3-D and get no
-LoRA adapter; the shared expert is no adapter target.
+LoRA adapter; the shared expert is no adapter target.  On a device mesh
+(the dry run) the routing metadata is replicated and the expert buffers
+ride ``'model'`` on their E axis, as JAX's constraints lay them.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from repro_torch import random as jr
+from repro_torch.distributed import sharding as shd
 from repro_torch.models.common import (dense, init_dense, lora_pair, matmul,
                                        rms_norm, swiglu, weight)
 
@@ -85,6 +88,10 @@ def moe_params(key, cfg, dtype, device="cpu"):
     return p
 
 
+_ESPEC = shd.P("model", None, None)
+_BA = ("pod", "data")
+
+
 def capacity(n_tokens: int, m) -> int:
     """Slots an expert's buffer holds for ``n_tokens`` tokens: ``top_k ·
     T · capacity_factor / E`` rounded up, then up to a multiple of 8, at
@@ -116,7 +123,9 @@ def rank_in_expert(flat_e: torch.Tensor, n_experts: int) -> torch.Tensor:
     """Each flat choice's position among the earlier choices of its
     expert: a stable argsort, then each expert's first slot by a left
     ``searchsorted`` (equal to the one-hot cumsum, minus one)."""
-    order = torch.argsort(flat_e, stable=True)
+    # routing metadata is tiny: replicated, as JAX constrains it
+    flat_e = shd.constrain(flat_e, shd.P(None))
+    order = shd.constrain(torch.argsort(flat_e, stable=True), shd.P(None))
     sorted_e = flat_e[order]
     starts = torch.searchsorted(
         sorted_e, torch.arange(n_experts, device=flat_e.device))
@@ -141,11 +150,9 @@ def route(logits: torch.Tensor, m) -> Routing:
 def balance_loss(r: Routing, n_experts: int) -> torch.Tensor:
     """Switch-style load balance: ``E · Σ_e density_e · mean prob_e``,
     density the share of tokens whose first choice is ``e``."""
-    counts = torch.zeros(n_experts, dtype=torch.float32,
-                         device=r.probs.device)
-    counts.index_add_(0, r.experts[:, 0],
-                      torch.ones_like(r.experts[:, 0], dtype=torch.float32))
-    density = counts / r.experts.shape[0]
+    # exact integer counts of first choices, as JAX's one-hot mean
+    first = torch.nn.functional.one_hot(r.experts[:, 0], n_experts)
+    density = first.sum(0).float() / r.experts.shape[0]
     return n_experts * torch.sum(density * r.probs.mean(dim=0))
 
 
@@ -162,8 +169,11 @@ def _experts(params, m, xn: torch.Tensor, r: Routing) -> torch.Tensor:
     tok = torch.arange(T, device=xn.device).repeat_interleave(k)
     buf = torch.zeros((E * C + 1, d), dtype=xn.dtype, device=xn.device)
     buf = buf.index_copy(0, dest, xn[tok])[:E * C].view(E, C, d)
-    h = swiglu(matmul(buf, weight(params, "w_in")))
-    out = matmul(h, weight(params, "w_out")).view(E * C, d)
+    # expert parallel on a mesh: the buffers' E axis on 'model', as JAX's
+    buf = shd.constrain(buf, _ESPEC)
+    h = swiglu(shd.constrain(matmul(buf, weight(params, "w_in")), _ESPEC))
+    out = shd.constrain(matmul(h, weight(params, "w_out")),
+                        _ESPEC).reshape(E * C, d)
     y_k = out[slot] * r.keep[:, None].to(out.dtype)
     y_k = y_k.view(T, k, d) * r.gates[..., None].to(out.dtype)
     return y_k.sum(dim=1)
@@ -184,6 +194,8 @@ def moe_update(params, cfg, x: torch.Tensor
     m = cfg.moe
     C, B, S, d = x.shape
     T = B * S
+    # on a mesh the tokens (B, S) fold into T over the batch axes only
+    x = shd.constrain(x, shd.P(None, _BA, None, None))
     xn = rms_norm(x, params["ln2"], cfg.norm_eps).reshape(C, T, d)
     ys, balances = [], []
     for c in range(C):

@@ -15,6 +15,7 @@ from typing import Dict
 import torch
 
 from repro_torch import random as jr
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import ssm, xlstm
@@ -69,7 +70,7 @@ def _ffn(cfg, p, x, ffn: str):
 
 def apply_layer_train(cfg, p: Dict, x, positions, mixer: str, ffn: str, *,
                       causal: bool = True, window=None, enc_kv=None,
-                      mlstm_chunkwise: bool = False):
+                      mlstm_chunkwise: bool = False, anchor: bool = True):
     """Full-sequence layer.  Returns ``(x, cache, balance)``: the cache
     the attention's ``(k, v)``, MLA's ``(c_kv, k_rope)``, or the
     recurrent mixer's state at the last position (``mamba``: ``(h,
@@ -81,26 +82,35 @@ def apply_layer_train(cfg, p: Dict, x, positions, mixer: str, ffn: str, *,
     ``window`` is the forward's override (JAX's ``FwdOptions.window``):
     GQA takes ``cfg.sliding_window`` when it is None, MLA none.
     ``mlstm_chunkwise`` takes the mLSTM's chunkwise form (JAX's
-    ``FwdOptions.mlstm_chunkwise``)."""
+    ``FwdOptions.mlstm_chunkwise``); ``anchor`` shards the attention
+    kernels' heads on a mesh (JAX's ``FwdOptions.attn_anchor``)."""
     if mixer == "attn":
         x, cache = attn.attn_train(p, cfg, x, positions, causal=causal,
-                                   window=window)
+                                   window=window, anchor=anchor)
     elif mixer == "mla":
-        x, cache = attn.mla_train(p, cfg, x, positions, window=window or 0)
-    elif mixer == "mamba":
-        x, cache = ssm.mamba_train(p, cfg, x)
-    elif mixer == "mlstm":
-        fn = (xlstm.mlstm_train_chunkwise if mlstm_chunkwise
-              else xlstm.mlstm_train)
-        x, cache = fn(p, cfg, x)
-    elif mixer == "slstm":
-        x, cache = xlstm.slstm_train(p, cfg, x)
+        x, cache = attn.mla_train(p, cfg, x, positions, window=window or 0,
+                                  anchor=anchor)
+    elif mixer in ("mamba", "mlstm", "slstm"):
+        # a recurrence walks the whole sequence: on a mesh each device
+        # holds all of it for its sequences (seq_parallel gathered)
+        x = shd.constrain(x, shd.P(None, ("pod", "data"), None, None))
+        x, cache = _recurrent_train(p, cfg, x, mixer, mlstm_chunkwise)
     else:
         raise ValueError(mixer)
     if enc_kv is not None:
-        x = attn.cross_attn_train(p, cfg, x, enc_kv)
+        x = attn.cross_attn_train(p, cfg, x, enc_kv, anchor=anchor)
     x, balance = _ffn(cfg, p, x, ffn)
     return x, cache, balance
+
+
+def _recurrent_train(p, cfg, x, mixer: str, mlstm_chunkwise: bool):
+    if mixer == "mamba":
+        return ssm.mamba_train(p, cfg, x)
+    if mixer == "mlstm":
+        fn = (xlstm.mlstm_train_chunkwise if mlstm_chunkwise
+              else xlstm.mlstm_train)
+        return fn(p, cfg, x)
+    return xlstm.slstm_train(p, cfg, x)
 
 
 def apply_layer_decode(cfg, p: Dict, x, pos, cache, mixer: str, ffn: str,

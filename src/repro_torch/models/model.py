@@ -74,6 +74,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import random as jr
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models.common import init_dense, matmul, rms_norm
@@ -185,11 +186,13 @@ class FwdOptions:
     layer group (the module docstring); ``mlstm_chunkwise`` runs the
     mLSTM layers in their chunkwise form; ``collect_cache`` returns each
     layer's cache; ``causal`` masks the decoder's attention (the encoder
-    is always non-causal).  ``seq_parallel`` and ``shard_cache`` shard
-    the residual stream and the caches over a device mesh, which the
-    port does not have yet (ROADMAP §1 item 4, the dry run): either set
-    raises ``NotImplementedError``.  ``attn_anchor`` anchors an attention
-    sharding in JAX and has no effect on one device."""
+    is always non-causal).  ``seq_parallel`` shards the residual stream's
+    sequence over ``'model'`` between layer groups (and gathers it back
+    after the final norm); ``shard_cache`` shards each collected cache
+    (``_shard_cache_tree``); ``attn_anchor`` shards attention's batch
+    and heads at its kernel (``attention``).  All three act on DTensors
+    over a device mesh (the dry run, ``launch/dryrun.py``) and leave a
+    plain tensor as it is."""
     window: Optional[int] = None
     remat: bool = True
     mlstm_chunkwise: bool = False
@@ -199,12 +202,26 @@ class FwdOptions:
     shard_cache: bool = False
     attn_anchor: bool = True
 
-    def __post_init__(self):
-        for name in ("seq_parallel", "shard_cache"):
-            if getattr(self, name):
-                raise NotImplementedError(
-                    f"FwdOptions.{name} shards over a device mesh, which "
-                    "belongs to the dry run (ROADMAP §1 item 4)")
+
+_BA = ("pod", "data")
+
+
+def _shard_cache_tree(tree, batch: int):
+    """Prefill-cache sharding: the sequence axis (the first, ``C·B``
+    rows) over the data-parallel axes when ``batch`` > 1 rows share it,
+    the longest other axis of at least 2048 over 'model'."""
+    def leaf(x):
+        if not hasattr(x, "ndim") or x.ndim == 0:
+            return x
+        spec = [None] * x.ndim
+        if batch > 1 and x.shape[0] == batch:
+            spec[0] = _BA
+        big = [(i, d) for i, d in enumerate(x.shape) if i > 0 and d >= 2048]
+        if big:
+            i, _ = max(big, key=lambda t: t[1])
+            spec[i] = "model"
+        return shd.constrain(x, shd.P(*spec))
+    return tree_map(leaf, tree)
 
 
 def forward(cfg, params: Dict, adapters, tokens: torch.Tensor, *,
@@ -241,7 +258,11 @@ def forward(cfg, params: Dict, adapters, tokens: torch.Tensor, *,
         x = torch.cat([fe, x], dim=2)
     x, balance, caches = _run_stack(cfg, params["layers"], dec_adp, x, opts,
                                     enc_out=enc_out)
-    hidden = rms_norm(x, params["final_norm"], cfg.norm_eps)[:, :, prefix:]
+    hidden = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if opts.seq_parallel:
+        # gather the sequence before the (vocab-sharded) loss head
+        hidden = shd.constrain(hidden, shd.P(None, _BA, None, None))
+    hidden = hidden[:, :, prefix:]
     out = (hidden,)
     if with_balance:
         out += (balance,)
@@ -273,11 +294,16 @@ def _run_stack(cfg, layers: List, adapters: List, x, opts: FwdOptions, *,
             x, cache, bal = L.apply_layer_train(
                 cfg, p, x, positions, mixer, ffn, causal=opts.causal,
                 window=opts.window, enc_kv=enc_kv,
-                mlstm_chunkwise=opts.mlstm_chunkwise)
+                mlstm_chunkwise=opts.mlstm_chunkwise,
+                anchor=opts.attn_anchor)
             if bal is not None:
                 balance = balance + bal
             if opts.collect_cache:
-                caches.append(cache if enc_kv is None else (cache, enc_kv))
+                if enc_kv is not None:
+                    cache = (cache, enc_kv)
+                if opts.shard_cache:
+                    cache = _shard_cache_tree(cache, x.shape[0] * x.shape[1])
+                caches.append(cache)
         return x, balance, caches
 
     remat = opts.remat and torch.is_grad_enabled()
@@ -287,6 +313,8 @@ def _run_stack(cfg, layers: List, adapters: List, x, opts: FwdOptions, *,
             x, bal, cs = checkpoint(group, x, enc_out, g, use_reentrant=False)
         else:
             x, bal, cs = group(x, enc_out, g)
+        if opts.seq_parallel:
+            x = shd.constrain(x, shd.P(None, _BA, "model", None))
         balances.append(bal)
         caches += cs
     return x, torch.stack(balances).sum(0), caches
@@ -316,7 +344,9 @@ def chunked_ce(cfg, params, hidden, labels, *, chunk: int = 512):
         logits = torch.stack([h[c] @ head.to(h.dtype)
                               for c in range(C)]).float()
         logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, y.clamp(min=0)[..., None])[..., 0]
+        V = logits.shape[-1]
+        gold = torch.gather(logits.reshape(-1, V), -1,
+                            y.clamp(min=0).reshape(-1, 1)).reshape(y.shape)
         mask = (y >= 0).float()
         tot = tot + torch.sum((logz - gold) * mask, dim=(1, 2))
         cnt = cnt + torch.sum(mask, dim=(1, 2))
@@ -346,9 +376,12 @@ def loss_and_grads(cfg, params, adapters, batch, *,
 def microbatch(batch: Dict, i: int, n: int) -> Dict:
     """Microbatch ``i`` of ``n``: the contiguous rows ``i·B/n … (i+1)·B/n``
     of each client's ``B`` rows (axis 1), as JAX's ``reshape(n, B // n,
-    …)`` cuts its batch."""
+    …)`` cuts its batch; on a mesh each is sharded over the batch axes,
+    as JAX constrains it."""
     b = batch["tokens"].shape[1] // n
-    return {k: v[:, i * b:(i + 1) * b] for k, v in batch.items()}
+    return {k: shd.constrain(v[:, i * b:(i + 1) * b],
+                             shd.P(None, _BA, *((None,) * (v.dim() - 2))))
+            for k, v in batch.items()}
 
 
 def make_train_step(cfg, *, n_microbatches: int = 1, lr: float = 1e-4,
@@ -518,3 +551,33 @@ def make_serve_step(cfg, *, window: int = 0):
         return logits, new_cache
 
     return serve
+
+
+# ---------------------------------------------------------------------------
+# input specs (abstract stand-ins: no allocation)
+# ---------------------------------------------------------------------------
+def input_specs(cfg, shape, *, window: int = 0) -> Dict:
+    """Abstract inputs of the dry run: ``meta`` tensors of JAX's shapes
+    and dtypes.  Train: ``tokens`` and ``labels`` ``(B, S)`` int32 (and a
+    frontend's ``(B, F, d)`` bfloat16); prefill: ``tokens`` (and the
+    frontend); decode: ``token`` ``(B, 1)`` int32, ``pos`` a 0-dim int32
+    and ``cache``, ``init_cache(cfg, B, S, window=window)``'s tree."""
+    B, S = shape.global_batch, shape.seq_len
+
+    def meta(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if shape.kind in ("train", "prefill"):
+        batch = {"tokens": meta((B, S), torch.int32)}
+        if shape.kind == "train":
+            batch["labels"] = meta((B, S), torch.int32)
+        if cfg.frontend:
+            batch["frontend"] = meta((B, cfg.n_frontend_tokens, cfg.d_model),
+                                     torch.bfloat16)
+        return batch
+    if shape.kind == "decode":
+        return {"token": meta((B, 1), torch.int32),
+                "pos": meta((), torch.int32),
+                "cache": init_cache(cfg, B, S, window=window,
+                                    device="meta")}
+    raise ValueError(shape.kind)

@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import random as jr
+from repro_torch.distributed import parallel
 from repro_torch.models.common import dense, init_dense, lora_pair, rms_norm
 
 SEQ_CHUNK = 128
@@ -170,6 +171,7 @@ def mamba_train(params, cfg, x: torch.Tensor, *, seq_chunk: int = SEQ_CHUNK
     dt, Bm, Cm, A = _ssm_inputs(params, cfg, x_c)
     dt, Bm, Cm = (t.reshape(C * B, S, -1) for t in (dt, Bm, Cm))
     xf = x_c.reshape(C * B, S, ed).float()
+    dt, Bm, Cm, xf = parallel.whole_sequence(dt, Bm, Cm, xf)
 
     cs = min(seq_chunk, S)
     assert S % cs == 0

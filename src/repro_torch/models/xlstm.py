@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import random as jr
+from repro_torch.distributed import parallel
 from repro_torch.models.common import dense, init_dense, lora_pair, rms_norm
 from repro_torch.models.ssm import _causal_conv, softplus
 
@@ -147,6 +148,13 @@ def mlstm_train(params, cfg, x) -> Tuple[torch.Tensor, Tuple]:
     """Sequential-scan mLSTM (the paper's form).  x ``(C, B, S, d)`` →
     ``(y, (C, n, m))``."""
     z, q, k, v, li, lf = _mlstm_qkvif(params, cfg, x)
+    h, state = parallel.per_sequence(_mlstm_scan, 3, q, k, v, li, lf)
+    return _mlstm_out(params, cfg, x, h, z), state
+
+
+def _mlstm_scan(q, k, v, li, lf):
+    """The sequential mLSTM over ``(N, S, …)`` inputs: ``(h (N, S, H, D),
+    (C, n, m))``."""
     Cs, n, m = _zero_state(q)
     hs = []
     # one unbind a tensor, not a slice a position: fewer ops for the host
@@ -154,7 +162,7 @@ def mlstm_train(params, cfg, x) -> Tuple[torch.Tensor, Tuple]:
     for qt, kt, vt, it, ft in zip(*(t.unbind(1) for t in (q, k, v, li, lf))):
         Cs, n, m, h = _mlstm_cell(Cs, n, m, qt, kt, vt, it, ft)
         hs.append(h)
-    return _mlstm_out(params, cfg, x, torch.stack(hs, dim=1), z), (Cs, n, m)
+    return torch.stack(hs, dim=1), (Cs, n, m)
 
 
 def mlstm_train_chunkwise(params, cfg, x, *, chunk: int = 64
@@ -163,6 +171,7 @@ def mlstm_train_chunkwise(params, cfg, x, *, chunk: int = 64
     the state carried from chunk to chunk (JAX's
     ``mlstm_train_chunkwise``, op for op)."""
     z, q, k, v, li, lf = _mlstm_qkvif(params, cfg, x)
+    q, k, v, li, lf = parallel.whole_sequence(q, k, v, li, lf)
     N, S, H, D = q.shape
     cs = min(chunk, S)
     assert S % cs == 0
@@ -277,13 +286,18 @@ def _slstm_gx(params, cfg, x):
 def slstm_train(params, cfg, x) -> Tuple[torch.Tensor, Tuple]:
     """x ``(C, B, S, d)`` → ``(x + gn(h), (c, n, h, m))``."""
     C, B, S, d = x.shape
-    gx = _slstm_gx(params, cfg, x)
-    z0 = torch.zeros((C * B, d), dtype=torch.float32, device=x.device)
-    carry, hs = (z0, z0, z0, z0), []
-    for gx_t in gx.unbind(1):
-        carry = _slstm_step(params, cfg, gx_t, carry)
-        hs.append(carry[2])
-    h = torch.stack(hs, dim=1).reshape(C, B, S, d)
+    def scan(gx, r_gates):
+        z0 = torch.zeros(gx.shape[:1] + (d,), dtype=torch.float32,
+                         device=gx.device)
+        carry, hs = (z0, z0, z0, z0), []
+        for gx_t in gx.unbind(1):
+            carry = _slstm_step({"r_gates": r_gates}, cfg, gx_t, carry)
+            hs.append(carry[2])
+        return torch.stack(hs, dim=1), carry
+
+    h, carry = parallel.per_sequence(scan, 4, _slstm_gx(params, cfg, x),
+                                     whole=(params["r_gates"],))
+    h = h.reshape(C, B, S, d)
     return x + _group_norm(h.to(x.dtype), params["gn"], cfg.n_heads), carry
 
 

@@ -279,7 +279,11 @@ def _counters(n: int, device, start: int = 0
 def _uniform_torch(key: np.ndarray, shape: Tuple[int, ...], lo: np.float32,
                    hi: np.float32, device, start: int = 0) -> torch.Tensor:
     """``uniform`` computed on ``device``: float32 ``[lo, hi)``, the
-    elements from flat index ``start`` on of a draw that holds them."""
+    elements from flat index ``start`` on of a draw that holds them.  On
+    the ``meta`` device it draws nothing: the shape alone, for the dry
+    run's abstract trees."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device="meta")
     b0, b1 = _threefry_torch(key, *_counters(math.prod(shape), device,
                                               start))
     bits = (((b0 ^ b1) >> 9) & 0x7FFFFF) | 0x3F800000
@@ -406,7 +410,10 @@ _SQRT2 = np.float32(np.sqrt(2))
 
 def normal(key: np.ndarray, shape: Tuple[int, ...], device="cpu"
            ) -> torch.Tensor:
-    """float32 standard normals, as ``jax.random.normal``."""
+    """float32 standard normals, as ``jax.random.normal`` (on ``meta``,
+    the shape alone)."""
+    if torch.device(device).type == "meta":
+        return _uniform_torch(key, tuple(shape), 0, 1, device)
     lo = np.nextafter(np.float32(-1), np.float32(0))
     u = _uniform_torch(key, tuple(shape), lo, np.float32(1), device)
     return float(_SQRT2) * erf_inv(u)
@@ -418,7 +425,10 @@ def truncated_normal(key: np.ndarray, lower: float, upper: float,
     """float32 normals truncated to ``(lower, upper)``, as
     ``jax.random.truncated_normal``.  With ``start``, elements ``start``
     .. ``start + prod(shape) - 1`` of a flat draw that holds them, bit
-    for bit (the draw's counter is the flat index)."""
+    for bit (the draw's counter is the flat index).  On ``meta``, the
+    shape alone."""
+    if torch.device(device).type == "meta":
+        return _uniform_torch(key, tuple(shape), 0, 1, device)
     lower, upper = np.float32(lower), np.float32(upper)
     # erf of a float32, rounded once: XLA's float32 erf gives the same
     # values at the bounds the repo uses (tests/test_torch_random.py)

@@ -32,6 +32,18 @@ from repro_torch.tree import tree_leaves
 torch.set_num_threads(1)
 
 STEPS, SEED = 4, 11
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """Each test on one intra-op thread, whatever a module collected or run
+    before it in the same worker set: with more, the CPU's batched
+    products split their sums by the batch's shape, and the sharded stage
+    is no longer bitwise the padded one."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 TASK = dict(n_clients=3, train_size=61, test_size=16, val_size=16, seed=3)
 
 

@@ -42,7 +42,9 @@ def test_port_has_its_modules():
                  "device", "launch", "launch.train", "launch.serve",
                  "configs.registry", "configs.stablelm_3b",
                  "configs.starcoder2_7b", "configs.llama3_405b",
-                 "models.counting", "launch.train_lm"):
+                 "models.counting", "launch.train_lm", "kernels.counts",
+                 "distributed.parallel", "launch.mesh",
+                 "launch.hlo_analysis", "launch.dryrun"):
         assert f"repro_torch.{name}" in MODULES
 
 

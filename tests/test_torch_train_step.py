@@ -166,11 +166,25 @@ def test_microbatches_must_divide_the_batch(models):
         port_steps(m, tadp, batch, 1, n_microbatches=3)
 
 
-def test_mesh_options_raise():
-    """``seq_parallel`` and ``shard_cache`` belong to the dry run."""
-    for kw in ({"seq_parallel": True}, {"shard_cache": True}):
-        with pytest.raises(NotImplementedError, match="dry run"):
-            M.FwdOptions(**kw)
+def test_mesh_options_raise(models):
+    """``seq_parallel`` and ``shard_cache`` act on a mesh only (the dry
+    run's DTensors): off a mesh they raise nothing and leave stablelm's
+    forward, its collected caches and one train step bitwise as they
+    are.  The name is kept from when the port lacked both options and
+    this test held that they raised; it now holds that they do not."""
+    m = models("stablelm-3b")
+    tadp = client_adapters(m)[1]
+    batch = port_batch(draw_batch(m["tcfg"]))
+    outs = []
+    for kw in ({}, {"seq_parallel": True, "shard_cache": True}):
+        opts = M.FwdOptions(collect_cache=True, **kw)
+        hidden, caches = M.forward(m["tcfg"], m["tp"], tadp,
+                                   batch["tokens"], opts=opts)
+        step = port_steps(m, tadp, batch, 1, n_microbatches=NM,
+                          opts=M.FwdOptions(**kw))
+        outs.append(tree_leaves((hidden, caches, step[0], step[1].mu,
+                                 step[2][0]["loss"])))
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
 
 
 def test_get_train_step_is_cached():
