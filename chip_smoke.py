@@ -36,16 +36,22 @@ failure, and the script then exits non-zero with no result line.
    the card over a sweep of shapes (tolerance stated per kernel), the
    backward passes against plain autograd, and times the kernel, the
    plain version and a library call at the shapes the main paths give it.
-   The tape kernel ``statevector_tape`` is also held to the chain of
-   per-gate ``statevector_gate`` launches it replaces (its bitwise-equal
-   share printed) and timed beside that chain.  ``flash_attention`` is
+   The tape kernel ``statevector_tape`` is held to its plain version
+   bit for bit (the gate angles' sines and cosines are XLA's float32
+   ones in both, ``xla_trig``), also on angles where the card's
+   ``sinf`` / ``cosf`` and XLA's differ, and to the chain of per-gate
+   ``statevector_gate`` launches it replaces (its bitwise-equal share
+   printed), and timed beside that chain.  ``flash_attention`` is
    also held at the edges of its 64-row / 64-key tiles, its backward
    must repeat bit for bit, and a probe times it on a lone CTA and a
-   wave of 132.
+   wave of 132.  The weight draw ``trunc_normal`` (every base leaf that
+   ``init_params`` draws on the card, one launch a leaf) is held to its
+   plain version bit for bit, on the card and on the CPU.
 3. QFL main path at the quickstart width: federated QFL with batched
    Nelder–Mead on the genomic task, 4-qubit VQC (86 gates, 16 params),
-   5 clients, 10 rounds, on the card; then the same run on the CPU (the
-   plain path), which it must match.  Every tape replay is one
+   5 clients, 10 rounds, on the card; the same run on the CPU (the
+   plain path), in a process of its own beside the later phases, must
+   match it at the end of the run.  Every tape replay is one
    ``statevector_tape`` launch; the size-rule phase then drives
    ``tape_probs`` above the tape kernel's limit of 14 qubits, where
    ``run_tape`` launches ``statevector_gate`` once a gate.
@@ -53,10 +59,12 @@ failure, and the script then exits non-zero with no result line.
    with ``method="llm-qfl"``: Step 1 fine-tunes ``tiny-llm`` LoRA
    adapters (30 steps) on the card, then 10 regulated quantum rounds.
    The card's Step 1 is held to the CPU's (plain path) within the
-   batched-LLM tolerances, and the CPU's quantum rounds, run on the
-   card's Step 1 outputs, to the card's rounds exactly on the integer
-   accounting.  The CPU's Step 1 and its rounds run in processes of
-   their own beside phases 4-11 and are collected before phase 12.
+   batched-LLM tolerances, and the CPU's first 5 quantum rounds, run on
+   the card's Step 1 outputs, to the card's (a 5-round run on the same
+   Step 1, itself the 10-round run's first rounds bit for bit) exactly
+   on the integer accounting.  The CPU's Step 1 and its rounds run in processes of
+   their own beside the later phases and are held at the end of the
+   run.
 5. Wide phases: a 10-qubit VQC (485 gates, 40 params), 8 clients, one
    round; and the LLM stage alone at ``llama3.2-1b`` widths (16 layers,
    d_model 2048, 4 clients × 16 rows × 64 tokens, 2 steps, float32 base).
@@ -68,7 +76,8 @@ failure, and the script then exits non-zero with no result line.
    held at the end of the run); then the stage at ``llama3.2-1b``
    widths as in 5.
 7. The sequential engine and SPSA (after phase 4), at the quickstart's
-   width with the rounds cut to 3 (the sequential engine reads every
+   width with the rounds cut to 3, the LLM-QFL runs' to 2 (the
+   sequential engine reads every
    objective evaluation back to the host): QFL and LLM-QFL with
    Nelder–Mead on ``engine="sequential"``, each held to the batched
    engine on the card (the LLM-QFL rounds on one Step 1) and the QFL one
@@ -90,14 +99,14 @@ failure, and the script then exits non-zero with no result line.
    (``aersim``, Dirichlet 0.5 shards, 5 clients) at 3 rounds: QFL and
    LLM-QFL on the batched engine, QFL on the sequential engine, QFL
    batched on ``fake`` and ``real``, each held to the same command on
-   the CPU (run after the card's, so no card time is taken under the
-   CPU's load), and LLM-QFL selecting 20 % held to the card's LLM-QFL
+   the CPU (run in a process of its own from the build on, beside the
+   card's phases), and LLM-QFL selecting 20 % held to the card's LLM-QFL
    run on Step 1 and the first round; the draws within 1e-6 of a CDF boundary
    number no more than chance allows, and each falls in the same class
    in both runs unless the two runs' boundaries straddle it, no more
    than 1e-6 apart; (c) GPT-2's Step 1 at full width
    (``BatchedLLMEngine``, 5 clients, 2 steps; 1 step held to the CPU on
-   one base) and DeepSeek-LLM-7B's at full width
+   one base) and DeepSeek-LLM-7B's at full width, 8 of its 30 layers
    (``run_sequential_stage``, 2 clients × 2 steps, held to
    ``BatchedLLMEngine`` on one base as the llama3.2-1b one is), with
    their base draw times, step times and peak memory.
@@ -291,8 +300,13 @@ LLM_WIDE = dict(task=dict(n_clients=4, train_size=64, test_size=16,
                 steps=2, batch_size=16)
 # torch threads of the process that runs phase 4's quantum rounds on the
 # CPU beside the later phases (the costliest CPU comparison of the smoke,
-# 230-258 s on 8 threads, most of it the host's own loop)
+# 230-258 s on 8 threads for 10 rounds, most of it the host's own loop)
 CPU_JOB_THREADS = 4
+# the rounds of phase 4's LLM-QFL quickstart that the CPU's run holds: the
+# first 5 of 10 (all 10 took 412-561 s beside the card's phases and set
+# the smoke's pace); the card's 10-round run is held to a card run of 5
+# on the same Step 1, round by round, bit for bit
+LLM_CPU_ROUNDS = 5
 # torch threads of the processes that run a CPU half beside the card's
 # phases 4-9 (phase 4's Step 1, phase 6's QLoRA stage, phase 7's runs),
 # where phase 4's rounds and phase 19's xlstm-125m run beside them too
@@ -300,7 +314,20 @@ SIDE_CPU_THREADS = 2
 # the batched-LLM tolerances of the JAX package's tests
 LLM_LOSS_TOL, LLM_F1_TOL, TEACHER_TOL = 5e-4, 0.05, 5e-4
 KERNELS = ("statevector_gate", "statevector_tape", "lora_matmul",
-           "flash_attention", "int4_matmul", "distill_kl")
+           "flash_attention", "int4_matmul", "distill_kl", "xla_sincos",
+           "trunc_normal")
+# (values, dtype, first flat index) of the weight-draw checks: a bfloat16
+# slice across the counter's 2**32 boundary, a float32 slice of
+# DRAW_SLICE values (the plain version's own slice), a float32 slice of
+# no whole number of blocks, and one value
+DRAW_CASES = ((1 << 22, "bfloat16", (1 << 32) - (1 << 21)),
+              (1 << 25, "float32", 0), ((3 << 20) + 7, "float32", 12345),
+              (1, "bfloat16", 7))
+# operations a value of the weight draw takes on its shortest path (the
+# hash's 20 rounds, the uniform, log1p's rational form and erf_inv's
+# polynomial; log's branch, about 40 % of values, left out): the bound is
+# a lower one
+DRAW_OPS = 170
 # shared memory of the H100 SXM: 132 SMs × 128 bytes a clock at the
 # published 1.98 GHz boost clock
 SMEM_BYTES_PER_S = 132 * 128 * 1.98e9
@@ -529,6 +556,76 @@ def tape_work(B: int, n: int, control) -> dict:
                 flops=28 * pairs, smem_bytes=32 * pairs + 16 * B * N)
 
 
+# value counts where the xla_sincos kernel is timed: one gate's angle (a
+# trainable rotation), one a row of a client's 50 (the feature map), and
+# a wide batch
+TRIG_SIZES = (1, 50, 1 << 20)
+
+
+def trig_phase(gen) -> dict:
+    """XLA's float32 sin and cos on the card (``xla_trig``): the
+    ``xla_sincos`` kernel against its plain version on the card and on
+    the CPU, bitwise, on 2**20 angles; the tape kernel against its plain
+    version, bitwise, on the angles where the card's sinf / cosf and
+    XLA's differ (P, RY and RZ gates, plain and controlled, 4 qubits);
+    the kernel's times at ``TRIG_SIZES``.  Returns the kernels line's
+    numbers."""
+    import torch
+    from repro_torch import xla_trig
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import statevector_tape as svt
+    from repro_torch.kernels import xla_sincos as xs
+    cand = torch.rand(1 << 20, generator=gen, device="cuda") * 40 - 20
+    s, c = xla_trig.plain_sincos(cand)
+    ks, kc = xs.xla_sincos(cand)
+    cs, cc = xla_trig.plain_sincos(cand.cpu())
+    check(torch.equal(ks, s) and torch.equal(kc, c)
+          and torch.equal(s.cpu(), cs) and torch.equal(c.cpu(), cc),
+          "xla_sincos: not bitwise its plain version (card or CPU)")
+    sh, ch = xla_trig.plain_sincos(cand / 2)
+    differ = ((torch.sin(cand) != s) | (torch.cos(cand) != c)
+              | (torch.sin(cand / 2) != sh) | (torch.cos(cand / 2) != ch))
+    angles = cand[differ]
+    check(angles.numel() > 100, f"only {angles.numel()} angles where the "
+          "card's sinf/cosf and XLA's differ")
+    n, B = 4, 512
+    gid = torch.tensor([1, 2, 3] * (2 * n), dtype=torch.int32, device="cuda")
+    G = gid.numel()
+    target = torch.tensor([q % n for q in range(G)], dtype=torch.int32,
+                          device="cuda")
+    control = torch.tensor([-1] * (G // 2) + [(q + 1) % n for q in
+                                               range(G - G // 2)],
+                           dtype=torch.int32, device="cuda")
+    ang = angles.repeat(-(-B * G // angles.numel()))[:B * G].reshape(B, G)
+    got = svt.statevector_tape(ang.contiguous(), gid, target, control, n)
+    want = ref.statevector_tape(ang.contiguous(), gid, target, control, n)
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          "statevector_tape: not bitwise its plain version on the angles "
+          "where sinf and XLA's sin differ")
+    rows = []
+    for size in TRIG_SIZES:
+        x = cand[:size].contiguous()
+        ms = cuda_ms(lambda: xs.xla_sincos(x), iters=200)
+        dev = graph_ms(lambda: xs.xla_sincos(x))
+        plain = cuda_ms(lambda: xla_trig.plain_sincos(x), iters=20)
+        # 4 bytes read and 8 written a value (the double-precision
+        # operations are not in the published float32 table)
+        bms, by = bound_ms(0, 12 * size)
+        rows.append(dict(shape=f"n={size}", n=size, ms=ms, graph_ms=dev,
+                         plain_ms=plain, bound_ms=bms, bound_by=by,
+                         library_ms=None))
+    torch.cuda.synchronize()
+    print(f"kernel phase: xla_sincos bitwise its plain version on the card "
+          f"and on the CPU ({cand.numel()} values); statevector_tape "
+          f"bitwise its plain version on {angles.numel()} angles where the "
+          f"card's sinf/cosf and XLA's differ; xla_sincos "
+          + "; ".join(f"n={r['n']}: {r['ms'] * 1e3:.2f} us (graph "
+                      f"{r['graph_ms'] * 1e3:.2f}), plain "
+                      f"{r['plain_ms'] * 1e3:.1f} us, bound "
+                      f"{r['bound_ms'] * 1e3:.4f} us" for r in rows))
+    return dict(differ=int(angles.numel()), shapes=rows)
+
+
 def tape_phase(gate_shapes):
     """statevector_tape over n up to its limit against ``ref`` and the
     per-gate kernel chain; times at the main paths' shapes."""
@@ -554,6 +651,9 @@ def tape_phase(gate_shapes):
                 tol = 1e-6 if n <= 4 else 1e-5
                 check(err <= tol, f"statevector_tape n={n} {kind} B={B}: "
                       f"max abs error {err} > {tol}")
+                check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                      f"statevector_tape n={n} {kind} B={B}: not bitwise "
+                      f"its plain version (max abs error {err})")
                 norm = float(((got[0] ** 2 + got[1] ** 2).sum(-1) - 1)
                              .abs().max())
                 check(norm <= 1e-5, f"statevector_tape n={n} {kind} B={B}: "
@@ -566,7 +666,8 @@ def tape_phase(gate_shapes):
                 cases += 1
     torch.cuda.synchronize()
     share = equal / total
-    print(f"kernel phase: statevector_tape == plain on {cases} cases (n in "
+    print(f"kernel phase: statevector_tape bitwise its plain version on "
+          f"{cases} cases; == plain on {cases} cases (n in "
           f"{list(ns)}, VQC and random tapes, B in 1, 7, 4750 and 17200 up "
           f"to n = 10), max abs err {max_err:.3g} (tolerance 1e-6 up to "
           f"n = 4, 1e-5 above), max |norm-1| {norm_err:.3g}; against the "
@@ -1204,6 +1305,51 @@ def kl_phase(gen):
     return max_err, [row]
 
 
+def draw_phase():
+    """The weight draw (``trunc_normal``) against its plain version on
+    the card, bitwise, on ``DRAW_CASES`` (phase 13's std, 1/sqrt(7168)),
+    and the first 4096 values of each against the CPU's plain version;
+    both timed on ``DRAW_SLICE`` bfloat16 values.  Returns the kernels
+    line's rows."""
+    import torch
+    from repro_torch import random as jr
+    from repro_torch.kernels import trunc_normal as tn
+    key = jr.split(jr.PRNGKey(0), 8)[3]
+    std = 1.0 / math.sqrt(7168)
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    for n, dt, start in DRAW_CASES:
+        dtype = getattr(torch, dt)
+        got = tn.trunc_normal(key, n, std, dtype, "cuda", start=start)
+        want = tn.plain(key, n, std, dtype, "cuda", start=start)
+        check(torch.equal(got.view(bits[dtype]), want.view(bits[dtype])),
+              f"trunc_normal: not bitwise its plain version at {n} {dt} "
+              f"values from {start}")
+        m = min(n, 4096)
+        cpu = tn.plain(key, m, std, dtype, "cpu", start=start)
+        check(torch.equal(got[:m].cpu().view(bits[dtype]),
+                          cpu.view(bits[dtype])),
+              f"trunc_normal: not bitwise the CPU's plain version at {dt} "
+              f"from {start}")
+        del got, want
+    n = jr.DRAW_SLICE
+    ms = cuda_ms(lambda: tn.trunc_normal(key, n, std, torch.bfloat16,
+                                         "cuda"), iters=20, warmup=2)
+    plain = cuda_ms(lambda: tn.plain(key, n, std, torch.bfloat16, "cuda"),
+                    iters=3, warmup=1)
+    # no input; 2 bytes written a value
+    bms, by = bound_ms(DRAW_OPS * n, 2 * n)
+    row = dict(shape=f"n={n} bfloat16", n=n, ms=ms, plain_ms=plain,
+               bound_ms=bms, bound_by=by, library_ms=None)
+    torch.cuda.synchronize()
+    cases = ", ".join(f"{c[0]} {c[1]} from {c[2]}" for c in DRAW_CASES)
+    print(f"kernel phase: trunc_normal bitwise its plain version on the "
+          f"card ({cases}) and the CPU's (the first 4096 values of each); "
+          f"n={n} bfloat16: {ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, "
+          f"bound {bms * 1e3:.1f} us ({by}); no PyTorch call draws these "
+          "values")
+    return [row]
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: the port's main path through its entry points
 # ---------------------------------------------------------------------------
@@ -1230,6 +1376,8 @@ def _counted():
     from repro_torch.kernels import lora_matmul as lm
     from repro_torch.kernels import statevector_gates as svg
     from repro_torch.kernels import statevector_tape as svt
+    from repro_torch.kernels import trunc_normal as tn
+    from repro_torch.kernels import xla_sincos as xs
     from repro_torch.quantum import tape
     return (("statevector_gate", svg.statevector_gate, "launches"),
             ("statevector_tape", svt.statevector_tape, "launches"),
@@ -1241,7 +1389,9 @@ def _counted():
              "side_launches"),
             ("int4_matmul", i4.int4_matmul, "launches"),
             ("int4_matmul_t", i4.int4_matmul_t, "launches"),
-            ("distill_kl", dk.distill_kl, "launches"))
+            ("distill_kl", dk.distill_kl, "launches"),
+            ("xla_sincos", xs.xla_sincos, "launches"),
+            ("trunc_normal", tn.trunc_normal, "launches"))
 
 
 def zero_counters():
@@ -1326,14 +1476,39 @@ def main_phase():
     print(f"main path (cuda): {len(gpu.rounds)} rounds in {wall:.2f} s, "
           f"{replays} tape replays, statevector_tape launches {launches}, "
           f"statevector_gate launches {n['statevector_gate']}")
+    # the CPU's plain run in a process of its own beside the later phases
+    # (main_compare holds it)
+    job = CpuJob("main path (cpu, plain)", cpu_main_path)
+    return dict(counts=n, wall_s=wall, round_s=orch.round_seconds, gpu=gpu,
+                cpu_job=job)
+
+
+def cpu_main_path() -> tuple:
+    """Phase 3's QFL quickstart on the CPU (plain path), in a spawned
+    process of ``SIDE_CPU_THREADS`` threads: (result, seconds)."""
+    import torch
+    torch.set_num_threads(SIDE_CPU_THREADS)
     t0 = time.perf_counter()
     _, cpu, _ = run_main_path("cpu", QUICKSTART)
-    loss_gap, theta_gap = compare_runs(gpu, cpu)
-    print(f"main path (cpu, plain) in {time.perf_counter() - t0:.2f} s: "
-          f"equal maxiters/selected/cum_evals; max |Δ server loss| "
+    return cpu, time.perf_counter() - t0
+
+
+def main_compare(qfl: dict, fused: dict):
+    """Phase 3's CPU run (``cpu_main_path``), collected and held to the
+    card's host loop and to phase 10's fused run of the same quickstart,
+    as ``compare_runs`` says."""
+    t0 = time.perf_counter()
+    cpu, seconds = qfl.pop("cpu_job").result()
+    waited = time.perf_counter() - t0
+    loss_gap, theta_gap = compare_runs(qfl["gpu"], cpu)
+    print(f"main path (cpu, plain; a process of {SIDE_CPU_THREADS} threads "
+          f"beside phases 4-15, {waited:.2f} s waited for) in {seconds:.2f} "
+          f"s: equal maxiters/selected/cum_evals; max |Δ server loss| "
           f"{loss_gap:.3g}, max |Δ θ_g| {theta_gap:.3g}")
-    return dict(counts=n, wall_s=wall, round_s=orch.round_seconds, gpu=gpu,
-                cpu=cpu)
+    gap = compare_runs(fused["qfl"]["res"], cpu,
+                       what="fused qfl quickstart against phase 3's cpu run")
+    print(f"  fused qfl quickstart against phase 3's cpu host run: max "
+          f"|Δ server loss| {gap[0]:.3g}, |Δ θ_g| {gap[1]:.3g}")
 
 
 def cpu_step1() -> tuple:
@@ -1367,6 +1542,8 @@ def llm_phase() -> dict:
               f"the formula gives {count}")
     check(n["int4_matmul"] == n["int4_matmul_t"] == 0,
           f"llm-qfl: int4_matmul launched on a float32 base: {n}")
+    check(n["trunc_normal"] > 0, "llm-qfl: the base was not drawn by the "
+          "trunc_normal kernel")
     check_one_k_tile(n, "llm-qfl")
     check_tape_launches(n, "llm-qfl")
     for r, s in zip(gpu.rounds, orch.round_seconds):
@@ -1379,15 +1556,24 @@ def llm_phase() -> dict:
           f" F1 {np.round(gpu.llm_f1, 4).tolist()}; launches "
           f"{json.dumps(n)}")
 
-    # the quantum rounds on the CPU, fed the card's Step 1, in a process
-    # of their own beside the later phases (llm_rounds collects them)
+    # the first LLM_CPU_ROUNDS quantum rounds on the CPU, fed the card's
+    # Step 1, in a process of their own beside the later phases
+    # (llm_rounds holds them to the card's run of as many rounds, which
+    # must be the 10-round run's first rounds bit for bit)
     job = CpuJob("llm-qfl rounds (cpu, plain)", cpu_llm_rounds,
                  orch.llm_outputs)
+    _, cut, _ = run_main_path("cuda", llm_rounds_cut(), method="llm-qfl",
+                              llm_outputs=orch.llm_outputs)
+    for attr in ("maxiters", "selected", "cum_evals", "server_loss",
+                 "client_losses"):
+        check(cut.series(attr) == gpu.series(attr)[:LLM_CPU_ROUNDS],
+              f"llm-qfl: the card's {LLM_CPU_ROUNDS}-round run on the same "
+              f"Step 1 is not the 10-round run's first rounds: {attr}")
     step1 = (gpu.llm_losses, gpu.llm_f1,
              [np.asarray(t.cpu() if hasattr(t, "cpu") else t)
               for t in orch.llm_outputs.teacher_probs])
     return dict(counts=n, wall_s=wall, finetune_s=gpu.llm_finetune_time_s,
-                round_s=orch.round_seconds, gpu=gpu,
+                round_s=orch.round_seconds, gpu=gpu, gpu_cut=cut,
                 llm_outputs=orch.llm_outputs, cpu_rounds=job,
                 step1=step1, step1_job=step1_job)
 
@@ -1412,18 +1598,24 @@ def step1_compare(llm: dict):
           f"|Δ teacher| {d_teacher} (tolerances {LLM_LOSS_TOL}, "
           f"{LLM_F1_TOL}, {TEACHER_TOL})")
     print(f"llm-qfl Step 1 (cpu, plain; a process of {SIDE_CPU_THREADS} "
-          f"threads beside phases 4-11, {waited:.2f} s waited for) in "
+          f"threads beside phases 4-15, {waited:.2f} s waited for) in "
           f"{seconds:.2f} s: max |Δ L_LLM| {d_loss:.3g}, |Δ F1| "
           f"{d_f1:.3g}, |Δ teacher| {d_teacher:.3g}")
 
 
+def llm_rounds_cut():
+    """``LLM_QUICKSTART`` with its first ``LLM_CPU_ROUNDS`` rounds."""
+    return dict(LLM_QUICKSTART, run=dict(LLM_QUICKSTART["run"],
+                                         n_rounds=LLM_CPU_ROUNDS))
+
+
 def cpu_llm_rounds(llm_outputs):
-    """The LLM-QFL quickstart's quantum rounds on the CPU (plain path),
-    fed the card's Step 1: (result, seconds)."""
+    """The LLM-QFL quickstart's first ``LLM_CPU_ROUNDS`` quantum rounds on
+    the CPU (plain path), fed the card's Step 1: (result, seconds)."""
     import torch
     torch.set_num_threads(CPU_JOB_THREADS)
     t0 = time.perf_counter()
-    _, res, _ = run_main_path("cpu", LLM_QUICKSTART, method="llm-qfl",
+    _, res, _ = run_main_path("cpu", llm_rounds_cut(), method="llm-qfl",
                               llm_outputs=llm_outputs)
     return res, time.perf_counter() - t0
 
@@ -1436,9 +1628,11 @@ def llm_rounds(llm: dict):
     step1_compare(llm)
     t0 = time.perf_counter()
     cpu2, seconds = llm["cpu_rounds"].result()
-    loss_gap, theta_gap = compare_runs(llm["gpu"], cpu2)
-    print(f"llm-qfl rounds (cpu, plain, on the card's Step 1; a process of "
-          f"{CPU_JOB_THREADS} threads beside phases 5-11) in {seconds:.2f} "
+    loss_gap, theta_gap = compare_runs(llm["gpu_cut"], cpu2)
+    print(f"llm-qfl rounds 1-{LLM_CPU_ROUNDS} (cpu, plain, on the card's "
+          f"Step 1; a process of {CPU_JOB_THREADS} threads beside phases "
+          f"5-15; the card's run of as many rounds is the 10-round run's "
+          f"first, bit for bit) in {seconds:.2f} "
           f"s, {time.perf_counter() - t0:.2f} s of it waited for: equal "
           f"maxiters/selected/cum_evals; max |Δ server loss| "
           f"{loss_gap:.3g}, max |Δ θ_g| {theta_gap:.3g}")
@@ -1741,8 +1935,11 @@ def qlora_compare(ql: dict):
 # engine reads every objective evaluation back to the host, and 10
 # regulated LLM-QFL rounds of it would take minutes
 SEQ_QFL = dict(task=QUICKSTART["task"], run=dict(n_rounds=3))
+# the LLM-QFL runs keep 2 rounds: the sequential engine's third round
+# (every budget near 100, gate by gate on the host) took 45 s of the
+# smoke's 1200, and round 2 already runs the budgets' regulation
 SEQ_LLM = dict(task=QUICKSTART["task"],
-               run=dict(n_rounds=3, llm_steps=LLM_QUICKSTART["run"][
+               run=dict(n_rounds=2, llm_steps=LLM_QUICKSTART["run"][
                    "llm_steps"]))
 
 
@@ -1804,7 +2001,8 @@ def sequential_phase() -> dict:
     ``sequential_compare``."""
     import numpy as np
     print("sequential and SPSA phase (genomic, 5 clients x 50 rows, 4-qubit "
-          "VQC, tiny-llm 30 Step-1 steps, 3 rounds):")
+          f"VQC, tiny-llm 30 Step-1 steps, {SEQ_QFL['run']['n_rounds']} "
+          f"rounds, LLM-QFL {SEQ_LLM['run']['n_rounds']}):")
     wall, counts, gaps = {}, {}, {}
 
     def run(label, device, cfg, **kw):
@@ -1819,6 +2017,11 @@ def sequential_phase() -> dict:
     seq, _, n = run("qfl nm sequential", "cuda", SEQ_QFL,
                     engine="sequential")
     check_no_tape(n, "qfl nm sequential")
+    # the eager circuit's gates take their sines and cosines from the
+    # xla_sincos kernel, one launch a rotation or feature-map gate
+    trig_launches = n["xla_sincos"]
+    check(trig_launches > 0, "qfl nm sequential: the eager circuit "
+          "launched no xla_sincos")
     bat, _, n = run("qfl nm batched", "cuda", SEQ_QFL)
     check_tape_launches(n, "qfl nm batched")
     hold("qfl nm: sequential vs batched (cuda)", seq, bat)
@@ -1892,7 +2095,7 @@ def sequential_phase() -> dict:
          1e-4, 1e-3)
     cards["llm-qfl spsa batched"] = lb
     return dict(wall_s=wall, seq_launches=seq_launches,
-                tape_launches=tape_launches,
+                tape_launches=tape_launches, trig_launches=trig_launches,
                 tape_launches_llm=tape_launches_llm, gaps=gaps, cards=cards,
                 job=job)
 
@@ -1942,10 +2145,12 @@ def stage_gaps(losses, f1s, teachers, out, task) -> tuple:
 
 def llm_wide_sequential_phase(model: str = "llama3.2-1b",
                               task_kw=LLM_WIDE["task"],
-                              what: str = "llm wide sequential") -> dict:
+                              what: str = "llm wide sequential",
+                              n_layers: int = None) -> dict:
     """``run_sequential_stage`` at ``model``'s widths (llama3.2-1b unless
-    stated; float32 base, one client a launch) against
-    ``BatchedLLMEngine`` on the same base.
+    stated; float32 base, one client a launch; its published depth
+    unless ``n_layers`` cuts it) against ``BatchedLLMEngine`` on the
+    same base.
 
     Before any step and after one step the two are held to the
     batched-LLM tolerances.  Each client's head and adapter gradients
@@ -1973,6 +2178,10 @@ def llm_wide_sequential_phase(model: str = "llama3.2-1b",
     from repro_torch.models import model as M
     task = build_task("genomic", **task_kw)
     cfg = task_llm_config(model, task.vocab_size, task.llm_seq_len)
+    depth = cfg.n_layers
+    if n_layers is not None:
+        import dataclasses
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     steps, bs = LLM_WIDE["steps"], LLM_WIDE["batch_size"]
     C = task.n_clients
     gc.collect()
@@ -2056,7 +2265,8 @@ def llm_wide_sequential_phase(model: str = "llama3.2-1b",
         step_s.append(time.perf_counter() - t0)
         check(math.isfinite(last), f"{what}: client {i} step loss {last}")
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"{what} phase ({model} widths, {cfg.n_layers} layers, "
+    print(f"{what} phase ({model} widths, {cfg.n_layers} layers of "
+          f"{depth}, "
           f"{n_params / 1e9:.3f} B base values, C={C} one at a time, {bs} x "
           f"64 tokens, {steps} steps): base draw {init_s:.2f} s (peak "
           f"{init_peak:.2f} GiB); stage {seq_s:.2f} s against the batched "
@@ -2098,6 +2308,9 @@ CARD_ONLY = {"llm-qfl select 0.2 batched": "llm-qfl batched"}
 # against the batched engine (five clients at once would pass 80 GB)
 DEEPSEEK_TASK = dict(n_clients=2, train_size=32, test_size=16, val_size=16,
                      seed=0)
+# its depth cut from 30 layers to 8, for the smoke's time: the phase runs
+# seven stages (about 70 s at 30 layers on the card)
+DEEPSEEK_LAYERS = 8
 
 
 def value_bits(t):
@@ -2229,13 +2442,22 @@ def cli_cpu_runs(runs, threads: int) -> list:
     return out
 
 
-def cli_phase() -> dict:
+def cli_cpu_job():
+    """Phase 9b's CPU runs (``cli_cpu_runs``) in a process of their own,
+    started after the build: they need nothing of the card's runs."""
+    return CpuJob("phase 9b's CPU runs", cli_cpu_runs,
+                  [(label, EXP1 + extra) for label, extra in CLI_RUNS
+                   if label not in CARD_ONLY], CPU_JOB_THREADS)
+
+
+def cli_phase(job) -> dict:
     """(b) ``repro_torch.launch.train`` with Experiment I's flags on the
     card: QFL and LLM-QFL, batched; QFL sequential; QFL batched on
-    ``fake`` and ``real``; each is then run on the CPU in a process of
-    its own beside the later phases (``CPU_JOB_THREADS`` threads, the
-    runs one after another) and held to the card's by ``cli_compare``.
-    LLM-QFL selecting 20 % runs on the card alone (``CARD_ONLY``)."""
+    ``fake`` and ``real``; each is also run on the CPU in a process of
+    its own (``job``, from ``cli_cpu_job``: ``CPU_JOB_THREADS`` threads,
+    the runs one after another) and held to the card's by
+    ``cli_compare``.  LLM-QFL selecting 20 % runs on the card alone
+    (``CARD_ONLY``)."""
     print("phase 9b: the training CLI, Experiment I's flags (aersim, 100 "
           f"shots, Dirichlet 0.5 shards, 5 clients, {EXP1[-1]} rounds):")
     out, cards, margins = {}, {}, {}
@@ -2260,9 +2482,6 @@ def cli_phase() -> dict:
                           margin=dict(value=margin.value, near=margin.near,
                                       draws=margin.draws),
                           finetune_s=gpu.llm_finetune_time_s)
-    job = CpuJob("phase 9b's CPU runs", cli_cpu_runs,
-                 [(label, EXP1 + extra) for label, extra in CLI_RUNS
-                  if label not in CARD_ONLY], CPU_JOB_THREADS)
     return dict(out=out, cards=cards, margins=margins, job=job,
                 started=time.perf_counter())
 
@@ -2279,7 +2498,7 @@ def cli_compare(cli: dict) -> dict:
     waited = time.perf_counter() - t0
     out = cli["out"]
     print(f"phase 9b's CPU runs ({CPU_JOB_THREADS} threads, a process of "
-          f"their own beside phases 9c-14; {waited:.1f} s waited for):")
+          f"their own beside phases 2-15; {waited:.1f} s waited for):")
     for label, cpu, cpu_wall, cpu_margin, text in runs:
         print(text, end="")
         cpu_margin.__dict__.update(host_tree(cpu_margin.__dict__, False))
@@ -2544,11 +2763,8 @@ def fused_phase(qfl: dict, llm: dict) -> dict:
     from repro_torch.quantum import backends, qnn
     t_phase = time.perf_counter()
     out = {}
+    # held to phase 3's CPU run at the comparisons (main_compare)
     out["qfl"] = fused_drive("qfl quickstart", QUICKSTART, qfl["gpu"])
-    gap = compare_runs(out["qfl"]["res"], qfl["cpu"],
-                       what="fused qfl quickstart against phase 3's cpu run")
-    print(f"  fused qfl quickstart against phase 3's cpu host run: max "
-          f"|Δ server loss| {gap[0]:.3g}, |Δ θ_g| {gap[1]:.3g}")
     out["llm-qfl"] = fused_drive("llm-qfl quickstart rounds",
                                  LLM_QUICKSTART, llm["gpu"],
                                  method="llm-qfl",
@@ -3595,7 +3811,11 @@ def kimi_phase(gen) -> dict:
           f"{m.d_ff} and {m.n_shared_experts} shared, vocab "
           f"{cfg.vocab_size}); depth cut from {full.n_layers} layers to "
           f"{cfg.n_layers} (one {cfg.pattern[0]} group)")
+    from repro_torch.kernels import trunc_normal as tn
+    drawn = tn.trunc_normal.launches
     model, init_s, draw_peak, weight_bytes = draw_family(cfg)
+    drawn = tn.trunc_normal.launches - drawn
+    check(drawn > 0, f"{KIMI}: the base was not drawn by trunc_normal")
     B, steps, key = SERVE_B, SERVE_STEPS, jr.PRNGKey(0)
     prompts = serve_prompts(cfg)
     torch.cuda.reset_peak_memory_stats()
@@ -3703,8 +3923,8 @@ def kimi_phase(gen) -> dict:
     training = train_family(KIMI, cfg, model, prompts)
     check_training(KIMI, cfg, training)
     del model, prompts
-    return dict(wall_s=wall, init_s=init_s, draw_peak_gib=draw_peak,
-                training=training,
+    return dict(wall_s=wall, init_s=init_s, draw_launches=drawn,
+                draw_peak_gib=draw_peak, training=training,
                 peak_gib=peak, weight_bytes=weight_bytes, routing=routing,
                 moe_ref=ref, decode_gap_rows=row_err, held_rows=held,
                 flips=flips, decode_cache_gap=cache_err,
@@ -6329,6 +6549,9 @@ def main(argv) -> int:
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
     builds = build_kernels()
+    # phase 9b's CPU runs need nothing of the card: they start now, beside
+    # every card phase, and are held at the comparisons
+    cli_job = cli_cpu_job()
 
     from repro_torch.kernels import distill_kl as dk
     from repro_torch.kernels import flash_attention as fa
@@ -6336,9 +6559,12 @@ def main(argv) -> int:
     from repro_torch.kernels import lora_matmul as lm
     from repro_torch.kernels import statevector_gates as svg
     from repro_torch.kernels import statevector_tape as svt
+    from repro_torch.kernels import trunc_normal as tn
+    from repro_torch.kernels import xla_sincos as xs
     stamp(t_start, "the kernel phases")
     max_err, gate_share, shapes = kernel_phase()
     tape_err, tape_share, tape_shapes = tape_phase(shapes)
+    trig = trig_phase(torch.Generator(device="cuda").manual_seed(3))
     gen = torch.Generator(device="cuda").manual_seed(1)
     lm_err, lm_shapes = lora_phase(gen)
     fa_err, fa_bwd_err, fa_shapes, fa_bwd_shapes, fa_probe = \
@@ -6346,6 +6572,7 @@ def main(argv) -> int:
     i4_err, i4_t_err, i4_shapes, i4_t_shapes = int4_phase(gen)
     waves = wave_probe(gen)
     kl_err, kl_shapes = kl_phase(gen)
+    draw_rows = draw_phase()
     stamp(t_start, "phase 3")
     qfl = main_phase()
     size_rule = size_rule_phase()
@@ -6369,20 +6596,19 @@ def main(argv) -> int:
     ql_wide = llm_wide_phase(quantized=True)
     stamp(t_start, "phase 9")
     shots = sample_phase()
-    cli = cli_phase()
+    cli = cli_phase(cli_job)
     stamp(t_start, "phase 9c")
     gpt2 = gpt2_phase()
     deepseek = llm_wide_sequential_phase("deepseek-llm-7b-base",
-                                         DEEPSEEK_TASK, "deepseek sequential")
-    llm_rounds(llm)
+                                         DEEPSEEK_TASK, "deepseek sequential",
+                                         DEEPSEEK_LAYERS)
     serve_times = serving_kernel_times(gen)
     stamp(t_start, "phase 12")
     serving = serving_phase()
     big = serving["runs"][max(SERVE_PROMPTS)]
     # free what earlier phases hold on the card before the largest models
-    for d in (qfl, llm):
-        for k in ("gpu", "cpu", "llm_outputs", "cpu_rounds"):
-            d.pop(k, None)
+    # (the runs' results stay for the comparisons)
+    llm.pop("llm_outputs", None)
     gc.collect()
     torch.cuda.empty_cache()
     print(f"before phase 13: {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
@@ -6417,6 +6643,8 @@ def main(argv) -> int:
     xlstm_ = xlstm_phase(gen, started.pop(XLSTM), side[XLSTM])
     train_lm_run = side["train_lm"]
     stamp(t_start, "the comparisons")
+    main_compare(qfl, fused)
+    llm_rounds(llm)
     gpt2_compare(gpt2)
     sequential_compare(seq)
     qlora_compare(ql)
@@ -6622,7 +6850,26 @@ def main(argv) -> int:
         dict(name=dk.NAME, route="cuda", source=dk.SOURCE,
              replaces=dk.REPLACES, launches=nq["distill_kl"],
              max_abs_err=kl_err, **headline(kl_shapes, "B=4096 C=4102"),
-             on_main_path=False, shapes=kl_shapes)]
+             on_main_path=False, shapes=kl_shapes),
+        dict(name=xs.NAME, route="cuda", source=xs.SOURCE,
+             replaces=xs.REPLACES, launches=seq["trig_launches"],
+             path="phase 7's sequential QFL run (the eager circuit's "
+                  "gates); the batched tape takes the device function",
+             max_abs_err=0.0, **headline(trig["shapes"], "n=50"),
+             launches_batched=n0["xla_sincos"],
+             on_main_path=seq["trig_launches"] > 0,
+             bitwise_tape_angles=trig["differ"], shapes=trig["shapes"],
+             **build_summary(builds["xla_sincos"])),
+        dict(name=tn.NAME, route="cuda", source=tn.SOURCE,
+             replaces=tn.REPLACES, launches=n["trunc_normal"],
+             path="init_params on the card, one launch a base leaf: "
+                  "launches from phase 4's LLM-QFL run (tiny-llm's base)",
+             max_abs_err=0.0, **headline(draw_rows, draw_rows[0]["shape"]),
+             launches_kimi=kimi["draw_launches"],
+             kimi_draw_s=kimi["init_s"], on_main_path=n["trunc_normal"] > 0,
+             bitwise_cases=[dict(n=c[0], dtype=c[1], start=c[2])
+                            for c in DRAW_CASES], shapes=draw_rows,
+             **build_summary(builds["trunc_normal"]))]
     print(json.dumps({"dryrun": dryrun,
                       "qfl": {k: qfl[k] for k in ("wall_s", "round_s")},
                       "llm_qfl": {k: llm[k] for k in ("wall_s", "finetune_s",

@@ -29,12 +29,31 @@ einsums partition to, so the kernel sees one device's shards.
   partial softmax statistics (row max, sum and unnormalised output, the
   flash-decoding split) are gathered over ``'model'`` and combined.
 
+- ``moe_dispatch`` and ``moe_combine``: the MoE block's token exchange
+  (``models/ffn.py``), laid out as JAX's constraints lay it
+  (``repro/models/ffn.py:102-140``).  The routing metadata (each choice's
+  expert, rank and kept flag, ``T·k`` integers) is replicated; the
+  tokens ``(T, d)`` stay on the batch axes; the ``(E, C_e, d)`` expert
+  buffers ride ``'model'`` on E.  Each device copies its own token rows
+  into its own experts' slots (``ffn.dispatch_rows``); the devices'
+  shares are ``Partial`` over the batch axes, exact because every kept
+  slot is written by one row only, and are all-reduced there into the
+  buffer (GSPMD partitions JAX's scatter the same way: a partial buffer a
+  device, reduced over the axes that split the updates).  The combine
+  gathers, for each device's own rows, the outputs of its own experts
+  (``ffn.combine_rows``): ``Partial`` over ``'model'``, reduced where the
+  block's update meets the residual.  Under the dry run's trace the
+  dispatch's reduction runs under its ``label`` ``MOE_DISPATCH``, which
+  the trace's record reports.
+
 ``replicate_unsharded_ops`` registers DTensor's replicate-everything
 strategy for the ops it has no sharding rule for (``REPLICATED_OPS``:
-the MoE ranking's ``searchsorted``); their inputs are gathered whole on
-every device, and the dry run names each one a pair ran.
+the MoE ranking's ``searchsorted``, on the replicated routing metadata,
+as JAX replicates it); the dry run names each one a pair ran.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -45,6 +64,7 @@ _FAKE = torch._C._TorchDispatchModeKey.FAKE
 
 REPLICATED_OPS = ("aten.searchsorted.Tensor",)
 _REGISTERED = []
+MOE_DISPATCH = "moe dispatch"
 
 
 def replicate_unsharded_ops():
@@ -223,6 +243,106 @@ def decode_attention(attend, q, k, v, k_cache, v_cache, slot, pos, *,
     w = torch.exp(m - top)
     out = (w[..., None] * o).sum(0) / (w * l).sum(0)[..., None]
     return out.reshape(N, 1, H, D).to(q.dtype)
+
+
+def _moe_layout(mesh, n_tokens: int, n_experts: int):
+    """``(token axes, expert parallel)``: the batch axes that split a
+    client's ``n_tokens`` rows (those that divide them, outer first), and
+    whether the ``n_experts`` buffers ride ``'model'`` (``TP`` divides
+    them), as ``sharding.fitted`` fits JAX's specs."""
+    tok = shd.fitted(mesh, P(_batch_entry(mesh), None), (n_tokens, 1))[0]
+    tok = () if tok is None else (tok if isinstance(tok, tuple) else (tok,))
+    ep = shd.fitted(mesh, P(TP, None, None), (n_experts, 1, 1))[0] == TP
+    sizes = shd.axis_sizes_of(mesh)
+    tok = tuple(a for a in tok if sizes[a] > 1)
+    return tok, ep and sizes.get(TP, 1) > 1
+
+
+def _rank_along(mesh, axes) -> int:
+    """This device's index along ``axes`` (outer first) of ``mesh``."""
+    sizes = shd.axis_sizes_of(mesh)
+    r = 0
+    for a in axes:
+        r = r * sizes[a] + mesh.get_local_rank(a)
+    return r
+
+
+def _moe_pl(mesh, dims: dict):
+    """Placements: ``dims`` maps a mesh axis to its placement, the rest
+    ``Replicate``."""
+    from torch.distributed.tensor import Replicate
+    return tuple(dims.get(a, Replicate()) for a in mesh.mesh_dim_names)
+
+
+def moe_dispatch(rows_fn, xn, flat_e, pos, keep, *, top_k: int,
+                 n_experts: int, capacity: int):
+    """One client's dispatch on a mesh: ``xn`` ``(T, d)`` (a DTensor; its
+    rows on the batch axes), the replicated routing ``(T·k,)`` →
+    the buffers ``(E, C_e, d)``, E on ``'model'``, replicated elsewhere.
+    ``rows_fn`` is ``ffn.dispatch_rows``."""
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = xn.device_mesh
+    tok, ep = _moe_layout(mesh, xn.shape[0], n_experts)
+    E_l = n_experts // shd.axis_sizes_of(mesh)[TP] if ep else n_experts
+    rows = {a: Shard(0) for a in tok}
+    rep = _moe_pl(mesh, {})
+    e_dim = {TP: Shard(0)} if ep else {}
+    # a model rank takes only the rows bound for its experts, so the
+    # tokens' gradient is partial over 'model'
+    x_grad = _moe_pl(mesh, {**rows, **({TP: Partial()} if ep else {})})
+
+    def local(x, fe, ps, kp):
+        row0 = _rank_along(mesh, tok) * x.shape[0]
+        e0 = mesh.get_local_rank(TP) * E_l if ep else 0
+        return rows_fn(x, row0, fe, ps, kp, top_k, capacity, e0, e0 + E_l)
+
+    buf = local_map(
+        local,
+        out_placements=(_moe_pl(mesh, {**{a: Partial() for a in tok},
+                                       **e_dim}),),
+        in_placements=(_moe_pl(mesh, rows), rep, rep, rep),
+        in_grad_placements=(x_grad, rep, rep, rep),
+        redistribute_inputs=True)(xn, flat_e, pos, keep)
+    # a fake-tensor mode that names collectives (the dry run's trace has
+    # a ``label`` method) records the reduction's under MOE_DISPATCH
+    label = getattr(torch._C._get_dispatch_mode(_FAKE), "label", None)
+    with label(MOE_DISPATCH) if label else contextlib.nullcontext():
+        return buf.redistribute(mesh, _moe_pl(mesh, e_dim))
+
+
+def moe_combine(rows_fn, out, flat_e, pos, keep, gates, *, capacity: int):
+    """One client's combine on a mesh: the experts' outputs ``(E, C_e,
+    d)`` (E on ``'model'``), the replicated routing, the gates ``(T, k)``
+    (rows on the batch axes) → ``(T, d)``, rows on the batch axes,
+    ``Partial`` over ``'model'`` (each device sums its own experts'
+    share).  ``rows_fn`` is ``ffn.combine_rows``."""
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = out.device_mesh
+    n_experts = out.shape[0]
+    tok, ep = _moe_layout(mesh, gates.shape[0], n_experts)
+    E_l = n_experts // shd.axis_sizes_of(mesh)[TP] if ep else n_experts
+    rows = {a: Shard(0) for a in tok}
+    rep = _moe_pl(mesh, {})
+    e_dim = {TP: Shard(0)} if ep else {}
+    model_part = {TP: Partial()} if ep else {}
+    # each batch rank reads the buffers for its own rows, each model rank
+    # the gates of its own experts' choices: both gradients are partial
+    out_grad = _moe_pl(mesh, {**{a: Partial() for a in tok}, **e_dim})
+    g_grad = _moe_pl(mesh, {**rows, **model_part})
+
+    def local(o, fe, ps, kp, g):
+        row0 = _rank_along(mesh, tok) * g.shape[0]
+        e0 = mesh.get_local_rank(TP) * E_l if ep else 0
+        return rows_fn(o, row0, fe, ps, kp, g, capacity, e0, e0 + E_l)
+
+    return local_map(
+        local, out_placements=(_moe_pl(mesh, {**rows, **model_part}),),
+        in_placements=(_moe_pl(mesh, e_dim), rep, rep, rep,
+                       _moe_pl(mesh, rows)),
+        in_grad_placements=(out_grad, rep, rep, rep, g_grad),
+        redistribute_inputs=True)(out, flat_e, pos, keep, gates)
 
 
 def whole_sequence(*ts):

@@ -32,9 +32,10 @@
 //    matrix are read while the current gate is applied.
 //  - The pair update is svp::pair_update (statevector_pair.cuh), the one
 //    the per-gate kernel uses, with every product and sum rounded on its
-//    own; sinf and cosf are the functions PyTorch's elementwise sin and
-//    cos call.  So a replay is meant to be bitwise equal to
-//    ref.gate_planes followed by G launches of statevector_gate.cu.
+//    own; the gate angles' sines and cosines are XLA's float32 ones
+//    (xla_sincosf, in double), as ref.gate_planes takes them.  So a
+//    replay is bitwise equal to ref.gate_planes followed by G launches
+//    of statevector_gate.cu.
 //
 // Size rule: a row's state takes 8 * 2**n bytes of shared memory, so the
 // largest n whose CTA fits in an SM's 227 KB is kMaxQubits = 14 (128 KB a
@@ -57,6 +58,7 @@
 #include <stdint.h>
 
 #include "statevector_pair.cuh"
+#include "xla_sincos.cuh"
 
 namespace {
 
@@ -98,8 +100,8 @@ Layout layout(int n_qubits)
     return l;
 }
 
-// ref.gate_planes for one gate: the same float32 expressions, the
-// transcendental ones through sinf/cosf
+// ref.gate_planes for one gate: the same float32 expressions, one sine
+// and cosine a gate (of a, a / 2 or -a / 2) through xla_sincosf
 __device__ __forceinline__ Mat gate_matrix(int gid, float a)
 {
     Mat m;
@@ -109,19 +111,24 @@ __device__ __forceinline__ Mat gate_matrix(int gid, float a)
     case GATE_H:
         m.re = make_float4(kH, kH, kH, -kH);
         break;
-    case GATE_P:
-        m.re = make_float4(1.f, 0.f, 0.f, cosf(a));
-        m.im.w = sinf(a);
+    case GATE_P: {
+        float sn, cs;
+        xla_sincosf(a, &sn, &cs);
+        m.re = make_float4(1.f, 0.f, 0.f, cs);
+        m.im.w = sn;
         break;
+    }
     case GATE_RY: {
-        const float c = cosf(a / 2.0f), s = sinf(a / 2.0f);
+        float s, c;
+        xla_sincosf(a / 2.0f, &s, &c);
         m.re = make_float4(c, -s, s, c);
         break;
     }
-    case GATE_RZ: {
-        const float c = cosf(a / 2.0f), s = sinf(a / 2.0f);
+    case GATE_RZ: {                  // exp(-0.5j a): cos and sin of -a/2
+        float s, c;
+        xla_sincosf(a * -0.5f, &s, &c);
         m.re = make_float4(c, 0.f, 0.f, c);
-        m.im = make_float4(-s, 0.f, 0.f, s);
+        m.im = make_float4(s, 0.f, 0.f, -s);
         break;
     }
     case GATE_X:

@@ -14,6 +14,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch import xla_trig
 from repro_torch.peft.lora import dequantize
 
 # gate kinds of a compiled tape (``quantum.tape``): every gate is one
@@ -91,23 +92,26 @@ def gate_planes(gate_id: torch.Tensor, angles: torch.Tensor
     ``(B, 2, 2)`` block per gate.
 
     The values are the JAX package's ``_mat_*``: P = diag(1, e^{iθ}),
-    RY(θ) = [[c, −s], [s, c]] and RZ(θ) = diag(e^{−iθ/2}, e^{iθ/2}) with
-    c, s = cos(θ/2), sin(θ/2), H and X constant.
+    RY(θ) = [[c, −s], [s, c]] with c, s = cos(θ/2), sin(θ/2), and
+    RZ(θ) = diag(e, ē) with e = exp(−0.5j·θ) = cos(−θ/2) + i·sin(−θ/2);
+    H and X constant.  Each gate takes one sine and cosine, of θ, θ/2 or
+    −θ/2, as XLA's float32 ``sin`` / ``cos`` on the CPU give them
+    (``xla_trig.plain_sincos``, torch operations on any device).
     """
     gid = gate_id[:, None]                                   # (G, 1)
     ang = angles.T                                           # (G, B)
-    ch, sh = torch.cos(ang / 2), torch.sin(ang / 2)
-    cf, sf = torch.cos(ang), torch.sin(ang)
     zero = torch.zeros_like(ang)
     is_h, is_p = gid == GATE_H, gid == GATE_P
     is_ry, is_rz, is_x = gid == GATE_RY, gid == GATE_RZ, gid == GATE_X
     w = torch.where
-    g00r = w(is_h, _H, w(is_p, 1.0, w(is_ry | is_rz, ch, zero)))
-    g01r = w(is_h, _H, w(is_ry, -sh, w(is_x, 1.0, zero)))
-    g10r = w(is_h, _H, w(is_ry, sh, w(is_x, 1.0, zero)))
-    g11r = w(is_h, -_H, w(is_p, cf, w(is_ry | is_rz, ch, zero)))
-    g00i = w(is_rz, -sh, zero)
-    g11i = w(is_p, sf, w(is_rz, sh, zero))
+    arg = w(is_p, ang, w(is_ry, ang / 2, w(is_rz, ang * -0.5, zero)))
+    s, c = xla_trig.plain_sincos(arg)
+    g00r = w(is_h, _H, w(is_p, 1.0, w(is_ry | is_rz, c, zero)))
+    g01r = w(is_h, _H, w(is_ry, -s, w(is_x, 1.0, zero)))
+    g10r = w(is_h, _H, w(is_ry, s, w(is_x, 1.0, zero)))
+    g11r = w(is_h, -_H, w(is_p | is_ry | is_rz, c, zero))
+    g00i = w(is_rz, s, zero)
+    g11i = w(is_p, s, w(is_rz, -s, zero))
     G, B = ang.shape
     g_re = torch.stack([g00r, g01r, g10r, g11r], -1).view(G, B, 2, 2)
     g_im = torch.stack([g00i, zero, zero, g11i], -1).view(G, B, 2, 2)

@@ -13,9 +13,11 @@ counts its work, ``kernels/counts.py``).  Nothing is computed and
 nothing is allocated on any device.  ``Trace``, a ``FakeTensorMode``,
 counts what rank 0 does on its own shards: every local op's FLOPs
 (torch's FLOP formulas, ``torch.utils.flop_counter``) and the bytes it
-writes, each collective's output bytes, and the bytes of the local
-storages alive after each op, whose maximum above the arguments is the
-step's temporary peak.  The numbers are predictions under the H100 SXM5
+writes, each collective's output bytes (those issued inside its
+``label`` block, the MoE dispatch's, also under that label: the
+record's ``labelled_collectives``), and the bytes of the
+local storages alive after each op, whose maximum above the arguments
+is the step's temporary peak.  The numbers are predictions under the H100 SXM5
 (700 W) published peaks (``launch/mesh.py``), not measurements.
 
 A train step traces one microbatch and the update: the microbatch's
@@ -130,11 +132,12 @@ class Trace(FakeTensorMode):
         self.peak = 0
         self.slack = PEAK_SLACK
         self.replicated = set()
+        self._labels = []
         self._win = self._new_window()
 
     @staticmethod
     def _new_window():
-        return dict(flops=0.0, bytes=0.0, collectives=[])
+        return dict(flops=0.0, bytes=0.0, collectives=[], labelled={})
 
     @contextlib.contextmanager
     def window(self):
@@ -144,6 +147,16 @@ class Trace(FakeTensorMode):
             yield self._win
         finally:
             self._win = outer
+
+    @contextlib.contextmanager
+    def label(self, name: str):
+        """Name the collectives issued in the block (``distributed.
+        parallel.moe_dispatch`` asks the current mode for this method)."""
+        self._labels.append(name)
+        try:
+            yield
+        finally:
+            self._labels.pop()
 
     @contextlib.contextmanager
     def _propagating(self):
@@ -194,10 +207,13 @@ class Trace(FakeTensorMode):
                                                        out_val=out)
         ns, op = func.namespace, func._opname
         if ns == "_c10d_functional" and op in hlo.KINDS:
-            self._win["collectives"].append(
-                (hlo.KINDS[op], sum(o.untyped_storage().nbytes()
-                                    for o in _flat(out)
-                                    if isinstance(o, torch.Tensor))))
+            event = (hlo.KINDS[op], sum(o.untyped_storage().nbytes()
+                                        for o in _flat(out)
+                                        if isinstance(o, torch.Tensor)))
+            self._win["collectives"].append(event)
+            if self._labels:
+                self._win["labelled"].setdefault(self._labels[-1],
+                                                 []).append(event)
         seen = {a.untyped_storage()._cdata for a in flat
                 if isinstance(a, torch.Tensor)}
         new = 0
@@ -665,6 +681,10 @@ def run_traced(cfg, shape, mesh, **knobs) -> dict:
     nbytes = sum(w["bytes"] * k for w, k in zip(tr["windows"], weights))
     coll = hlo.merge_stats(*(hlo.collective_stats(w["collectives"], k)
                              for w, k in zip(tr["windows"], weights)))
+    labels = sorted({n for w in tr["windows"] for n in w["labelled"]})
+    labelled = {n: hlo.merge_stats(*(hlo.collective_stats(
+        w["labelled"].get(n, ()), k) for w, k in zip(tr["windows"], weights)))
+        for n in labels}
     # the kernels' work: the microbatch's launches nm times
     kflops = tally.flops * (nm if shape.kind == "train" else 1)
     kbytes = tally.bytes * (nm if shape.kind == "train" else 1)
@@ -680,6 +700,11 @@ def run_traced(cfg, shape, mesh, **knobs) -> dict:
                    "bytes_per_device": nbytes + kbytes,
                    "kernels": tally.kernels}
     rec["collectives"] = coll
+    # the collectives of a labelled exchange (the MoE dispatch), those
+    # kinds it issued only: part of ``collectives`` above
+    rec["labelled_collectives"] = {
+        n: {k: v for k, v in st.items() if v["count"]}
+        for n, st in labelled.items()}
     rec["roofline"] = hlo.roofline_terms(
         flops_per_chip=flops + kflops, hbm_bytes_per_chip=nbytes + kbytes,
         collective_bytes_per_chip=cbytes)

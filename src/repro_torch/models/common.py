@@ -18,6 +18,7 @@ from repro_torch import random as jr
 from repro_torch.distributed import parallel
 from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops
+from repro_torch.kernels import trunc_normal as tn
 from repro_torch.peft.lora import QBLOCK
 
 
@@ -31,17 +32,21 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
 
 def init_dense(key, shape, dtype=torch.float32, scale: Optional[float] = None,
                device="cpu") -> torch.Tensor:
-    """Truncated-normal fan-in init, drawn on ``device``.  A leaf of more
-    than ``random.DRAW_SLICE`` values is drawn a slice of its flat index
-    at a time into a tensor of its final dtype: bitwise the whole draw
-    (element ``i`` depends only on ``i``), with the draw's peak memory
-    that of one slice.  On the ``meta`` device it draws nothing (the
-    dry run's abstract trees, ``jax.eval_shape``'s counterpart)."""
+    """Truncated-normal fan-in init, drawn on ``device``.  On a card the
+    ``trunc_normal`` kernel draws the leaf in one launch; elsewhere a
+    leaf of more than ``random.DRAW_SLICE`` values is drawn a slice of
+    its flat index at a time into a tensor of its final dtype: bitwise
+    the whole draw (element ``i`` depends only on ``i``), with the
+    draw's peak memory that of one slice.  Both are bitwise the same
+    values.  On the ``meta`` device it draws nothing (the dry run's
+    abstract trees, ``jax.eval_shape``'s counterpart)."""
     if torch.device(device).type == "meta":
         return torch.empty(tuple(shape), dtype=dtype, device="meta")
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     n = math.prod(shape)
+    if torch.device(device).type == "cuda":
+        return tn.trunc_normal(key, n, std, dtype, device).reshape(shape)
     if n <= jr.DRAW_SLICE:
         return (jr.truncated_normal(key, -2.0, 2.0, tuple(shape), device)
                 * std).to(dtype)

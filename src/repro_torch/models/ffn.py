@@ -26,7 +26,11 @@ adds zeros into slot ``C_e - 1`` instead: the same function).  Nothing
 here reads back to the host.  The expert weights are 3-D and get no
 LoRA adapter; the shared expert is no adapter target.  On a device mesh
 (the dry run) the routing metadata is replicated and the expert buffers
-ride ``'model'`` on their E axis, as JAX's constraints lay them.
+ride ``'model'`` on their E axis, as JAX's constraints lay them; the
+token rows stay on the batch axes: each device dispatches its own rows
+into its own experts' buffers, the devices' shares are summed over the
+batch axes, and each device combines its own rows from its own experts
+(``distributed/parallel.py``, ``moe_dispatch`` / ``moe_combine``).
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from repro_torch import random as jr
+from repro_torch.distributed import parallel
 from repro_torch.distributed import sharding as shd
 from repro_torch.models.common import (dense, init_dense, lora_pair, matmul,
                                        rms_norm, swiglu, weight)
@@ -113,10 +118,21 @@ class Routing(NamedTuple):
     capacity: int
 
 
+def _router_local(x, w, *_):
+    return x.float() @ w.float()
+
+
 def router_logits(params, xn: torch.Tensor) -> torch.Tensor:
     """``(T, d)`` normed tokens → ``(T, E)`` float32 logits, the product
-    taken in float32."""
-    return xn.float() @ params["router"].float()
+    taken in float32.  On a mesh it runs on each device's token rows with
+    the router gathered (``parallel.dense``), so the tokens' gradient
+    keeps their layout: DTensor's own product rule returned it with T
+    split over both 'data' and 'model', which the backward of the
+    block's ``(C, B, S, d) → (C, T, d)`` fold could not unfold."""
+    if shd.is_dtensor(xn):
+        return parallel.dense(_router_local, xn[None], params["router"],
+                              None, None, None, None)[0]
+    return _router_local(xn, params["router"])
 
 
 def rank_in_expert(flat_e: torch.Tensor, n_experts: int) -> torch.Tensor:
@@ -156,27 +172,71 @@ def balance_loss(r: Routing, n_experts: int) -> torch.Tensor:
     return n_experts * torch.sum(density * r.probs.mean(dim=0))
 
 
+def dispatch_rows(xn: torch.Tensor, row0: int, flat_e: torch.Tensor,
+                  pos: torch.Tensor, keep: torch.Tensor, top_k: int,
+                  capacity: int, e0: int, e1: int) -> torch.Tensor:
+    """One device's share of the dispatch: rows ``[row0, row0 + T_l)`` of
+    a client's normed tokens ``xn`` ``(T_l, d)`` copied to their (expert,
+    slot) places in the buffers of experts ``[e0, e1)``: ``(e1 - e0,
+    C_e, d)``, zero where no kept choice of these rows lands.  The
+    routing (``flat_e``, ``pos``, ``keep``, ``(T·k,)``) is the whole
+    client's.  Every kept slot is written by one row only, so the
+    devices' shares sum to the whole dispatch exactly; with every row and
+    expert (``row0 = 0``, ``[0, E)``) it is the whole dispatch."""
+    T_l, d = xn.shape
+    E_l, C = e1 - e0, capacity
+    sel = slice(row0 * top_k, (row0 + T_l) * top_k)
+    fe, ps, kp = flat_e[sel], pos[sel], keep[sel]
+    mine = kp & (fe >= e0) & (fe < e1)
+    # kept choices to their (expert, slot); the others to a spare row
+    dest = torch.where(mine, (fe - e0) * C + ps, E_l * C)
+    tok = torch.arange(T_l, device=xn.device).repeat_interleave(top_k)
+    buf = torch.zeros((E_l * C + 1, d), dtype=xn.dtype, device=xn.device)
+    return buf.index_copy(0, dest, xn[tok])[:E_l * C].view(E_l, C, d)
+
+
+def combine_rows(out: torch.Tensor, row0: int, flat_e: torch.Tensor,
+                 pos: torch.Tensor, keep: torch.Tensor, gates: torch.Tensor,
+                 capacity: int, e0: int, e1: int) -> torch.Tensor:
+    """One device's share of the combine: for rows ``[row0, row0 + T_l)``
+    (their gates ``(T_l, k)``), the gated sum over their kept choices
+    that went to experts ``[e0, e1)`` of those experts' outputs ``out``
+    ``(e1 - e0, C_e, d)``: ``(T_l, d)`` in ``out``'s dtype.  With every
+    row and expert it is the whole combine."""
+    T_l, k = gates.shape
+    E_l, C, d = out.shape
+    sel = slice(row0 * k, (row0 + T_l) * k)
+    fe, ps, kp = flat_e[sel], pos[sel], keep[sel]
+    here = (fe >= e0) & (fe < e1)
+    slot = torch.where(here, (fe - e0) * C + torch.where(kp, ps, C - 1), 0)
+    y_k = out.reshape(E_l * C, d)[slot] * (kp & here)[:, None].to(out.dtype)
+    y_k = y_k.view(T_l, k, d) * gates[..., None].to(out.dtype)
+    return y_k.sum(dim=1)
+
+
 def _experts(params, m, xn: torch.Tensor, r: Routing) -> torch.Tensor:
     """One client's routed experts: dispatch ``xn`` ``(T, d)`` into
     ``(E, C_e, d)`` buffers, the experts' SwiGLU, and the gated combine
-    ``(T, d)`` in the output dtype."""
-    T, d = xn.shape
+    ``(T, d)`` in the output dtype.  On a mesh the dispatch and the
+    combine run on each device's token rows and experts
+    (``parallel.moe_dispatch`` / ``moe_combine``)."""
     E, k, C = m.n_experts, m.top_k, r.capacity
     flat_e = r.experts.reshape(-1)
-    slot = flat_e * C + torch.where(r.keep, r.pos, C - 1)
-    # kept choices to their (expert, slot); dropped ones to the spare row
-    dest = torch.where(r.keep, slot, E * C)
-    tok = torch.arange(T, device=xn.device).repeat_interleave(k)
-    buf = torch.zeros((E * C + 1, d), dtype=xn.dtype, device=xn.device)
-    buf = buf.index_copy(0, dest, xn[tok])[:E * C].view(E, C, d)
+    if shd.is_dtensor(xn):
+        # the routing metadata replicated, as JAX constrains it
+        flat_e = shd.constrain(flat_e, shd.P(None))
+        buf = parallel.moe_dispatch(dispatch_rows, xn, flat_e, r.pos,
+                                    r.keep, top_k=k, n_experts=E,
+                                    capacity=C)
+    else:
+        buf = dispatch_rows(xn, 0, flat_e, r.pos, r.keep, k, C, 0, E)
     # expert parallel on a mesh: the buffers' E axis on 'model', as JAX's
-    buf = shd.constrain(buf, _ESPEC)
     h = swiglu(shd.constrain(matmul(buf, weight(params, "w_in")), _ESPEC))
-    out = shd.constrain(matmul(h, weight(params, "w_out")),
-                        _ESPEC).reshape(E * C, d)
-    y_k = out[slot] * r.keep[:, None].to(out.dtype)
-    y_k = y_k.view(T, k, d) * r.gates[..., None].to(out.dtype)
-    return y_k.sum(dim=1)
+    out = shd.constrain(matmul(h, weight(params, "w_out")), _ESPEC)
+    if shd.is_dtensor(out):
+        return parallel.moe_combine(combine_rows, out, flat_e, r.pos,
+                                    r.keep, r.gates, capacity=C)
+    return combine_rows(out, 0, flat_e, r.pos, r.keep, r.gates, C, 0, E)
 
 
 def moe(params, cfg, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -18,6 +18,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch import xla_trig
 from repro_torch.quantum import statevector as sv
 
 
@@ -27,8 +28,8 @@ from repro_torch.quantum import statevector as sv
 def _p_phase(psi, theta, q):
     """Phase gate P(θ) = diag(1, e^{iθ}), one matrix a row when θ is a
     per-row angle."""
-    th = torch.as_tensor(theta, device=psi.device).to(sv.CDTYPE)
-    e = torch.exp(1j * th)
+    th = torch.as_tensor(theta, device=psi.device).float()
+    e = xla_trig.expi(th)
     one, z = torch.ones_like(e), torch.zeros_like(e)
     return sv._apply_1q(psi, sv._mat(one, z, z, e), q)
 

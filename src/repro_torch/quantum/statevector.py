@@ -12,13 +12,17 @@ per-row feature has one matrix a row (``(B, 2, 2)``) and contracts
 through ``einsum``.  Two-qubit gates take shared angles only, as every
 circuit of the paper uses them.  This module is the plain
 reference the compiled tape (``quantum/tape.py``) is held to, and the
-forward of the sequential engine.
+forward of the sequential engine.  Rotation angles' sines and cosines
+are XLA's float32 ones (``xla_trig``), as the JAX package computes them
+on the CPU.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+from repro_torch import xla_trig
 
 CDTYPE = torch.complex64
 
@@ -80,19 +84,21 @@ def _const(m: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 
 def rx_mat(theta: torch.Tensor) -> torch.Tensor:
-    c = torch.cos(theta / 2).to(CDTYPE)
-    s = torch.complex(torch.zeros_like(theta), -torch.sin(theta / 2))
+    sh, ch = xla_trig.sincos(theta / 2)
+    c = ch.to(CDTYPE)
+    s = torch.complex(torch.zeros_like(sh), -sh)
     return _mat(c, s, s, c)
 
 
 def ry_mat(theta: torch.Tensor) -> torch.Tensor:
-    c = torch.cos(theta / 2).to(CDTYPE)
-    s = torch.sin(theta / 2).to(CDTYPE)
+    sh, ch = xla_trig.sincos(theta / 2)
+    c, s = ch.to(CDTYPE), sh.to(CDTYPE)
     return _mat(c, -s, s, c)
 
 
 def rz_mat(theta: torch.Tensor) -> torch.Tensor:
-    e = torch.exp(-0.5j * theta.to(CDTYPE))
+    # exp(-0.5j·θ) as XLA takes it: cos and sin of -θ/2
+    e = xla_trig.expi(theta * -0.5)
     z = torch.zeros_like(e)
     return _mat(e, z, z, torch.conj(e))
 
@@ -131,10 +137,10 @@ def cz(psi, q1, q2):
 
 
 def crz(psi, theta, control, target):
-    th = _angle(theta, psi).to(CDTYPE)
+    th = _angle(theta, psi)
     g = torch.diag(torch.cat([torch.ones(2, dtype=CDTYPE, device=th.device),
-                              torch.stack([torch.exp(-0.5j * th),
-                                           torch.exp(0.5j * th)])]))
+                              torch.stack([xla_trig.expi(th * -0.5),
+                                           xla_trig.expi(th * 0.5)])]))
     return _apply_2q(psi, g, control, target)
 
 

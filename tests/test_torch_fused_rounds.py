@@ -12,7 +12,7 @@ FedAvg; the JAX package's own fused loop aggregates in float32 and
 misses its host loop on the seed-3 Nelder–Mead configuration), and
 within 2e-6 of the JAX host loop's but on the two Nelder–Mead
 configurations, where the two packages' host loops themselves differ by
-2.6e-6 and 3.1e-6 (``JAX_THETA_ATOL``).
+2.6226e-6 and 3.0994e-6 and are held to twice that (``JAX_THETA_ATOL``).
 
 Population mode and the twins of the host steps are in
 ``tests/test_torch_fused_population.py``.
@@ -93,13 +93,14 @@ def _assert_round_parity(host, fused, atol=1e-5, theta_atol=2e-6):
     np.testing.assert_allclose(fused.theta_g, host.theta_g, atol=theta_atol)
 
 
-# The port's host loop ends the two Nelder-Mead runs 2.6e-6 (QFL) and
-# 3.1e-6 (LLM-QFL) from the JAX host loop's θ_g: float32 arithmetic order
-# in the two packages' local phases, carried through six rounds of branch
-# decisions.  The fused loop is bitwise the port's host loop there (held
-# below), so against JAX these two are held to the port's host-loop
-# tolerance (tests/test_torch_orchestrator.py) and the rest to 2e-6.
-JAX_THETA_ATOL = {"qfl-nm": 1e-4, "llm-qfl-nm-shots": 1e-4}
+# Against the JAX host loop three pairs are held to 2e-6 in θ_g.  The
+# two Nelder-Mead runs end 2.6226e-6 (QFL) and 3.0994e-6 (LLM-QFL) from
+# it, with the tape's sines and cosines now XLA's own (xla_trig) and with
+# its gate products fused as XLA fuses them alike
+# (tools/xla_transcendentals.py): the float32 rounding of |psi|^2 and of
+# the parity readout carries through six rounds of branch decisions.
+# They are held to twice those gaps.
+JAX_THETA_ATOL = {"qfl-nm": 5.3e-6, "llm-qfl-nm-shots": 6.2e-6}
 
 
 @pytest.mark.parametrize("name", list(PAIRS))
